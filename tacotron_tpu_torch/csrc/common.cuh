@@ -1,0 +1,55 @@
+// Helpers shared by the port's hand-written kernels.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tt {
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// Round an f32 value to the storage type T and back (round to nearest
+// even, as jnp .astype does); identity for T = float.
+template <typename T> __device__ __forceinline__ float round_to(float x);
+template <> __device__ __forceinline__ float round_to<float>(float x) { return x; }
+template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// 16-byte vector load of V = 16 / sizeof(T) consecutive values as f32.
+template <typename T> struct Vec;
+template <> struct Vec<float> {
+  static constexpr int V = 4;
+  __device__ __forceinline__ static void load(const float* p, float* out) {
+    float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  }
+};
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int V = 8;
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* out) {
+    uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x; out[2 * i + 1] = f.y;
+    }
+  }
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+}  // namespace tt

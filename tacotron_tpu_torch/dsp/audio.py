@@ -1,0 +1,93 @@
+"""Normalised linear spectrogram -> waveform.
+
+Port of the inversion half of the JAX package's ``dsp/audio.py``:
+denormalise -> dB to amplitude -> magnitude^power sharpening (paper §3.3)
+-> Griffin-Lim phase recovery -> final iSTFT -> inverse pre-emphasis.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tacotron_tpu_torch.config import AudioConfig
+from tacotron_tpu_torch.dsp.dft import gl_spectrum_mm, istft_mm
+from tacotron_tpu_torch.dsp.fused_gl import griffin_lim_spectrum
+
+_PREEMPH_BLOCK = 256
+
+
+def inv_preemphasis(y, coef: float = 0.97):
+    """Inverse IIR filter 1 / (1 - coef z^-1): x[t] = y[t] + coef * x[t-1].
+
+    Blocked form of the first-order recurrence: within each block of
+    ``_PREEMPH_BLOCK`` samples one product with the lower-triangular matrix
+    L[i, j] = coef^(i-j); the carries between blocks, e[k] = a[k] +
+    coef^block * e[k-1], by a log-depth doubling scan; then each block adds
+    coef^(i+1) times the previous block's carry.
+    """
+    n = y.shape[-1]
+    lead = y.shape[:-1]
+    blk = _PREEMPH_BLOCK
+    nb = -(-n // blk)
+    yb = torch.nn.functional.pad(y.float(), (0, nb * blk - n)).reshape(*lead, nb, blk)
+    i = torch.arange(blk, device=y.device, dtype=torch.float64)
+    expo = i[:, None] - i[None, :]
+    tri = torch.where(expo >= 0, coef ** expo.clamp(min=0), 0.0).float()
+    local = yb @ tri.T                          # (..., nb, blk) zero-carry solution
+    carry = local[..., -1]                      # block ends, carry-free
+    c, step = coef ** blk, 1
+    while step < nb:                            # e[k] += c^step * e[k - step]
+        carry = torch.cat([carry[..., :step],
+                           carry[..., step:] + c * carry[..., :-step]], dim=-1)
+        c, step = c * c, step * 2
+    prev = torch.nn.functional.pad(carry[..., :-1], (1, 0))       # carry into block k
+    decay = (coef ** (i + 1)).float()
+    x = local + prev[..., None] * decay
+    return x.reshape(*lead, nb * blk)[..., :n]
+
+
+def db_to_amp(x):
+    return torch.pow(10.0, x * 0.05)
+
+
+def denormalize(s, cfg: AudioConfig):
+    return torch.clamp(s, 0.0, 1.0) * -cfg.min_level_db + cfg.min_level_db
+
+
+def spectrogram_magnitude(s, cfg: AudioConfig):
+    """Normalised linear spectrogram -> sharpened magnitude for GL."""
+    mag = db_to_amp(denormalize(s, cfg) + cfg.ref_level_db)
+    return torch.pow(mag, cfg.griffin_lim_power)
+
+
+def gl_spectrum(mag, cfg: AudioConfig, n_iter: int | None = None):
+    """Griffin-Lim phase recovery on the configured backend -> (re, im).
+
+    ``"pallas"`` is the fused Griffin-Lim kernel port (its plain f32
+    version on CPU tensors); ``"mm_f32"`` the plain matmul-DFT loop."""
+    kw = dict(n_fft=cfg.n_fft, hop_length=cfg.hop_length,
+              win_length=cfg.win_length, momentum=cfg.gl_momentum,
+              n_iter=cfg.griffin_lim_iters if n_iter is None else n_iter)
+    if cfg.gl_backend == "pallas":
+        return griffin_lim_spectrum(mag, **kw)
+    if cfg.gl_backend == "mm_f32":
+        return gl_spectrum_mm(mag, **kw)
+    if cfg.gl_backend in ("mm", "fft"):
+        raise NotImplementedError(
+            f"gl_backend={cfg.gl_backend!r} is not ported yet (ROADMAP.md, "
+            f"port queue: bf16 and fft Griffin-Lim backends); use 'pallas' "
+            f"or 'mm_f32'")
+    raise ValueError(f"unknown gl_backend {cfg.gl_backend!r}")
+
+
+def spectrum_to_wav(re, im, cfg: AudioConfig, length: int | None = None):
+    """Final iSTFT + inverse pre-emphasis."""
+    y = istft_mm(re, im, cfg.n_fft, cfg.hop_length, cfg.win_length, length=length)
+    return inv_preemphasis(y, cfg.preemphasis)
+
+
+def inv_spectrogram(s, cfg: AudioConfig, *, n_iter: int | None = None,
+                    length: int | None = None):
+    """Normalised linear spectrogram (..., frames, n_freq) -> waveform."""
+    re, im = gl_spectrum(spectrogram_magnitude(s, cfg), cfg, n_iter)
+    return spectrum_to_wav(re, im, cfg, length)

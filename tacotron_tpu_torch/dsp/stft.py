@@ -1,0 +1,63 @@
+"""Framing, windowing and overlap-add for the STFT.
+
+Port of the parts of the JAX package's ``dsp/stft.py`` that synthesis
+uses. Conventions follow librosa's, as the reference did: centre-padded
+(reflect), periodic Hann window of ``win_length`` zero-padded (centred) to
+``n_fft``, one-sided transform.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def hann_window(win_length: int) -> np.ndarray:
+    """Periodic (sym=False) Hann window, as librosa/scipy ``hann``."""
+    n = np.arange(win_length)
+    return 0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)
+
+
+def padded_window(win_length: int, n_fft: int) -> np.ndarray:
+    """Window centred in an n_fft-long buffer: ``lpad = (n_fft - win)//2``
+    zeros on the left (librosa pad_center)."""
+    lpad = (n_fft - win_length) // 2
+    w = np.zeros(n_fft)
+    w[lpad:lpad + win_length] = hann_window(win_length)
+    return w
+
+
+def frame_signal(y, n_fft: int, hop_length: int, center: bool = True):
+    """(..., T) -> (..., frames, n_fft) overlapping frames; ``center``
+    reflect-pads by n_fft//2 first."""
+    if center:
+        pad = n_fft // 2
+        lead = y.shape[:-1]
+        y = F.pad(y.reshape(-1, 1, y.shape[-1]), (pad, pad),
+                  mode="reflect").reshape(*lead, -1)
+    return y.unfold(-1, n_fft, hop_length)
+
+
+def overlap_add(frames_t, hop_length: int):
+    """OLA: (..., F, n_fft) -> (..., n_fft + hop*(F-1)) as m = ceil(n_fft /
+    hop) shifted adds of hop-sized chunks (a fixed summation order)."""
+    *batch, f, n_fft = frames_t.shape
+    m = -(-n_fft // hop_length)
+    fr = F.pad(frames_t, (0, m * hop_length - n_fft)).reshape(*batch, f, m, hop_length)
+    out = frames_t.new_zeros(*batch, f + m, hop_length)
+    for j in range(m):
+        out[..., j:j + f, :] += fr[..., :, j, :]
+    total = n_fft + hop_length * (f - 1)
+    return out.reshape(*batch, (f + m) * hop_length)[..., :total]
+
+
+def window_sumsquare(win_length: int, n_fft: int, hop_length: int,
+                     n_frames: int) -> np.ndarray:
+    """Sum over frames of the squared window, (n_fft + hop*(F-1),), f64."""
+    win = padded_window(win_length, n_fft)
+    total = n_fft + hop_length * (n_frames - 1)
+    wss = np.zeros(total)
+    for f in range(n_frames):
+        wss[f * hop_length:f * hop_length + n_fft] += win * win
+    return wss

@@ -1,0 +1,53 @@
+"""Bahdanau (additive, content-based) attention.
+
+Port of the JAX package's ``ops/attention.py`` ("xla" energy form only):
+
+    score(q, m_j) = v^T tanh(W_q q + W_m m_j)
+    alpha = softmax(score) over encoder time (masked to text length)
+    context = sum_j alpha_j m_j
+
+This is the plain oracle for the attention inside the fused decode kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from tacotron_tpu_torch.ops.modules import Dense
+
+NEG_INF = -1e9
+
+
+class BahdanauAttention(nn.Module):
+    """``memory_dim`` adds the ``memory`` projection (``process_memory``);
+    the decoder omits it, since Tacotron computes the keys once outside the
+    decode loop (``memory_proj``)."""
+
+    def __init__(self, query_dim: int, dim: int = 256,
+                 memory_dim: int | None = None, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.query = Dense(query_dim, dim, bias=False, device=device, dtype=dtype)
+        self.memory = (Dense(memory_dim, dim, bias=False, device=device,
+                             dtype=dtype) if memory_dim is not None else None)
+        self.v = nn.Parameter(torch.empty(dim, 1, device=device, dtype=dtype))
+
+    def process_memory(self, memory):
+        """(B, T_in, D_mem) -> keys (B, T_in, dim)."""
+        return self.memory(memory)
+
+    def full_step(self, query, memory, mask=None):
+        return self(query, self.process_memory(memory), memory, mask)
+
+    def forward(self, query, keys, memory, mask=None):
+        """query (B, D_q); keys (B, T_in, dim); memory (B, T_in, D_mem);
+        mask (B, T_in) bool, True = valid. Returns (context (B, D_mem),
+        alignment (B, T_in))."""
+        q = self.query(query)
+        scores = (torch.tanh(keys + q[:, None, :]) @ self.v).squeeze(-1)
+        if mask is not None:
+            scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+        alignment = torch.softmax(scores, dim=-1)
+        context = torch.einsum("bt,btd->bd", alignment, memory.float())
+        return context, alignment

@@ -1,0 +1,194 @@
+"""Reusable Tacotron building blocks: dense, conv, prenet, batch norm, conv
+bank, conv projections, highway.
+
+Port of the JAX package's ``ops/modules.py``. Activations keep the JAX
+layout (B, T, C); convolutions transpose to PyTorch's (B, C, T) inside.
+Parameters are created empty (``torch.empty``) with an explicit device and
+dtype: weights come from ``weights.from_flax`` or ``weights.init_params``,
+so constructing a module draws no random numbers.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class Dense(nn.Module):
+    """y = x W^T + b with W (out, in): flax ``Dense`` with its kernel
+    transposed to PyTorch's Linear layout."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 *, device=None, dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features,
+                                               device=device, dtype=dtype))
+        self.bias = (nn.Parameter(torch.empty(out_features, device=device,
+                                              dtype=dtype)) if bias else None)
+
+    def forward(self, x):
+        return F.linear(x, self.weight, self.bias)
+
+
+class Conv1d(nn.Module):
+    """Bias-free stride-1 SAME conv over (B, T, C_in) -> (B, T, C_out).
+    Weight (C_out, C_in, W); SAME pads (W-1)//2 on the left, like flax."""
+
+    def __init__(self, in_ch: int, out_ch: int, width: int, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, width,
+                                               device=device, dtype=dtype))
+
+    def forward(self, x):
+        return conv1d_same(x, self.weight)
+
+
+def conv1d_same(x, weight):
+    """(B, T, C_in) x (C_out, C_in, W) -> (B, T, C_out), flax SAME padding."""
+    w = weight.shape[-1]
+    left = (w - 1) // 2
+    xt = F.pad(x.transpose(1, 2), (left, w - 1 - left))
+    return F.conv1d(xt, weight).transpose(1, 2)
+
+
+def dropout(x, rate: float, generator: torch.Generator | None):
+    """Inverted dropout that draws its mask from ``generator``: keep with
+    probability 1 - rate, scaled by 1/(1 - rate); rate 0 is a no-op."""
+    if rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    scale = 1.0 / keep if keep > 0 else 0.0
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(u < keep, x * scale, torch.zeros_like(x))
+
+
+class Prenet(nn.Module):
+    """FC-ReLU-dropout stack; dropout is active at train AND inference
+    (paper §3.2), unless ``deterministic``."""
+
+    def __init__(self, in_dim: int, dims: Sequence[int] = (256, 128),
+                 dropout: float = 0.5, deterministic: bool = False, *,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        self.rate = dropout
+        self.deterministic = deterministic
+        self.n = len(dims)
+        d_in = in_dim
+        for i, d in enumerate(dims):
+            self.add_module(f"fc{i}", Dense(d_in, d, device=device, dtype=dtype))
+            d_in = d
+
+    def forward(self, x, generator: torch.Generator | None = None):
+        rate = 0.0 if self.deterministic else self.rate
+        for i in range(self.n):
+            x = dropout(torch.relu(getattr(self, f"fc{i}")(x)), rate, generator)
+        return x
+
+
+class BatchNorm(nn.Module):
+    """Inference batch norm over the channel axis of (B, T, C) with running
+    statistics and flax's epsilon 1e-3 (flax momentum 0.99 matters only in
+    training)."""
+
+    eps = 1e-3
+
+    def __init__(self, features: int, *, device=None, dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(features, device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.empty(features, device=device, dtype=dtype))
+        self.register_buffer("running_mean",
+                             torch.zeros(features, device=device, dtype=dtype))
+        self.register_buffer("running_var",
+                             torch.ones(features, device=device, dtype=dtype))
+
+    def forward(self, x):
+        # flax order: (x - mean) * (scale * rsqrt(var + eps)) + bias
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return (x - self.running_mean) * mul + self.bias
+
+
+class ConvBank(nn.Module):
+    """K parallel SAME convs of widths 1..K, each ``channels`` wide, then a
+    per-width batch norm and ReLU, concatenated on the channel axis.
+
+    Parameters keep the JAX layout ``conv{w}`` / ``bn{w}``. The forward pass
+    packs all K kernels into one width-K conv: each width's taps sit at the
+    offset its own SAME padding implies, the rest are zeros."""
+
+    def __init__(self, k: int, in_ch: int, channels: int, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.k, self.channels = k, channels
+        for w in range(1, k + 1):
+            self.add_module(f"conv{w}", Conv1d(in_ch, channels, w,
+                                               device=device, dtype=dtype))
+            self.add_module(f"bn{w}", BatchNorm(channels, device=device,
+                                                dtype=dtype))
+
+    def packed_weight(self):
+        k, ch = self.k, self.channels
+        first = self.conv1.weight
+        big = first.new_zeros(k * ch, first.shape[1], k)
+        left_k = (k - 1) // 2
+        for w in range(1, k + 1):
+            off = left_k - (w - 1) // 2
+            big[(w - 1) * ch:w * ch, :, off:off + w] = getattr(self, f"conv{w}").weight
+        return big
+
+    def forward(self, x):
+        y = conv1d_same(x, self.packed_weight())
+        ch = self.channels
+        return torch.cat([torch.relu(getattr(self, f"bn{w}")(y[..., (w - 1) * ch:w * ch]))
+                          for w in range(1, self.k + 1)], dim=-1)
+
+
+class Conv1dProjection(nn.Module):
+    """Width-3 conv projections after the bank: the first ReLU, the second
+    linear, each batch-normed."""
+
+    def __init__(self, in_ch: int, dims: Sequence[int],
+                 activations: Sequence[str | None] = ("relu", None), *,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        self.activations = tuple(activations)
+        self.n = len(dims)
+        c = in_ch
+        for i, d in enumerate(dims):
+            self.add_module(f"proj{i}", Conv1d(c, d, 3, device=device, dtype=dtype))
+            self.add_module(f"bn{i}", BatchNorm(d, device=device, dtype=dtype))
+            c = d
+
+    def forward(self, x):
+        for i, act in zip(range(self.n), self.activations):
+            x = getattr(self, f"bn{i}")(getattr(self, f"proj{i}")(x))
+            if act == "relu":
+                x = torch.relu(x)
+        return x
+
+
+class HighwayStack(nn.Module):
+    """N highway layers, H(x)*T(x) + x*(1-T(x)); a Dense resize precedes the
+    stack when the input width differs from ``dim``."""
+
+    def __init__(self, in_dim: int, layers: int = 4, dim: int = 128, *,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        self.layers = layers
+        self.resize = (Dense(in_dim, dim, device=device, dtype=dtype)
+                       if in_dim != dim else None)
+        for i in range(layers):
+            self.add_module(f"H{i}", Dense(dim, dim, device=device, dtype=dtype))
+            self.add_module(f"T{i}", Dense(dim, dim, device=device, dtype=dtype))
+
+    def forward(self, x):
+        if self.resize is not None:
+            x = self.resize(x)
+        for i in range(self.layers):
+            h = torch.relu(getattr(self, f"H{i}")(x))
+            t = torch.sigmoid(getattr(self, f"T{i}")(x))
+            x = h * t + x * (1.0 - t)
+        return x
