@@ -13,16 +13,29 @@ Phases, in order; any failure raises and exits non-zero:
    the fused decode (full synth_gl1000 widths, B 8, T_in ~120, 50 steps)
    in f32 and bf16 storage, its dropout keep rate and seed dependence; the
    Griffin-Lim kernel at 2048/275/1102, B 4, F 400, 10 iterations, momentum
-   0 and 0.99; and a small end-to-end check, the fused Synthesizer against
-   the step-by-step one with every plain version;
-4. the main path: ``Synthesizer(fused=True)`` at the synth_gl1000 config
-   (256-d model, r 2, 500 decode steps, Griffin-Lim 1000) on 8 prompts with
-   seeded random weights: one warm call, then one timed call with the
-   launch counts set to 0 just before it; per-stage milliseconds and
-   audio-seconds per second;
-5. each kernel's time at the main path's shapes beside its plain version,
-   a library yardstick and its bound; one JSON line with them;
-6. last line: {"ok": true, "device": {...}}.
+   0 and 0.99; a small end-to-end check, the fused Synthesizer against
+   the step-by-step one with every plain version; the attention energy
+   (K1) and its backward (K2) at B 32, T_in 128, A 256 against autograd
+   through the plain formula; and the teacher-forced loss and every
+   parameter gradient on the tiny config through K1/K2 against the plain
+   formula, for both decoder forms, with and without remat;
+4. the synthesis path: ``Synthesizer(fused=True)`` at the synth_gl1000
+   config (256-d model, r 2, 500 decode steps, Griffin-Lim 1000) on 8
+   prompts with seeded random weights: one warm call, then one timed call
+   with the launch counts set to 0 just before it; per-stage milliseconds
+   and audio-seconds per second;
+5. K3's and K4's time at that path's shapes beside its plain version, a
+   library yardstick and its bound;
+6. the training path: ``create_train_state`` + ``train_step`` at the
+   full_1chip widths (hoisted teacher-forced decoder, fused energy, remat,
+   f32) on B 32, T_in 128, T_out 400: one warm step, then 5 timed steps
+   with the launch counts set to 0 just before them; step milliseconds,
+   train frames per second, peak memory and a forward / backward /
+   optimizer split; the device's busy share of one profiled step; the
+   same steps through the plain energy, interleaved with the fused ones;
+7. K1's and K2's time at that path's shapes beside the plain version and
+   the bound; one JSON line with all four kernels;
+8. last line: {"ok": true, "device": {...}}.
 
 ``--report PATH`` also writes every check and measurement as JSON.
 """
@@ -53,6 +66,11 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 # the plain loop, as tests/unit/test_pallas_gl.py holds its kernels:
 # magnitude error <= plain's * 1.05 + 1e-3
 MAIN_TOL = {"decode": 2e-2, "griffin_lim": 5e-2}
+# K1/K2 vs autograd through the plain formula, f32 (summation order only):
+# max abs error of e, dkeys, dq and dv each within this fraction of its peak
+ENERGY_TOL = 1e-5
+# the training main path: full_1chip widths, B 32, T_in 128, T_out 400
+TRAIN_B, TRAIN_T_IN, TRAIN_T_OUT, TRAIN_STEPS = 32, 128, 400, 5
 
 PROMPTS = [
     "The birch canoe slid on the smooth planks, and the boy glued the sheet to the dark blue background.",
@@ -89,7 +107,22 @@ def cuda_ms(fn, reps: int = 1) -> float:
 
 
 def max_err(a, b) -> float:
-    return float((a.float() - b.float()).abs().max())
+    return float((a.detach().float() - b.detach().float()).abs().max())
+
+
+def device_kernels(fn, reps: int = 1):
+    """Run ``fn`` ``reps`` times under torch.profiler -> {kernel name:
+    (device ms per rep, launches per rep)}, device-side events only."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.self_device_time_total / 1e3 / reps, e.count / reps)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
 
 
 def require(ok: bool, what: str):
@@ -249,6 +282,94 @@ def phase_kernels(report):
     return cfg, vocab
 
 
+def energy_inputs(dev, b, t, a, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    keys, q = torch.randn(b, t, a, generator=g), torch.randn(b, a, generator=g)
+    v, de = torch.randn(a, 1, generator=g) * 0.3, torch.randn(b, t, generator=g)
+    return [x.to(dev) for x in (keys, q, v, de)]
+
+
+def energy_check(keys, q, v, de):
+    """K1/K2 against autograd through the plain formula on the same
+    inputs -> {name: (max abs error, peak)} for e, dkeys, dq, dv, and dv of
+    a second run."""
+    from tacotron_tpu_torch.ops.attn_energy import attention_energy, attention_energy_reference
+    leaves = [x.detach().clone().requires_grad_(True) for x in (keys, q, v)]
+    e = attention_energy(*leaves)
+    got = (e, *torch.autograd.grad(e, leaves, de))
+    dv2 = torch.autograd.grad(attention_energy(*leaves), leaves, de)[2]
+    ref_leaves = [x.detach().clone().requires_grad_(True) for x in (keys, q, v)]
+    e_ref = attention_energy_reference(*ref_leaves)
+    want = (e_ref, *torch.autograd.grad(e_ref, ref_leaves, de))
+    torch.cuda.synchronize()
+    out = {n: (max_err(g, w), float(w.detach().abs().max()))
+           for n, g, w in zip(("e", "dkeys", "dq", "dv"), got, want)}
+    return out, torch.equal(dv2, got[3])
+
+
+def phase_energy(report):
+    log("[K1/K2] attention energy and its backward vs autograd through the plain "
+        "formula, B 32, T_in 128, A 256, f32")
+    errs, same_dv = energy_check(*energy_inputs(torch.device("cuda"), 32, 128, 256))
+    report["checks"]["attn_energy"] = {"errors": errs, "dv_bit_identical": same_dv,
+                                       "tol_of_peak": ENERGY_TOL}
+    for n, (err, peak) in errs.items():
+        log(f"  {n}: max abs err {err:.3e} (peak {peak:.3f})")
+        require(err <= ENERGY_TOL * peak, f"{n} within {ENERGY_TOL} of its peak")
+    require(same_dv, "dv bit-identical across two runs")
+
+
+def phase_train_e2e(report):
+    from tacotron_tpu_torch import runtime
+    from tacotron_tpu_torch.config import get_config
+    from tacotron_tpu_torch.models.tacotron import Tacotron
+    from tacotron_tpu_torch.train.loss import tacotron_loss
+    from tacotron_tpu_torch.weights import init_params
+
+    dev = torch.device("cuda")
+    log("[train-e2e] tiny config, dropout 0, B 3, 4 decoder steps: loss and every "
+        "parameter gradient, fused (K1/K2) vs xla (plain)")
+    base = dataclasses.replace(get_config("tiny_cpu").model, vocab_size=32, prenet_dropout=0.0)
+    g = torch.Generator().manual_seed(3)
+    text = torch.randint(1, 30, (3, 9), generator=g).to(dev)
+    lengths = torch.tensor([9, 6, 4], device=dev)
+    mel = torch.rand(3, 20, 80, generator=g).to(dev)
+    linear = torch.rand(3, 20, base.n_freq, generator=g).to(dev)
+    checks = report["checks"].setdefault("train_e2e", {})
+    for form in ("scan", "hoisted"):
+        for remat in (False, True):
+            res = {}
+            for energy in ("xla", "fused"):
+                cfg = dataclasses.replace(base, tf_decoder=form, remat_decoder=remat,
+                                          attention_energy=energy)
+                model = init_params(Tacotron(cfg, device=dev), seed=0).train()
+                before = dict(runtime.LAUNCHES)
+                o = model(text, lengths, gt_mel=mel)
+                loss, _ = tacotron_loss(o.mel, o.linear, mel, linear)
+                loss.backward()
+                torch.cuda.synchronize()
+                n = {k: runtime.LAUNCHES[k] - before.get(k, 0)
+                     for k in ("attn_energy_fwd", "attn_energy_bwd")}
+                res[energy] = (loss.item(), {k: p.grad for k, p in model.named_parameters()}, n)
+            name = f"{form}_remat{int(remat)}"
+            loss_rel = abs(res["fused"][0] - res["xla"][0]) / abs(res["xla"][0])
+            worst = max(float((res["fused"][1][k] - w).abs().max()) / (float(w.abs().max()) + 1e-12)
+                        for k, w in res["xla"][1].items())
+            checks[name] = {"loss_rel_err": loss_rel, "worst_grad_err_of_peak": worst,
+                            "launches": res["fused"][2]}
+            log(f"  {name}: loss rel err {loss_rel:.3e}, worst grad err / peak {worst:.3e}, "
+                f"launches {res['fused'][2]}")
+            require(res["fused"][2] == {"attn_energy_fwd": 4 * (1 + remat), "attn_energy_bwd": 4}
+                    and res["xla"][2] == {"attn_energy_fwd": 0, "attn_energy_bwd": 0},
+                    f"{name}: K1 {4 * (1 + remat)} and K2 4 launches through fused, none through xla")
+            require(loss_rel <= 1e-5, f"{name}: loss within rel 1e-5")
+            for k, w in res["xla"][1].items():
+                err = float((res["fused"][1][k] - w).abs().max())
+                if err > 1e-4 * float(w.abs().max()) + 1e-7:
+                    raise AssertionError(f"{name}: gradient {k} off by {err:.3e}")
+            log(f"  ok: {name}: every gradient within 1e-4 of its peak + 1e-7")
+
+
 def phase_main(report, cfg, vocab):
     from tacotron_tpu_torch import runtime
     from tacotron_tpu_torch.infer.synthesize import STAGES, Synthesizer
@@ -382,6 +503,185 @@ def phase_timing(report, synth, out, launches):
     return [dec, gl]
 
 
+def phase_train(report):
+    from tacotron_tpu_torch import runtime
+    from tacotron_tpu_torch.config import get_config
+    from tacotron_tpu_torch.train import create_train_state, train_step
+    from tacotron_tpu_torch.train.step import STAGES
+
+    dev = torch.device("cuda")
+    base = get_config("full_1chip")
+    cfg = base.replace(model=dataclasses.replace(
+        base.model, tf_decoder="hoisted", attention_energy="fused", remat_decoder=True))
+    b, t_in, t_out = TRAIN_B, TRAIN_T_IN, TRAIN_T_OUT
+    n_dec = t_out // cfg.model.r
+    log(f"[train] train_step, full_1chip widths, hoisted + fused + remat, f32, "
+        f"B {b}, T_in {t_in}, T_out {t_out}: 1 warm step, {TRAIN_STEPS} timed")
+    state = create_train_state(cfg, seed=0)
+    g = torch.Generator().manual_seed(0)         # the batch as bench.py makes it
+    batch = [torch.randint(1, 60, (b, t_in), generator=g),
+             torch.full((b,), t_in), torch.rand(b, t_out, cfg.model.n_mels, generator=g),
+             torch.rand(b, t_out, cfg.model.n_freq, generator=g), torch.full((b,), t_out)]
+    batch = [x.to(dev) for x in batch]
+    t0 = time.perf_counter()
+    state, m, _ = train_step(state, *batch, cfg=cfg)
+    first = float(m["total_loss"])
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    runtime.LAUNCHES.clear()
+    step_ms, stages, losses = [], [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m, align = train_step(state, *batch, cfg=cfg, stage_ms=True)
+        losses.append(float(m["total_loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        stages.append(m["stage_ms"])
+    launches = dict(runtime.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    med = float(np.median(step_ms))
+    fps = b * t_out / (med / 1e3)
+    split = {s_: float(np.median([st[s_] for st in stages])) for s_ in STAGES}
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    log(f"  warm step {warm_s:.3f} s; losses {first:.5f} (warm) -> {losses}")
+    log(f"  step ms median {med:.3f}, range {min(step_ms):.3f}-{max(step_ms):.3f} "
+        f"over {TRAIN_STEPS} steps")
+    log(f"  train frames/s {fps:.1f} (= {b} x {t_out} / median step s)")
+    log(f"  split (median ms, CUDA events): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    log(f"  max_memory_allocated {peak / 2**30:.3f} GiB")
+    log(f"  launches per step {per_step} ({n_dec} decoder steps)")
+    require(all(np.isfinite(losses)) and np.isfinite(first), "losses finite")
+    require(losses[-1] < first, "last loss below the first")
+    require(tuple(align.shape) == (b, n_dec, t_in) and bool(torch.isfinite(align).all()),
+            f"alignments finite, shape {(b, n_dec, t_in)}")
+    require(per_step.get("attn_energy_fwd") == 2 * n_dec and per_step.get("attn_energy_bwd") == n_dec,
+            f"K1 {2 * n_dec} launches per step (forward + remat recompute), K2 {n_dec}")
+    report["train"] = {"step_ms": step_ms, "step_ms_median": med, "train_frames_per_s": fps,
+                       "split_ms_median": split, "max_memory_allocated": peak,
+                       "losses": [first] + losses, "warm_s": warm_s,
+                       "launches": launches, "launches_per_step": per_step}
+    report["train"]["profile"] = profile_step(state, batch, cfg, med)
+    report["train"]["fused_vs_xla_step_ms"] = compare_energy_forms(state, batch, cfg)
+    return state, batch, launches
+
+
+def compare_energy_forms(state, batch, cfg, pairs: int = 3):
+    """Step milliseconds of the same training steps through the fused
+    energy and through the plain one (same weights), in the order fused,
+    xla, xla, fused, repeated: the host's noise falls on both alike."""
+    from tacotron_tpu_torch.train import create_train_state, train_step
+    xcfg = cfg.replace(model=dataclasses.replace(cfg.model, attention_energy="xla"))
+    runs = {"fused": [state, cfg, []], "xla": [create_train_state(xcfg, seed=0), xcfg, []]}
+    runs["xla"][0].model.load_state_dict(state.model.state_dict())
+    runs["xla"][0] = train_step(runs["xla"][0], *batch, cfg=xcfg)[0]     # warm
+    for _ in range(pairs):
+        for form in ("fused", "xla", "xla", "fused"):
+            st, c, ms = runs[form]
+            t0 = time.perf_counter()
+            st, m, _ = train_step(st, *batch, cfg=c)
+            float(m["total_loss"])
+            ms.append((time.perf_counter() - t0) * 1e3)
+            runs[form][0] = st
+    out = {form: r[2] for form, r in runs.items()}
+    log("  fused vs xla energy, same steps interleaved: " + ", ".join(
+        f"{f} median {np.median(v):.3f} ms (range {min(v):.3f}-{max(v):.3f})"
+        for f, v in out.items()))
+    return out
+
+
+def profile_step(state, batch, cfg, step_ms):
+    """One training step under torch.profiler: the kernels' device time,
+    its share of the unprofiled median step (the device's busy share), and
+    the kernels with the most device time."""
+    from tacotron_tpu_torch.train import train_step
+    rows = sorted(device_kernels(lambda: train_step(state, *batch, cfg=cfg)).items(),
+                  key=lambda r: -r[1][0])
+    busy = sum(ms for _, (ms, _) in rows)
+    launches = sum(n for _, (_, n) in rows)
+    log(f"  profile: device busy {busy:.3f} ms in {launches:.0f} kernel launches = "
+        f"{100 * busy / step_ms:.1f}% of the median step ({step_ms:.3f} ms)")
+    for k, (ms, n) in rows[:15]:
+        log(f"    {ms:9.3f} ms  {n:6.0f}x  {k[:100]}")
+    return {"device_busy_ms": busy, "kernel_launches": launches,
+            "busy_share_of_median_step": busy / step_ms,
+            "top": [{"name": k, "ms": ms, "count": n} for k, (ms, n) in rows[:30]]}
+
+
+def phase_train_timing(report, state, batch, launches):
+    from tacotron_tpu_torch.ops.attn_energy import (attention_energy_reference, energy_bwd,
+                                                    energy_fwd)
+
+    dev = torch.device("cuda")
+    m = state.model
+    log("[timing] K1/K2 at the training path's shapes")
+    with torch.no_grad():
+        text, lengths = batch[0], batch[1]
+        keys = m.memory_proj(m.encoder(text, lengths))
+        h = torch.tanh(torch.randn(keys.shape[0], m.cfg.attention_gru_dim,
+                                   generator=torch.Generator().manual_seed(1))).to(dev)
+        q = m.decoder.cell.attention.query(h)
+        v = m.decoder.cell.attention.v.detach()
+    de = torch.randn(keys.shape[:2], generator=torch.Generator().manual_seed(2)).to(dev)
+    errs, same_dv = energy_check(keys, q, v, de)
+    report["checks"]["attn_energy_main_shapes"] = {"errors": errs, "dv_bit_identical": same_dv}
+    for n, (err, peak) in errs.items():
+        log(f"  {n} at main shapes: max abs err {err:.3e} (peak {peak:.3f})")
+        require(err <= ENERGY_TOL * peak, f"{n} at main shapes within {ENERGY_TOL} of its peak")
+    require(same_dv, "dv bit-identical across two runs at main shapes")
+
+    # ms: the kernels' device time per call (torch.profiler); call_ms: CUDA
+    # events around back-to-back calls, the Python wrapper included, which
+    # is what a host-bound step pays per call
+    reps = 200
+    leaves = [x.detach().clone().requires_grad_(True) for x in (keys, q, v)]
+    e_ref = attention_energy_reference(*leaves)
+    calls = {"fwd": lambda: energy_fwd(keys, q, v),
+             "fwd_plain": lambda: attention_energy_reference(keys, q, v),
+             "bwd": lambda: energy_bwd(keys, q, v, de),
+             "bwd_plain": lambda: torch.autograd.grad(e_ref, leaves, de, retain_graph=True)}
+    dev_ms, call_ms = {}, {}
+    for name, fn in calls.items():
+        with torch.no_grad() if name != "bwd_plain" else torch.enable_grad():
+            fn()
+            call_ms[name] = cuda_ms(fn, reps)
+            kern = device_kernels(fn, reps)
+        dev_ms[name] = sum(ms for ms, _ in kern.values())
+        log(f"  {name}: device {dev_ms[name] * 1e3:.2f} us per call in "
+            f"{sum(n for _, n in kern.values()):.0f} kernels; {call_ms[name] * 1e3:.2f} us "
+            f"per call with the host")
+    f_ms, fp_ms, b_ms, bp_ms = (dev_ms[k] for k in ("fwd", "fwd_plain", "bwd", "bwd_plain"))
+    b, t, a = keys.shape
+    el = b * t * a
+    # K1: keys, q, v read, e written; add, tanh, multiply, accumulate per element.
+    # K2: keys, q, v, de read, dkeys, dq, dv written; add, tanh, 1 - t^2,
+    # de * v, times (1 - t^2), dq accumulate, t * de, dv accumulate per element.
+    fb = bound((el + b * a + a + b * t) * 4, 4 * el, PEAK_FLOPS["f32"])
+    bb = bound((2 * el + 2 * b * a + 2 * a + b * t) * 4, 9 * el, PEAK_FLOPS["f32"])
+    per_step = {k: launches.get(k, 0) / TRAIN_STEPS for k in ("attn_energy_fwd", "attn_energy_bwd")}
+    shape = f"B {b} T_in {t} A {a} f32"
+    k1 = {"name": "attn_energy_fwd", "route": "cuda",
+          "source": "tacotron_tpu_torch/csrc/attn_energy.cu",
+          "replaces": "tacotron_tpu/ops/pallas/attn_energy.py:63",
+          "launches": launches.get("attn_energy_fwd", 0), "max_abs_err": errs["e"][0],
+          "ms": f_ms, "plain_ms": fp_ms, "bound_ms": fb[0], "bound_by": fb[1],
+          "library_ms": None, "shape": shape, "call_ms": call_ms["fwd"],
+          "plain_call_ms": call_ms["fwd_plain"],
+          "ms_per_step": f_ms * per_step["attn_energy_fwd"]}
+    k2 = {"name": "attn_energy_bwd", "route": "cuda",
+          "source": "tacotron_tpu_torch/csrc/attn_energy.cu",
+          "replaces": "tacotron_tpu/ops/pallas/attn_energy.py:69",
+          "launches": launches.get("attn_energy_bwd", 0),
+          "max_abs_err": max(errs[n][0] for n in ("dkeys", "dq", "dv")),
+          "ms": b_ms, "plain_ms": bp_ms, "bound_ms": bb[0], "bound_by": bb[1],
+          "library_ms": None, "shape": shape, "call_ms": call_ms["bwd"],
+          "plain_call_ms": call_ms["bwd_plain"],
+          "ms_per_step": b_ms * per_step["attn_energy_bwd"]}
+    for k in (k1, k2):
+        log(f"  {k['name']}: {k['ms'] * 1e3:.2f} us per launch, {k['ms_per_step']:.3f} ms per "
+            f"step on the device (plain {k['plain_ms'] * 1e3:.2f} us, bound "
+            f"{k['bound_ms'] * 1e3:.2f} us by {k['bound_by']}, library none)")
+    return [k1, k2]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -410,10 +710,15 @@ def main(argv=None) -> int:
             log(f"  ptxas: {ln.strip()}")
 
     cfg, vocab = phase_kernels(report)
+    phase_energy(report)
+    phase_train_e2e(report)
     kernels = None
     if not args.quick:
         synth, out, launches = phase_main(report, cfg, vocab)
         kernels = phase_timing(report, synth, out, launches)
+        del synth, out
+        state, batch, train_launches = phase_train(report)
+        kernels = phase_train_timing(report, state, batch, train_launches) + kernels
         report["kernels"] = kernels
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)

@@ -6,9 +6,8 @@ parses here unchanged (``Config.from_json`` is strict about unknown keys).
 Values trace to the Tacotron paper (arXiv 1703.10135, Table 1 / §3) unless
 noted; LJSpeech audio parameters follow the common 22.05 kHz convention.
 
-Some fields only steer the JAX implementation (scan unroll factors, remat,
-bank groups, the attention-energy switch); they are kept so configs
-round-trip, and the port ignores them.
+Some fields only steer the JAX implementation (scan unroll factors, bank
+groups); they are kept so configs round-trip, and the port ignores them.
 """
 
 from __future__ import annotations
@@ -88,14 +87,17 @@ class ModelConfig:
     bank_groups: int = 1              # JAX packed conv-bank split (ignored here)
     scan_unroll: int = 8              # JAX lax.scan unroll (ignored here)
     gru_scan_unroll: int = 4          # JAX lax.scan unroll (ignored here)
-    remat_decoder: bool = False       # JAX training remat (ignored here)
+    # training: recompute each decoder step in backward (torch.utils.checkpoint)
+    remat_decoder: bool = False
     param_dtype: str = "float32"
     # Computation dtype for matmuls/convs; params, state, BN stats, softmax
     # and loss stay f32.
     compute_dtype: str = "float32"
-    tf_decoder: str = "scan"          # teacher-forced decoder form (training)
-    attention_energy: str = "xla"     # training-decoder energy form
-    remat_policy: str = "all"         # JAX remat policy (ignored here)
+    tf_decoder: str = "scan"          # teacher-forced decoder form: "scan" | "hoisted"
+    # attention energy: "xla" (the plain formula) | "fused" (kernels K1/K2
+    # on CUDA tensors)
+    attention_energy: str = "xla"
+    remat_policy: str = "all"         # only "all" is ported; "save_attn" raises
 
     @property
     def memory_dim(self) -> int:

@@ -1,12 +1,24 @@
-"""Attention decoder, feed-previous (inference) mode: r mel frames per step.
+"""Attention decoder: r mel frames per step, teacher-forced or feed-previous.
 
-Port of the JAX package's ``models/decoder.py`` (``DecoderCell`` and the
-feed-previous ``Decoder`` loop; teacher forcing belongs to the training
-slice). Per step: prenet(previous r-th frame) feeds the attention GRU,
-whose state queries Bahdanau attention; [attention-GRU output, context] is
-projected to ``decoder_gru_dim`` and passed through residual GRUs; a final
-Dense emits r*n_mels. No stop token: inference runs a fixed number of steps
-(paper §3.2). The attention keys are computed once outside the loop.
+Port of the JAX package's ``models/decoder.py``. Per step: prenet(previous
+r-th frame) feeds the attention GRU, whose state queries Bahdanau
+attention; [attention-GRU output, context] is projected to
+``decoder_gru_dim`` and passed through residual GRUs; a final Dense emits
+r*n_mels. No stop token: inference runs a fixed number of steps (paper
+§3.2). The attention keys are computed once outside the loop.
+
+Teacher forcing (training) feeds the last ground-truth frame of the
+previous group instead of the last prediction, in one of two forms that
+share the parameters (``ModelConfig.tf_decoder``):
+
+* ``"scan"``: ``DecoderCell`` step by step, as in inference;
+* ``"hoisted"``: ``hoisted_teacher_forced``, the same math with every
+  state-independent product taken out of the loop.
+
+``remat_decoder`` recomputes each step in the backward pass
+(``torch.utils.checkpoint``) instead of keeping its activations. Dropout
+masks are drawn outside the recomputed step, so the recomputation sees the
+same masks without touching the generator.
 """
 
 from __future__ import annotations
@@ -14,12 +26,16 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tacotron_tpu_torch.config import ModelConfig
-from tacotron_tpu_torch.ops.attention import BahdanauAttention
+from tacotron_tpu_torch.ops.attention import NEG_INF, BahdanauAttention, energy_scores
 from tacotron_tpu_torch.ops.gru import GRUCell
-from tacotron_tpu_torch.ops.modules import Dense, Prenet
+from tacotron_tpu_torch.ops.modules import Dense, Prenet, dropout
+
+TF_DECODER_FORMS = ("scan", "hoisted")
 
 
 class DecoderState(NamedTuple):
@@ -29,8 +45,15 @@ class DecoderState(NamedTuple):
     prev_frame: torch.Tensor         # last emitted mel frame (B, n_mels)
 
 
+def _remat(fn, *args):
+    # the step draws no random numbers (its dropout masks are arguments),
+    # so the global RNG state need not be saved for the recomputation
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 class DecoderCell(nn.Module):
-    """One feed-previous decode step."""
+    """One decode step, shared by the feed-previous and teacher-forced
+    modes."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=torch.float32):
         super().__init__()
@@ -39,7 +62,8 @@ class DecoderCell(nn.Module):
         p1 = cfg.prenet_dims[-1]
         self.prenet = Prenet(cfg.n_mels, cfg.prenet_dims, cfg.prenet_dropout, **kw)
         self.attention_gru = GRUCell(p1 + cfg.memory_dim, cfg.attention_gru_dim, **kw)
-        self.attention = BahdanauAttention(cfg.attention_gru_dim, cfg.attention_dim, **kw)
+        self.attention = BahdanauAttention(cfg.attention_gru_dim, cfg.attention_dim,
+                                           energy=cfg.attention_energy, **kw)
         self.decoder_input_proj = Dense(cfg.attention_gru_dim + cfg.memory_dim,
                                         cfg.decoder_gru_dim, **kw)
         for i in range(cfg.decoder_depth):
@@ -48,9 +72,13 @@ class DecoderCell(nn.Module):
         self.frame_proj = Dense(cfg.decoder_gru_dim, cfg.r * cfg.n_mels, **kw)
 
     def forward(self, state: DecoderState, keys, memory, mask,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, frame_in=None, keep=None):
+        """Feed-previous when ``frame_in`` is None (the input is the last
+        emitted frame), teacher-forced otherwise. ``keep``: the prenet's
+        dropout masks, drawn ahead (``Prenet.draw_keep``)."""
         cfg = self.cfg
-        x = self.prenet(state.prev_frame, generator)
+        x = state.prev_frame if frame_in is None else frame_in
+        x = self.prenet(x, generator, keep)
         h_att = self.attention_gru(state.h_att, torch.cat([x, state.context], dim=-1))
         context, alignment = self.attention(h_att, keys, memory, mask)
         h = self.decoder_input_proj(torch.cat([h_att, context], dim=-1))
@@ -64,28 +92,134 @@ class DecoderCell(nn.Module):
         return DecoderState(h_att, tuple(new_h_dec), context, last), (frames, alignment)
 
 
+def hoisted_teacher_forced(cell: DecoderCell, frames_in, keys, memory, mask,
+                           generator: torch.Generator | None = None):
+    """Teacher-forced decode on ``cell``'s parameters with every
+    state-independent product hoisted out of the step loop (JAX
+    ``_hoisted_teacher_forced``):
+
+    * the prenet over all steps at once, one dropout draw of shape
+      (B, S, d) per layer;
+    * the prenet rows of the attention-GRU weights pre-multiplied over all
+      steps; only the [context, h] rows stay in the loop;
+    * the r-frame projection once on the stacked states after the loop.
+
+    frames_in: (B, S, n_mels) shifted last-of-group ground-truth frames.
+    Returns (mel (B, S*r, n_mels), alignments (B, S, T_in)).
+    """
+    cfg = cell.cfg
+    b, s, _ = frames_in.shape
+    p1 = cfg.prenet_dims[-1]
+    pn = cell.prenet
+
+    x = frames_in
+    for i in range(pn.n):
+        x = dropout(torch.relu(getattr(pn, f"fc{i}")(x)), pn.active_rate, generator)
+    pre = x                                             # (B, S, p1)
+
+    # weights are (out, in): the [prenet | context | h] split is on axis 1
+    ag = cell.attention_gru
+    wg, wc = ag.gates.weight, ag.candidate.weight
+    gx = F.linear(pre, wg[:, :p1], ag.gates.bias)       # (B, S, 2d)
+    cx = F.linear(pre, wc[:, :p1], ag.candidate.bias)   # (B, S, d)
+    wg_ch, wc_ch = wg[:, p1:], wc[:, p1:]
+    att = cell.attention
+    mem_f = memory.float()
+    grus = [getattr(cell, f"decoder_gru{i}") for i in range(cfg.decoder_depth)]
+
+    def step(h_att, ctx, h_dec, gx_t, cx_t):
+        ch = torch.cat([ctx, h_att], dim=-1)
+        ru = torch.sigmoid(gx_t + F.linear(ch, wg_ch))
+        r, u = ru.chunk(2, dim=-1)
+        cand = torch.tanh(cx_t + F.linear(torch.cat([ctx, r * h_att], dim=-1), wc_ch))
+        h_att = u * h_att + (1.0 - u) * cand
+        scores = energy_scores(keys, att.query(h_att), att.v, att.energy)
+        if mask is not None:
+            scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+        align = torch.softmax(scores, dim=-1)
+        ctx = torch.einsum("bt,btd->bd", align, mem_f)
+        h = cell.decoder_input_proj(torch.cat([h_att, ctx], dim=-1))
+        new_hd = []
+        for gru, h_prev in zip(grus, h_dec):
+            h_i = gru(h_prev, h)
+            h = h + h_i
+            new_hd.append(h_i)
+        return h_att, ctx, tuple(new_hd), h, align
+
+    dev = memory.device
+    h_att = torch.zeros(b, cfg.attention_gru_dim, device=dev)
+    ctx = torch.zeros(b, cfg.memory_dim, device=dev)
+    h_dec = tuple(torch.zeros(b, cfg.decoder_gru_dim, device=dev)
+                  for _ in range(cfg.decoder_depth))
+    hs, aligns = [], []
+    for t in range(s):
+        args = (h_att, ctx, h_dec, gx[:, t], cx[:, t])
+        h_att, ctx, h_dec, h, a = _remat(step, *args) if cfg.remat_decoder else step(*args)
+        hs.append(h)
+        aligns.append(a)
+    frames = cell.frame_proj(torch.stack(hs, 1))        # (B, S, r*n_mels)
+    return frames.reshape(b, s * cfg.r, cfg.n_mels), torch.stack(aligns, 1)
+
+
 class Decoder(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=torch.float32):
         super().__init__()
+        if cfg.tf_decoder not in TF_DECODER_FORMS:
+            raise ValueError(f"tf_decoder must be one of {TF_DECODER_FORMS}, "
+                             f"got {cfg.tf_decoder!r}")
         self.cfg = cfg
         self.cell = DecoderCell(cfg, device=device, dtype=dtype)
 
-    def forward(self, memory, keys, mask, n_steps: int,
-                generator: torch.Generator | None = None):
-        """Autoregressive decode -> (mel (B, n_steps*r, n_mels),
-        alignments (B, n_steps, T_in))."""
+    def _init_state(self, b: int, dev) -> DecoderState:
         cfg = self.cfg
-        b, dev = memory.shape[0], memory.device
-        state = DecoderState(
+        return DecoderState(
             torch.zeros(b, cfg.attention_gru_dim, device=dev),
             tuple(torch.zeros(b, cfg.decoder_gru_dim, device=dev)
                   for _ in range(cfg.decoder_depth)),
             torch.zeros(b, cfg.memory_dim, device=dev),
             torch.zeros(b, cfg.n_mels, device=dev),
         )
+
+    def forward(self, memory, keys, mask, n_steps: int | None = None,
+                generator: torch.Generator | None = None, gt_frames=None):
+        """Teacher-forced when ``gt_frames`` (B, T_out, n_mels) is given
+        (T_out a multiple of r; the input at step t is the last ground-truth
+        frame of group t-1, a zero frame at t=0), else autoregressive for
+        ``n_steps``. Returns (mel (B, n_steps*r, n_mels), alignments
+        (B, n_steps, T_in))."""
+        if gt_frames is not None:
+            return self._teacher_forced(memory, keys, mask, gt_frames, generator)
+        cfg = self.cfg
+        b = memory.shape[0]
+        state = self._init_state(b, memory.device)
         frames, aligns = [], []
         for _ in range(n_steps):
             state, (f, a) = self.cell(state, keys, memory, mask, generator)
+            frames.append(f)
+            aligns.append(a)
+        mel = torch.stack(frames, 1).reshape(b, n_steps * cfg.r, cfg.n_mels)
+        return mel, torch.stack(aligns, 1)
+
+    def _teacher_forced(self, memory, keys, mask, gt_frames, generator):
+        cfg = self.cfg
+        b, t_out = gt_frames.shape[:2]
+        if t_out % cfg.r:
+            raise ValueError(f"T_out ({t_out}) must be padded to a multiple of r ({cfg.r})")
+        if cfg.remat_decoder and cfg.remat_policy != "all":
+            raise NotImplementedError(f"remat_policy {cfg.remat_policy!r} is not ported; "
+                                      f"only 'all' is (ROADMAP.md, port queue)")
+        n_steps = t_out // cfg.r
+        last = gt_frames[:, cfg.r - 1::cfg.r]            # (B, n_steps, n_mels)
+        shifted = torch.cat([torch.zeros_like(last[:, :1]), last[:, :-1]], dim=1)
+        if cfg.tf_decoder == "hoisted":
+            return hoisted_teacher_forced(self.cell, shifted, keys, memory, mask, generator)
+        state = self._init_state(b, memory.device)
+        frames, aligns = [], []
+        for t in range(n_steps):
+            keep = self.cell.prenet.draw_keep((b,), generator, memory.device)
+            args = (state, keys, memory, mask, None, shifted[:, t], keep)
+            state, (f, a) = (_remat(self.cell, *args) if cfg.remat_decoder
+                             else self.cell(*args))
             frames.append(f)
             aligns.append(a)
         mel = torch.stack(frames, 1).reshape(b, n_steps * cfg.r, cfg.n_mels)

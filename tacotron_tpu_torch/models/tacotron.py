@@ -1,7 +1,10 @@
-"""Tacotron assembly: encoder + attention decoder + post-net (inference).
+"""Tacotron assembly: encoder + attention decoder + post-net.
 
 Port of the JAX package's ``models/tacotron.py``. Shapes: text (B, T_in)
 -> memory (B, T_in, 256) -> mel (B, T_out, 80) -> linear (B, T_out, 1025).
+Training or evaluation is the module's mode (``model.train()`` /
+``model.eval()``): it selects batch or running statistics in the batch
+norms.
 """
 
 from __future__ import annotations
@@ -42,14 +45,18 @@ class Tacotron(nn.Module):
         self.postnet = PostNet(cfg, **kw)
 
     def forward(self, text_ids, text_lengths=None, n_steps: int | None = None,
-                generator: torch.Generator | None = None) -> TacotronOutput:
-        """Autoregressive decode of ``n_steps`` (default
-        cfg.max_decode_steps) decoder steps."""
+                generator: torch.Generator | None = None,
+                gt_mel=None) -> TacotronOutput:
+        """Teacher-forced when ``gt_mel`` (B, T_out, n_mels) is given; else
+        autoregressive decode of ``n_steps`` (default cfg.max_decode_steps)
+        decoder steps. Dropout draws from ``generator``."""
         cfg = self.cfg
         mask = (length_mask(text_ids.shape[1], text_lengths)
                 if text_lengths is not None else None)
         memory = self.encoder(text_ids, text_lengths, generator)
         keys = self.memory_proj(memory)
-        n_steps = cfg.max_decode_steps if n_steps is None else n_steps
-        mel, alignments = self.decoder(memory, keys, mask, n_steps, generator)
+        if gt_mel is None and n_steps is None:
+            n_steps = cfg.max_decode_steps
+        mel, alignments = self.decoder(memory, keys, mask, n_steps, generator,
+                                       gt_frames=gt_mel)
         return TacotronOutput(mel, self.postnet(mel), alignments)

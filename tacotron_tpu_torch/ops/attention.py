@@ -1,12 +1,16 @@
 """Bahdanau (additive, content-based) attention.
 
-Port of the JAX package's ``ops/attention.py`` ("xla" energy form only):
+Port of the JAX package's ``ops/attention.py``:
 
     score(q, m_j) = v^T tanh(W_q q + W_m m_j)
     alpha = softmax(score) over encoder time (masked to text length)
     context = sum_j alpha_j m_j
 
-This is the plain oracle for the attention inside the fused decode kernel.
+The energy has two forms, chosen by ``ModelConfig.attention_energy``:
+``"xla"`` is the JAX package's reference formula on any device;
+``"fused"`` is ``ops/attn_energy.attention_energy`` (kernels K1/K2 on CUDA
+tensors). This module is also the plain oracle for the attention inside the
+fused decode kernel.
 """
 
 from __future__ import annotations
@@ -14,9 +18,20 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from tacotron_tpu_torch.ops.attn_energy import attention_energy, attention_energy_reference
 from tacotron_tpu_torch.ops.modules import Dense
 
 NEG_INF = -1e9
+ENERGY_FORMS = ("xla", "fused")
+
+
+def energy_scores(keys, q, v, form: str = "xla"):
+    """keys (B, T_in, A), q (B, A), v (A, 1) -> scores (B, T_in) f32."""
+    if form == "fused":
+        return attention_energy(keys, q, v)
+    if form == "xla":
+        return attention_energy_reference(keys, q, v)
+    raise ValueError(f"attention_energy must be one of {ENERGY_FORMS}, got {form!r}")
 
 
 class BahdanauAttention(nn.Module):
@@ -25,9 +40,12 @@ class BahdanauAttention(nn.Module):
     decode loop (``memory_proj``)."""
 
     def __init__(self, query_dim: int, dim: int = 256,
-                 memory_dim: int | None = None, *, device=None,
-                 dtype=torch.float32):
+                 memory_dim: int | None = None, energy: str = "xla", *,
+                 device=None, dtype=torch.float32):
         super().__init__()
+        if energy not in ENERGY_FORMS:
+            raise ValueError(f"attention_energy must be one of {ENERGY_FORMS}, got {energy!r}")
+        self.energy = energy
         self.query = Dense(query_dim, dim, bias=False, device=device, dtype=dtype)
         self.memory = (Dense(memory_dim, dim, bias=False, device=device,
                              dtype=dtype) if memory_dim is not None else None)
@@ -44,8 +62,7 @@ class BahdanauAttention(nn.Module):
         """query (B, D_q); keys (B, T_in, dim); memory (B, T_in, D_mem);
         mask (B, T_in) bool, True = valid. Returns (context (B, D_mem),
         alignment (B, T_in))."""
-        q = self.query(query)
-        scores = (torch.tanh(keys + q[:, None, :]) @ self.v).squeeze(-1)
+        scores = energy_scores(keys, self.query(query), self.v, self.energy)
         if mask is not None:
             scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
         alignment = torch.softmax(scores, dim=-1)

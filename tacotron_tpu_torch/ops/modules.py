@@ -55,15 +55,22 @@ def conv1d_same(x, weight):
     return F.conv1d(xt, weight).transpose(1, 2)
 
 
-def dropout(x, rate: float, generator: torch.Generator | None):
-    """Inverted dropout that draws its mask from ``generator``: keep with
-    probability 1 - rate, scaled by 1/(1 - rate); rate 0 is a no-op."""
+def dropout_keep(shape, rate: float, generator: torch.Generator | None, device):
+    """The keep mask (bool) that ``dropout`` draws for an input of ``shape``."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return u < 1.0 - rate
+
+
+def dropout(x, rate: float, generator: torch.Generator | None, keep=None):
+    """Inverted dropout: keep with probability 1 - rate, scaled by
+    1/(1 - rate); rate 0 is a no-op. The mask is ``keep`` when given, else
+    drawn from ``generator``."""
     if rate <= 0.0:
         return x
-    keep = 1.0 - rate
-    scale = 1.0 / keep if keep > 0 else 0.0
-    u = torch.rand(x.shape, generator=generator, device=x.device)
-    return torch.where(u < keep, x * scale, torch.zeros_like(x))
+    scale = 1.0 / (1.0 - rate) if rate < 1.0 else 0.0
+    if keep is None:
+        keep = dropout_keep(x.shape, rate, generator, x.device)
+    return torch.where(keep, x * scale, torch.zeros_like(x))
 
 
 class Prenet(nn.Module):
@@ -82,19 +89,40 @@ class Prenet(nn.Module):
             self.add_module(f"fc{i}", Dense(d_in, d, device=device, dtype=dtype))
             d_in = d
 
-    def forward(self, x, generator: torch.Generator | None = None):
-        rate = 0.0 if self.deterministic else self.rate
+    @property
+    def active_rate(self) -> float:
+        return 0.0 if self.deterministic else self.rate
+
+    def draw_keep(self, lead_shape, generator: torch.Generator | None, device):
+        """The keep masks of one call on inputs of leading shape
+        ``lead_shape``, drawn as ``forward`` draws them (None when dropout is
+        off); a step recomputed under checkpointing takes them as input."""
+        rate = self.active_rate
+        if rate <= 0.0:
+            return None
+        return tuple(dropout_keep((*lead_shape, getattr(self, f"fc{i}").weight.shape[0]),
+                                  rate, generator, device) for i in range(self.n))
+
+    def forward(self, x, generator: torch.Generator | None = None, keep=None):
+        rate = self.active_rate
         for i in range(self.n):
-            x = dropout(torch.relu(getattr(self, f"fc{i}")(x)), rate, generator)
+            x = dropout(torch.relu(getattr(self, f"fc{i}")(x)), rate, generator,
+                        None if keep is None else keep[i])
         return x
 
 
 class BatchNorm(nn.Module):
-    """Inference batch norm over the channel axis of (B, T, C) with running
-    statistics and flax's epsilon 1e-3 (flax momentum 0.99 matters only in
-    training)."""
+    """Batch norm over the channel axis of (B, T, C), as flax's with epsilon
+    1e-3 and momentum 0.99. In training (``module.training``) it normalises
+    by the batch's statistics over (B, T), padded frames included (there is
+    no mask, as in JAX), with flax's biased variance E[x^2] - E[x]^2
+    (clipped at 0), and updates the running statistics as
+    ``ra = 0.99 ra + 0.01 stat``; in evaluation it uses the running ones.
+    ``F.batch_norm`` differs in both: its running variance is the unbiased
+    estimate and its momentum weighs the other way."""
 
     eps = 1e-3
+    momentum = 0.99
 
     def __init__(self, features: int, *, device=None, dtype=torch.float32):
         super().__init__()
@@ -106,9 +134,20 @@ class BatchNorm(nn.Module):
                              torch.ones(features, device=device, dtype=dtype))
 
     def forward(self, x):
+        if self.training:
+            xf = x.float()
+            axes = tuple(range(x.ndim - 1))
+            mean = xf.mean(axes)
+            var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
         # flax order: (x - mean) * (scale * rsqrt(var + eps)) + bias
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * mul + self.bias
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
 
 
 class ConvBank(nn.Module):

@@ -97,6 +97,7 @@ def test_tacotron_forward_matches_jax(setup):
         s["v"], text, lengths, n_steps=N_STEPS, rngs={"dropout": jax.random.PRNGKey(0)})
     model = Tacotron(s["cfg"].model, device="cpu")
     model.load_state_dict({**s["params"], **s["stats"]})
+    model.eval()                                    # running batch-norm statistics
     with torch.no_grad():
         got = model(torch.from_numpy(text), torch.from_numpy(lengths), n_steps=N_STEPS)
     for g, w in zip(got, want):
