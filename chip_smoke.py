@@ -12,30 +12,52 @@ Phases, in order; any failure raises and exits non-zero:
 3. each kernel against its plain PyTorch version on the card, TF32 off:
    the fused decode (full synth_gl1000 widths, B 8, T_in ~120, 50 steps)
    in f32 and bf16 storage, its dropout keep rate and seed dependence; the
-   Griffin-Lim kernel at 2048/275/1102, B 4, F 400, 10 iterations, momentum
-   0 and 0.99; a small end-to-end check, the fused Synthesizer against
-   the step-by-step one with every plain version; the attention energy
-   (K1) and its backward (K2) at B 32, T_in 128, A 256 against autograd
-   through the plain formula; and the teacher-forced loss and every
-   parameter gradient on the tiny config through K1/K2 against the plain
-   formula, for both decoder forms, with and without remat;
-4. the synthesis path: ``Synthesizer(fused=True)`` at the synth_gl1000
-   config (256-d model, r 2, 500 decode steps, Griffin-Lim 1000) on 8
-   prompts with seeded random weights: one warm call, then one timed call
-   with the launch counts set to 0 just before it; per-stage milliseconds
-   and audio-seconds per second;
-5. K3's and K4's time at that path's shapes beside its plain version, a
-   library yardstick and its bound;
-6. the training path: ``create_train_state`` + ``train_step`` at the
+   Griffin-Lim kernel (K4) at 2048/275/1102, B 4, F 400, 10 iterations,
+   momentum 0 and 0.99, in its f32 and its bf16 mode; the streaming
+   Griffin-Lim kernel (K5) over 10 calls in both modes, and in f32 against
+   K4; the probes (P1 at 48, 100 and 227 KiB, one KiB past the limit
+   refused with the CUDA error shown; P2); a small end-to-end check, the
+   fused Synthesizer against the step-by-step one with every plain
+   version; the attention energy (K1) and its backward (K2) at B 32, T_in
+   128, A 256 against autograd through the plain formula; and the
+   teacher-forced loss and every parameter gradient on the tiny config
+   through K1/K2 against the plain formula, for both decoder forms, with
+   and without remat;
+4. [main] the parity synthesis path: ``Synthesizer(fused=True)`` at the
+   synth_gl1000 config (256-d model, r 2, 500 decode steps, Griffin-Lim
+   1000, the kernel's bf16 mode by default) on 8 prompts with seeded random
+   weights: one warm call, then one timed call with the launch counts set
+   to 0 just before it; per-stage milliseconds and audio-seconds per
+   second; then Griffin-Lim once more on the same spectrogram through the
+   f32 kernel;
+5. [fast] the production serving path: ``Synthesizer`` at the synth_fast
+   config (early-exit decode, trimming before Griffin-Lim, momentum 0.99 x
+   100 iterations in bf16) on the same prompts and weights: one warm and
+   one timed call; then a call whose silence threshold is derived from the
+   first call's per-step peaks so that the decode exits strictly inside
+   (0, 500) and Griffin-Lim runs on a trimmed spectrogram, held against
+   its plain version at that shape, on the run's magnitudes and on a
+   speech-like one (with random weights the one exit any threshold reaches
+   is after the first ``min_silence_steps`` steps, every end frame 0);
+6. [stream] ``griffin_lim(inner=1)``: 100 calls of the streaming kernel at
+   B 8, F 1000 in bf16, against K4 and the plain step; and the probes'
+   entry point;
+7. K3's, K4's, K5's and the probes' time at their paths' shapes beside
+   the plain version, a library yardstick and the bound; K4's bf16 mode
+   against its plain version as [main] runs it (1000 iterations, momentum
+   0) and on a speech-like magnitude of that shape (9 and 10 iterations);
+   the magnitude error that the bf16 mode of Griffin-Lim reaches beside
+   the f32 mode's;
+8. the training path: ``create_train_state`` + ``train_step`` at the
    full_1chip widths (hoisted teacher-forced decoder, fused energy, remat,
    f32) on B 32, T_in 128, T_out 400: one warm step, then 5 timed steps
    with the launch counts set to 0 just before them; step milliseconds,
    train frames per second, peak memory and a forward / backward /
    optimizer split; the device's busy share of one profiled step; the
    same steps through the plain energy, interleaved with the fused ones;
-7. K1's and K2's time at that path's shapes beside the plain version and
-   the bound; one JSON line with all four kernels;
-8. last line: {"ok": true, "device": {...}}.
+9. K1's and K2's time at that path's shapes beside the plain version and
+   the bound; one JSON line with all eight kernel rows;
+10. last line: {"ok": true, "device": {...}}.
 
 ``--report PATH`` also writes every check and measurement as JSON.
 """
@@ -66,6 +88,27 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 # the plain loop, as tests/unit/test_pallas_gl.py holds its kernels:
 # magnitude error <= plain's * 1.05 + 1e-3
 MAIN_TOL = {"decode": 2e-2, "griffin_lim": 5e-2}
+# bf16 Griffin-Lim, kernel vs its plain version (same rounding points; an
+# f32 sum that differs in its last bit flips a bf16 rounding, and GL carries
+# the flip on): waveform max abs error over its peak after 10 iterations on
+# a speech-like magnitude (4e-3 without momentum, 9e-3 with 0.99 measured on
+# an H100); also held to the magnitude-error rule above
+GL_BF16_TOL = 2e-2
+# The same at a serving path's own shape and magnitudes. With random weights
+# these sit at the spectrogram's floor and are nearly flat, far from any
+# signal's spectrum, and Griffin-Lim then multiplies a difference by 3-10 per
+# iteration even between the f32 kernel and the f32 plain loop (5e-6 of the
+# peak after one iteration, 1.6e-1 after ten at momentum 0.99; [fast] prints
+# it). So the path checks hold what the kernel
+# itself adds: (a) "step": one iteration from the plain loop's own state at
+# several depths, each component within one bf16 ulp (2^-7) of the
+# magnitude's peak (a flipped rounding; 3e-3 measured); (b) the waveform
+# after "iters" iterations, where the second consumes the momentum
+# extrapolation (1.7e-2 measured); (c) at the path's full depth, finite
+# values and the magnitude-error rule, the waveform difference only printed;
+# (d) ``check_gl_speech``: the waveform after 9 and 10 iterations within
+# GL_BF16_TOL on a speech-like magnitude of the path's shape
+GL_PATH = {"iters": 2, "tol": 5e-2, "step_tol": 2.0 ** -7, "step_depths": (0, 1, 2, 4, 9)}
 # K1/K2 vs autograd through the plain formula, f32 (summation order only):
 # max abs error of e, dkeys, dq and dv each within this fraction of its peak
 ENERGY_TOL = 1e-5
@@ -181,6 +224,34 @@ def gl_bound(mag_shape, win, n_iter):
     return bound(rows * nb * 4 * 3, n_iter * 2 * 2 * rows * win * 2 * nb, PEAK_FLOPS["f32"])
 
 
+def gl_bound_bf16(rows, nb, win, n_iter, planar_io=False):
+    """bf16 mode: the same two products per iteration against the tensor
+    cores' bf16 peak. Bytes: the f32 magnitude read and the bf16 (re, im)
+    spectrum written; the streaming kernel also reads a bf16 spectrum."""
+    byts = rows * nb * (4 + 2 * 2 + (2 * 2 if planar_io else 0))
+    return bound(byts, n_iter * 2 * 2 * rows * win * 2 * nb, PEAK_FLOPS["bf16"])
+
+
+def dft_products_ms(mag, acfg, n_iter, dtype):
+    """Library yardstick: an iteration's two DFT products alone, as
+    ``torch.matmul`` calls in ``dtype`` over the same live span."""
+    from tacotron_tpu_torch.dsp.fused_gl import live_bases
+    dev = mag.device
+    bwd_np, fwd_np = live_bases(acfg.n_fft, acfg.win_length)
+    bwd, fwd = (torch.from_numpy(x).to(dev).to(dtype) for x in (bwd_np, fwd_np))
+    rows = mag.shape[0] * mag.shape[1]
+    spec = torch.randn(rows, bwd.shape[0], device=dev).to(dtype)
+    frames = torch.empty(rows, bwd.shape[1], device=dev, dtype=dtype)
+    outp = torch.empty(rows, fwd.shape[1], device=dev, dtype=dtype)
+
+    def products():
+        for _ in range(n_iter):
+            torch.matmul(spec, bwd, out=frames)
+            torch.matmul(frames, fwd, out=outp)
+    products()
+    return cuda_ms(products)
+
+
 def sample_magnitude(b, f, acfg, dev, seed):
     from tacotron_tpu_torch.dsp.dft import stft_mm
     g = torch.Generator().manual_seed(seed)
@@ -190,11 +261,141 @@ def sample_magnitude(b, f, acfg, dev, seed):
     return torch.sqrt(re * re + im * im + 1e-12)
 
 
+def gl_kw(acfg):
+    return dict(n_fft=acfg.n_fft, hop_length=acfg.hop_length, win_length=acfg.win_length)
+
+
+def gl_errors(got, want, mag, acfg):
+    """Kernel spectrum vs plain spectrum -> (waveform max abs error over the
+    plain waveform's peak, magnitude error of the kernel's waveform, of the
+    plain one's): the magnitude error is mean | |STFT(wav)| - mag | / mean
+    mag, as tests/unit/test_pallas_gl.py measures convergence."""
+    from tacotron_tpu_torch.dsp.dft import istft_mm, stft_mm
+    kw = gl_kw(acfg)
+
+    def wav(spec):
+        return istft_mm(spec[0].float(), spec[1].float(), **kw)
+
+    def mag_err(w):
+        re, im = stft_mm(w, **kw)
+        return float((torch.sqrt(re * re + im * im + 1e-12) - mag).abs().mean() / mag.mean())
+
+    kwav, pwav = wav(got), wav(want)
+    ok = bool(torch.isfinite(kwav).all())
+    return (max_err(kwav, pwav) / float(pwav.abs().max()) if ok else float("inf"),
+            mag_err(kwav), mag_err(pwav))
+
+
+def check_gl(name, got, want, mag, acfg, tol):
+    """Hold a Griffin-Lim kernel result to its plain version: waveform
+    within ``tol`` of the peak (None: finite, the difference only printed),
+    and converging as well (magnitude error <= plain's * 1.05 + 1e-3)."""
+    err, ek, ep = gl_errors(got, want, mag, acfg)
+    log(f"  {name}: wav err / peak {err:.3e}; magnitude error kernel {ek:.5f}, plain {ep:.5f}")
+    if tol is None:
+        require(np.isfinite(err), f"{name} finite")
+    else:
+        require(err <= tol, f"{name} within {tol} of the peak")
+    require(ek <= ep * 1.05 + 1e-3, f"{name} converges as well as its plain version")
+    return {"wav_max_abs_err_over_peak": err, "tol": tol, "mag_err_kernel": ek,
+            "mag_err_plain": ep}
+
+
+def check_gl_speech(name, b, f, acfg, cases):
+    """The bf16 whole-loop kernel against its plain version on a speech-like
+    magnitude of a path's shape (B ``b``, F ``f``), where the waveform can be
+    held: ``cases`` are (n_iter, momentum) pairs, each within GL_BF16_TOL of
+    the peak and converging as well. An odd ``n_iter`` with momentum reads the
+    other of the kernel's two result buffers. -> the largest error."""
+    from tacotron_tpu_torch.dsp.fused_gl import gl_spectrum_reference, griffin_lim_spectrum
+    mag = sample_magnitude(b, f, acfg, torch.device("cuda"), seed=6)
+    out = {}
+    for n_iter, mom in cases:
+        kw = dict(n_iter=n_iter, momentum=mom, **gl_kw(acfg))
+        with torch.no_grad():
+            out[f"{n_iter}_iterations_m{mom}"] = check_gl(
+                f"{name}, speech-like B {b} F {f}, {n_iter} iterations, momentum {mom}",
+                griffin_lim_spectrum(mag, **kw), gl_spectrum_reference(mag, **kw), mag, acfg,
+                GL_BF16_TOL)
+    out["max_abs_err"] = max(c["wav_max_abs_err_over_peak"] for c in out.values())
+    return out
+
+
+def check_gl_steps(name, mag, acfg):
+    """The streaming kernel against the plain step, one iteration from the
+    plain bf16 loop's own state at GL_PATH's depths -> the largest component
+    error over the magnitude's peak."""
+    from tacotron_tpu_torch.dsp.fused_gl import gl_step_reference, griffin_lim_step, zero_phase
+    kw, peak, worst = gl_kw(acfg), float(mag.max()), 0.0
+    re, im = zero_phase(mag, True)
+    with torch.no_grad():
+        for depth in range(max(GL_PATH["step_depths"]) + 1):
+            pr, pi = gl_step_reference(re, im, mag, **kw)
+            if depth in GL_PATH["step_depths"]:
+                kr, ki = griffin_lim_step(re, im, mag, **kw)
+                worst = max(worst, max_err(kr, pr) / peak, max_err(ki, pi) / peak)
+            re, im = pr, pi
+    log(f"  {name}: one step from the plain loop's state at depths {GL_PATH['step_depths']}: "
+        f"max err / magnitude peak {worst:.3e}")
+    require(worst <= GL_PATH["step_tol"], f"{name}: each step within one bf16 ulp "
+            f"({GL_PATH['step_tol']:.2e}) of the magnitude's peak")
+    return worst
+
+
+def check_gl_path(name, mag, acfg, kernel, plain, n_iter, at_depth=None, steps=True):
+    """A bf16 Griffin-Lim kernel at a path's shape, magnitudes and depth
+    against its plain version, as GL_PATH sets out: ``kernel(n)`` and
+    ``plain(n)`` give the spectrum after n iterations on ``mag``;
+    ``at_depth`` is the pair after ``n_iter`` where the caller has it."""
+    out = {"step_max_err_over_mag_peak": check_gl_steps(name, mag, acfg)} if steps else {}
+    n = GL_PATH["iters"]
+    with torch.no_grad():
+        out["short"] = check_gl(f"{name}, {n} iterations", kernel(n), plain(n), mag, acfg,
+                                GL_PATH["tol"])
+        got, want = at_depth or (kernel(n_iter), plain(n_iter))
+        out["at_depth"] = check_gl(f"{name}, {n_iter} iterations", got, want, mag, acfg, None)
+    out["max_abs_err"] = out["short"]["wav_max_abs_err_over_peak"]
+    return out
+
+
+def phase_probes(checks):
+    from tacotron_tpu_torch import probe
+    dev = torch.device("cuda")
+    log("[P1] dynamic shared memory of one block: 48, 100, 227 KiB, and one past the limit")
+    x = torch.randn(probe.SMEM_SHAPE, generator=torch.Generator().manual_seed(4)).to(dev)
+    limit = None
+    for kib in (48, 100, 227):
+        out, limit = probe.probe_smem(x, kib)
+        torch.cuda.synchronize()
+        require(torch.equal(out, probe.probe_smem_reference(x)),
+                f"probe_smem {kib} KiB equals x * 2 (device limit {limit} bytes)")
+    refused = None
+    try:
+        probe.probe_smem(x, limit // 1024 + 1)
+    except probe.ProbeError as e:
+        refused = str(e)
+    log(f"  {limit // 1024 + 1} KiB: {refused}")
+    require(refused is not None and "CUDA error" in refused,
+            f"probe_smem {limit // 1024 + 1} KiB is refused with the CUDA error")
+    out, _ = probe.probe_smem(x, 48)
+    torch.cuda.synchronize()
+    require(torch.equal(out, x * 2), "the device works on after the refusal")
+    checks["probe_smem"] = {"limit_bytes": limit, "refusal": refused}
+
+    log("[P2] ops probe vs plain, seeded normal operands")
+    inputs = probe.ops_inputs(dev, seed=0)
+    got, want = probe.probe_ops(*inputs), probe.probe_ops_reference(*inputs)
+    torch.cuda.synchronize()
+    err, peak = max_err(got, want), float(want.abs().max())
+    log(f"  probe_ops: max abs err {err:.3e} (peak {peak:.3f})")
+    require(err <= 1e-4 * peak, "probe_ops within 1e-4 of its peak (f32 summation order)")
+    checks["probe_ops"] = {"max_abs_err": err, "peak": peak, "tol_of_peak": 1e-4}
+
+
 def phase_kernels(report):
     from tacotron_tpu_torch.config import get_config
     from tacotron_tpu_torch.data.vocab import Vocab
-    from tacotron_tpu_torch.dsp.dft import gl_spectrum_mm, istft_mm
-    from tacotron_tpu_torch.dsp.fused_gl import griffin_lim_spectrum
+    from tacotron_tpu_torch.dsp.fused_gl import gl_spectrum_reference, griffin_lim_spectrum
     from tacotron_tpu_torch.ops.decode_loop import (decode_loop, decode_loop_reference,
                                                     pack_decoder_weights)
 
@@ -244,23 +445,34 @@ def phase_kernels(report):
     require(not torch.allclose(f1, f2), "different seeds give different frames")
     require(torch.equal(f1, f1b), "the same seed gives the same frames")
 
-    log("[K4] Griffin-Lim kernel vs plain, 2048/275/1102, B 4, F 400, 10 iterations")
     acfg = cfg.audio
     mag = sample_magnitude(4, 400, acfg, dev, seed=3)
-    kw = dict(n_fft=acfg.n_fft, hop_length=acfg.hop_length, win_length=acfg.win_length)
-    for mom in (0.0, 0.99):
+    kw = gl_kw(acfg)
+    log("[K4] Griffin-Lim kernel vs plain, 2048/275/1102, B 4, F 400, 10 iterations, "
+        "f32 and bf16")
+    for lowp in (False, True):
+        for mom in (0.0, 0.99):
+            with torch.no_grad():
+                got = griffin_lim_spectrum(mag, n_iter=10, momentum=mom, lowp=lowp, **kw)
+                want = gl_spectrum_reference(mag, n_iter=10, momentum=mom, lowp=lowp, **kw)
+            name = f"griffin_lim_{'bf16' if lowp else 'f32'}_m{mom}"
+            tol = GL_BF16_TOL if lowp else 1e-3
+            checks[name] = check_gl(name, got, want, mag, acfg, tol)
+
+    log("[K5] streaming Griffin-Lim kernel, 10 calls, vs 10 plain steps; f32 also vs K4")
+    for lowp in (False, True):
         with torch.no_grad():
-            kre, kim = griffin_lim_spectrum(mag, n_iter=10, momentum=mom, **kw)
-            pre, pim = gl_spectrum_mm(mag, n_iter=10, momentum=mom, **kw)
-            kwav = istft_mm(kre, kim, **kw)
-            pwav = istft_mm(pre, pim, **kw)
-        peak = float(pwav.abs().max())
-        err = max_err(kwav, pwav) / peak
-        name = f"griffin_lim_m{mom}"
-        checks[name] = {"wav_max_abs_err_over_peak": err, "tol": 1e-3}
-        log(f"  {name}: wav err / peak {err:.3e}")
-        require(bool(torch.isfinite(kwav).all()) and err <= 1e-3,
-                f"{name} within 1e-3 of the peak")
+            got = griffin_lim_spectrum(mag, n_iter=10, inner=1, lowp=lowp, **kw)
+            want = gl_spectrum_reference(mag, n_iter=10, lowp=lowp, **kw)
+        name = f"griffin_lim_step_{'bf16' if lowp else 'f32'}"
+        checks[name] = check_gl(name, got, want, mag, acfg,
+                                GL_BF16_TOL if lowp else 1e-3)
+        if not lowp:
+            with torch.no_grad():
+                k4 = griffin_lim_spectrum(mag, n_iter=10, lowp=False, **kw)
+            checks[name + "_vs_k4"] = check_gl(name + " vs K4 f32, beta 0", got, k4, mag,
+                                               acfg, 1e-3)
+    phase_probes(checks)
 
     log("[e2e] fused Synthesizer (kernels) vs step-by-step Synthesizer (plain), "
         "dropout 0, 20 steps, GL 5")
@@ -402,19 +614,209 @@ def phase_main(report, cfg, vocab):
     report["main"] = {"stage_ms": out["stage_ms"], "wall_s": wall, "warm_s": warm_s,
                       "audio_seconds": out["audio_seconds"],
                       "audio_seconds_per_s": aps, "launches": launches}
-    return synth, out, launches
 
-
-def phase_timing(report, synth, out, launches):
+    # the same Griffin-Lim through the f32 kernel, which no backend name
+    # selects any more: the public function, on this call's spectrogram
     from tacotron_tpu_torch.dsp.audio import spectrogram_magnitude
-    from tacotron_tpu_torch.dsp.dft import gl_spectrum_mm, istft_mm, stft_mm
-    from tacotron_tpu_torch.dsp.fused_gl import griffin_lim_spectrum, live_bases
+    from tacotron_tpu_torch.dsp.fused_gl import griffin_lim_spectrum
+    acfg = cfg.audio
+    mag = spectrogram_magnitude(torch.from_numpy(out["linear"]).to(dev), acfg)
+    res = {}
+    runtime.LAUNCHES.clear()
+    with torch.no_grad():
+        f32_ms = cuda_ms(lambda: res.update(f32=griffin_lim_spectrum(
+            mag, n_iter=acfg.griffin_lim_iters, momentum=acfg.gl_momentum, lowp=False,
+            **gl_kw(acfg))))
+    f32_launches = runtime.LAUNCHES["griffin_lim"]
+    gl_ms = out["stage_ms"]["griffin_lim"]
+    aps_f32 = out["audio_seconds"] / (wall + (f32_ms - gl_ms) / 1e3)
+    log(f"  Griffin-Lim stage: bf16 kernel (the default) {gl_ms:.3f} ms, f32 kernel "
+        f"{f32_ms:.3f} ms ({f32_launches} launches); with the f32 kernel the call would "
+        f"give {aps_f32:.3f} audio_seconds_per_s (timed call less its stage plus this)")
+    require(f32_launches > 0, "the f32 kernel launched")
+    report["main"].update(griffin_lim_f32_ms=f32_ms, audio_seconds_per_s_f32_gl=aps_f32)
+    launches["griffin_lim_f32"] = f32_launches
+    return synth, out, launches, mag, res["f32"], f32_ms
+
+
+def steps_done_of(mel, r):
+    """Decoder steps that produced a nonzero frame (the early-exit decode
+    leaves exact zeros past its exit)."""
+    live = np.abs(mel).max(axis=(0, 2)) > 0
+    return int(-(-(np.nonzero(live)[0].max() + 1) // r)) if live.any() else 0
+
+
+def exit_threshold(mel, r, min_steps):
+    """A silence threshold just above the first ``min_steps`` steps' group
+    peaks of a full-length run, at which the same run exits after step
+    ``min_steps``. With seeded random weights this is the only exit inside
+    (0, n_steps) that any threshold reaches: every row's quietest window is
+    its first (the decoder starts from zero state and its output grows), so
+    a threshold either trips there or never. -> (threshold, quietest later
+    window's peak)."""
+    b, t, n = mel.shape
+    g = mel.reshape(b, t // r, r * n).max(axis=(0, 2)).astype(np.float64)
+    w = np.array([g[i:i + min_steps].max() for i in range(len(g) - min_steps + 1)])
+    return float(w[0]) + 1e-3, float(w[1:].min())
+
+
+def phase_fast(report, vocab):
+    from tacotron_tpu_torch import runtime
+    from tacotron_tpu_torch.config import get_config
+    from tacotron_tpu_torch.dsp.audio import spectrogram_magnitude
+    from tacotron_tpu_torch.dsp.fused_gl import gl_spectrum_reference, griffin_lim_spectrum
+    from tacotron_tpu_torch.infer.synthesize import STAGES, Synthesizer
+    from tacotron_tpu_torch.weights import split_state
+
+    dev = torch.device("cuda")
+    cfg = get_config("synth_fast")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, vocab_size=len(vocab)))
+    acfg, icfg, r = cfg.audio, cfg.infer, cfg.model.r
+    n_steps, hop, q = cfg.model.max_decode_steps, acfg.hop_length, icfg.gl_length_quantum
+    min_steps = max(1, -(-icfg.min_silence_frames // r))
+    log(f"[fast] Synthesizer, synth_fast, B 8, up to {n_steps} steps (early exit after "
+        f"{min_steps} silent steps), trim to a multiple of {q}, GL {acfg.griffin_lim_iters} x "
+        f"momentum {acfg.gl_momentum}, bf16")
+    p, bs = split_state(full_model(cfg, dev))
+
+    def run(c, seed, label):
+        synth = Synthesizer(c, p, bs, vocab)
+        runtime.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = synth(PROMPTS, seed=seed, stage_ms=True)
+        wall = time.perf_counter() - t0
+        launches = dict(runtime.LAUNCHES)
+        steps = steps_done_of(out["mel"], r)
+        t_gl = out["wavs"].shape[1] // hop + 1
+        res = {"stage_ms": out["stage_ms"], "wall_s": wall, "steps_done": steps, "t_gl": t_gl,
+               "audio_seconds": out["audio_seconds"],
+               "trimmed_audio_seconds": out["trimmed_audio_seconds"],
+               "audio_seconds_per_s": out["audio_seconds"] / wall,
+               "trimmed_audio_seconds_per_s": out["trimmed_audio_seconds"] / wall,
+               "end_frames": out["end_frames"].tolist(), "launches": launches,
+               "silence_threshold": c.infer.silence_threshold}
+        log(f"  {label}: {wall:.3f} s; steps_done {steps}, t_gl {t_gl}, end_frames "
+            f"{res['end_frames']}")
+        for s_ in STAGES:
+            log(f"    stage {s_}: {out['stage_ms'][s_]:.3f} ms")
+        log(f"    audio_seconds {out['audio_seconds']:.3f} (as synthesized) -> "
+            f"{res['audio_seconds_per_s']:.3f} per s; trimmed {out['trimmed_audio_seconds']:.3f}"
+            f" -> {res['trimmed_audio_seconds_per_s']:.3f} per s; launches {launches}")
+        wav = out["wavs"]
+        require(launches.get("griffin_lim", 0) == 3 * acfg.griffin_lim_iters,
+                f"{label}: the Griffin-Lim kernel launched 3 x {acfg.griffin_lim_iters} times")
+        require(wav.shape == (8, hop * (t_gl - 1)) and bool(np.isfinite(wav).all())
+                and float(np.abs(wav).max()) > 0, f"{label}: wavs {wav.shape} finite, peak > 0")
+        return out, res
+
+    run(cfg, 0, "warm call")
+    out1, res1 = run(cfg, 1, "timed call, the preset's threshold")
+    if res1["steps_done"] == n_steps:
+        log(f"  the preset's threshold {icfg.silence_threshold} never tripped on random "
+            f"weights: all {n_steps} steps ran and nothing was trimmed (a valid run)")
+    # the same seed draws the same dropout masks, so the run repeats up to its exit
+    full = out1 if res1["steps_done"] == n_steps else run(
+        cfg.replace(infer=dataclasses.replace(icfg, silence_threshold=-1.0)), 1,
+        "full-length call")[0]
+    thr, later = exit_threshold(full["mel"], r, min_steps)
+    log(f"  derived silence threshold {thr:.6f}, just above the first {min_steps} steps' peak; "
+        f"the quietest later window peaks at {later:.4f}: the exit after step {min_steps} with "
+        f"every end frame 0 is the only early exit these weights allow")
+    cfg2 = cfg.replace(infer=dataclasses.replace(icfg, silence_threshold=thr))
+    out2, res2 = run(cfg2, 1, "timed call, the derived threshold")
+    steps, t_gl = res2["steps_done"], res2["t_gl"]
+    require(0 < steps < n_steps, f"early exit strictly inside: 0 < {steps} < {n_steps}")
+    require(steps == min_steps, f"the exit comes after step {min_steps}, as derived")
+    require(float(np.abs(out2["mel"][:, steps * r:]).max()) == 0.0
+            and float(np.abs(out2["alignments"][:, steps:]).max()) == 0.0,
+            "frames and alignments past the exit are zero")
+    require(np.array_equal(out2["mel"][:, :steps * r], full["mel"][:, :steps * r]),
+            "frames up to the exit equal the full-length run's")
+    require(t_gl % q == 0 and t_gl < n_steps * r, f"t_gl {t_gl} a multiple of {q} below "
+            f"{n_steps * r}")
+    require(out2["wavs"].shape[1] == hop * (t_gl - 1), "wav length hop x (t_gl - 1)")
+
+    # this run's Griffin-Lim, kernel vs plain bf16 version at the trimmed shape
+    mag = spectrogram_magnitude(torch.from_numpy(out2["linear"][:, :t_gl]).to(dev), acfg)
+    kw = dict(momentum=acfg.gl_momentum, **gl_kw(acfg))
+    chk = check_gl_path(f"griffin_lim bf16 at the trimmed shape (B 8, F {t_gl})", mag, acfg,
+                        lambda n: griffin_lim_spectrum(mag, n_iter=n, **kw),
+                        lambda n: gl_spectrum_reference(mag, n_iter=n, **kw),
+                        acfg.griffin_lim_iters)
+    chk["speech_like"] = check_gl_speech("griffin_lim bf16 at the trimmed shape", 8, t_gl, acfg,
+                                         [(9, acfg.gl_momentum), (10, acfg.gl_momentum)])
+    # how far Griffin-Lim itself carries a difference on these magnitudes: the
+    # f32 kernel against the f32 plain loop, which differ by summation order only
+    with torch.no_grad():
+        spread = {n: gl_errors(griffin_lim_spectrum(mag, n_iter=n, lowp=False, **kw),
+                               gl_spectrum_reference(mag, n_iter=n, lowp=False, **kw), mag,
+                               acfg)[0]
+                  for n in (1, 10)}
+    log(f"  the same magnitudes (min {float(mag.min()):.3e}, max {float(mag.max()):.3e}) through "
+        f"the f32 kernel and the f32 plain loop: wav err / peak {spread[1]:.3e} after 1 "
+        f"iteration, {spread[10]:.3e} after 10")
+    chk["f32_wav_err_over_peak_by_iterations"] = spread
+    report["checks"]["griffin_lim_bf16_trimmed_shape"] = chk
+    report["fast"] = {"preset_threshold": res1, "derived_threshold": res2,
+                      "expected_steps": min_steps}
+    mag1 = spectrogram_magnitude(
+        torch.from_numpy(out1["linear"][:, :res1["t_gl"]]).to(dev), acfg)
+    return cfg, res1, mag1
+
+
+def phase_stream(report, mag, acfg):
+    """The streaming entry point and the probes' entry point, each with the
+    counts set to 0 just before it."""
+    from tacotron_tpu_torch import probe, runtime
+    from tacotron_tpu_torch.dsp.fused_gl import gl_spectrum_reference, griffin_lim_spectrum
+
+    n = 100
+    kw = dict(n_iter=n, **gl_kw(acfg))
+    log(f"[stream] griffin_lim(inner=1), B {mag.shape[0]}, F {mag.shape[1]}, bf16, {n} "
+        f"iterations, momentum 0")
+    res = {}
+    with torch.no_grad():
+        runtime.LAUNCHES.clear()
+        call_ms = cuda_ms(lambda: res.update(k5=griffin_lim_spectrum(mag, inner=1, **kw)))
+        launches = dict(runtime.LAUNCHES)
+        res["k4"] = griffin_lim_spectrum(mag, **kw)
+        plain_ms = cuda_ms(lambda: res.update(plain=gl_spectrum_reference(mag, **kw)))
+    log(f"  {n} calls {call_ms:.3f} ms with the host; launches {launches}")
+    require(launches.get("griffin_lim_step") == 3 * n and "griffin_lim" not in launches,
+            f"the streaming kernel launched 3 x {n} times, the whole-loop kernel not at all")
+    k5 = lambda it: griffin_lim_spectrum(mag, inner=1, n_iter=it, **gl_kw(acfg))
+    chk = {"vs_plain": check_gl_path(
+               "griffin_lim_step bf16 vs plain steps", mag, acfg, k5,
+               lambda it: gl_spectrum_reference(mag, n_iter=it, **gl_kw(acfg)), n,
+               at_depth=(res["k5"], res["plain"])),
+           "vs_k4": check_gl_path(
+               "griffin_lim_step bf16 vs K4 bf16, beta 0", mag, acfg, k5,
+               lambda it: griffin_lim_spectrum(mag, n_iter=it, **gl_kw(acfg)), n,
+               at_depth=(res["k5"], res["k4"]), steps=False)}
+    report["checks"]["griffin_lim_step_main_shapes"] = chk
+    report["stream"] = {"calls": n, "ms_with_host": call_ms, "plain_ms": plain_ms,
+                        "launches": launches}
+
+    log("[probe] python -m tacotron_tpu_torch.probe smem 227 / ops")
+    runtime.LAUNCHES.clear()
+    require(probe.main(["smem", "227"]) == 0 and probe.main(["ops"]) == 0,
+            "both probes answer True")
+    launches.update(runtime.LAUNCHES)
+    require(launches.get("probe_smem") == 1 and launches.get("probe_ops") == 1,
+            "each probe launched its kernel once")
+    return launches, call_ms / n, plain_ms / n, chk["vs_plain"]["step_max_err_over_mag_peak"]
+
+
+def phase_timing(report, synth, launches, mag, f32_spec, gk_ms):
+    """K3 and K4 (f32) at [main]'s shapes; ``f32_spec`` and ``gk_ms`` are
+    the f32 kernel's result and time from [main]'s Griffin-Lim run."""
+    from tacotron_tpu_torch.dsp.fused_gl import gl_spectrum_reference
     from tacotron_tpu_torch.ops.decode_loop import (decode_loop, decode_loop_reference,
                                                     pack_decoder_weights)
 
     dev = torch.device("cuda")
     cfg, m = synth.cfg, synth.model
-    log("[timing] kernels at the main path's shapes")
+    log("[timing] K3 and K4 (f32) at [main]'s shapes")
     text, lengths = synth.encode_texts(PROMPTS)
     from tacotron_tpu_torch.models.tacotron import length_mask
     mask = length_mask(text.shape[1], lengths)
@@ -441,58 +843,30 @@ def phase_timing(report, synth, out, launches):
     dec = {"name": "decode_loop", "route": "cuda",
            "source": "tacotron_tpu_torch/csrc/decode_loop.cu",
            "replaces": "tacotron_tpu/ops/pallas/decode_loop.py:103",
-           "launches": launches.get("decode_loop", 0),
+           "launches": launches.get("decode_loop", 0), "path": "[main]",
            "max_abs_err": d_err,
            "ms": k_ms, "plain_ms": p_ms,
            "bound_ms": dbound[0], "bound_by": dbound[1], "library_ms": None,
            "shape": f"B {memory.shape[0]} T_in {memory.shape[1]} steps {n} bf16"}
 
     acfg = cfg.audio
-    mag = spectrogram_magnitude(torch.from_numpy(out["linear"]).to(dev), acfg)
-    kw = dict(n_fft=acfg.n_fft, hop_length=acfg.hop_length,
-              win_length=acfg.win_length, n_iter=acfg.griffin_lim_iters,
-              momentum=acfg.gl_momentum)
+    kw = dict(n_iter=acfg.griffin_lim_iters, momentum=acfg.gl_momentum, **gl_kw(acfg))
     res = {}
     with torch.no_grad():
-        gk_ms = cuda_ms(lambda: res.setdefault("kernel", griffin_lim_spectrum(mag, **kw)))
-        gp_ms = cuda_ms(lambda: res.setdefault("plain", gl_spectrum_mm(mag, **kw)))
-        ikw = dict(n_fft=acfg.n_fft, hop_length=acfg.hop_length, win_length=acfg.win_length)
-        kwav, pwav = istft_mm(*res["kernel"], **ikw), istft_mm(*res["plain"], **ikw)
-        # library yardstick: the iteration's two DFT products alone, as
-        # torch.matmul calls over the same live span
-        bwd_np, fwd_np = live_bases(acfg.n_fft, acfg.win_length)
-        bwd, fwd = torch.from_numpy(bwd_np).to(dev), torch.from_numpy(fwd_np).to(dev)
-        rows = mag.shape[0] * mag.shape[1]
-        spec = torch.randn(rows, bwd.shape[0], device=dev)
-        frames = torch.empty(rows, bwd.shape[1], device=dev)
-        outp = torch.empty(rows, fwd.shape[1], device=dev)
-
-        def products():
-            for _ in range(acfg.griffin_lim_iters):
-                torch.matmul(spec, bwd, out=frames)
-                torch.matmul(frames, fwd, out=outp)
-        gl_lib_ms = cuda_ms(products)
-    gl_err = max_err(kwav, pwav) / float(pwav.abs().max())
-    report["checks"]["griffin_lim_main_shapes"] = {"wav_max_abs_err_over_peak": gl_err,
-                                                   "tol": MAIN_TOL["griffin_lim"]}
-    log(f"  griffin_lim at main shapes ({acfg.griffin_lim_iters} iterations): "
-        f"wav err / peak {gl_err:.3e}")
-    require(gl_err <= MAIN_TOL["griffin_lim"],
-            f"griffin_lim at main shapes within {MAIN_TOL['griffin_lim']} of the peak")
-
-    def mag_err(wav):
-        re, im = stft_mm(wav, **ikw)
-        return float((torch.sqrt(re * re + im * im + 1e-12) - mag).abs().mean() / mag.mean())
-
-    ek, ep = mag_err(kwav), mag_err(pwav)
-    report["checks"]["griffin_lim_main_shapes"].update(mag_err_kernel=ek, mag_err_plain=ep)
-    log(f"  griffin_lim magnitude error: kernel {ek:.5f}, plain {ep:.5f}")
-    require(ek <= ep * 1.05 + 1e-3, "griffin_lim converges as well as the plain loop")
+        gp_ms = cuda_ms(lambda: res.update(plain=gl_spectrum_reference(mag, lowp=False, **kw)))
+        gl_lib_ms = dft_products_ms(mag, acfg, acfg.griffin_lim_iters, torch.float32)
+    log(f"  griffin_lim f32 at main shapes ({acfg.griffin_lim_iters} iterations):")
+    chk = check_gl("griffin_lim f32 at main shapes", f32_spec, res["plain"], mag, acfg,
+                   MAIN_TOL["griffin_lim"])
+    report["checks"]["griffin_lim_main_shapes"] = chk
+    gl_err = chk["wav_max_abs_err_over_peak"]
     gbound = gl_bound(tuple(mag.shape), acfg.win_length, acfg.griffin_lim_iters)
-    gl = {"name": "griffin_lim", "route": "cuda",
+    gl = {"name": "griffin_lim_f32", "route": "cuda",
           "source": "tacotron_tpu_torch/csrc/griffin_lim.cu",
           "replaces": "tacotron_tpu/dsp/pallas_gl.py:419",
-          "launches": launches.get("griffin_lim", 0),
+          "launches": launches.get("griffin_lim_f32", 0),
+          "path": "direct call of griffin_lim_spectrum(lowp=False) after [main]; no preset "
+                  "selects the f32 kernel",
           "max_abs_err": gl_err,
           "ms": gk_ms, "plain_ms": gp_ms,
           "bound_ms": gbound[0], "bound_by": gbound[1], "library_ms": gl_lib_ms,
@@ -501,6 +875,172 @@ def phase_timing(report, synth, out, launches):
         log(f"  {k['name']}: {k['ms']:.3f} ms (plain {k['plain_ms']:.3f} ms, "
             f"bound {k['bound_ms']:.3f} ms by {k['bound_by']}, library {k['library_ms']})")
     return [dec, gl]
+
+
+def kernel_ms(fn, names, reps=1):
+    """Device milliseconds per rep of the kernels whose name holds one of
+    ``names`` while ``fn`` runs (torch.profiler), and their launches per rep."""
+    rows = [v for k, v in device_kernels(fn, reps).items() if any(n in k for n in names)]
+    return sum(ms for ms, _ in rows), sum(n for _, n in rows)
+
+
+def phase_timing_serving(report, fast_cfg, fast_res, mag_fast, mag_main, main_launches, stream):
+    """K4 (bf16), K5 and the probes at their paths' shapes: device time by
+    torch.profiler beside the plain version, the library yardstick (the two
+    DFT products as bf16 torch.matmul; for P1 ``torch.mul``) and the bound.
+    K4 bf16 is also held to its plain version as [main] runs it (its
+    magnitudes, momentum 0, 1000 iterations) and on a speech-like magnitude
+    of that shape."""
+    from tacotron_tpu_torch import probe
+    from tacotron_tpu_torch.dsp.fused_gl import gl_spectrum_reference, griffin_lim_spectrum
+
+    dev = torch.device("cuda")
+    acfg = fast_cfg.audio
+    nb, win = acfg.n_freq, acfg.win_length
+    gl_names = ("gl_gemm", "gl_ola")
+    log("[timing] K4 (bf16), K5, P1, P2 at their paths' shapes")
+
+    n_it = acfg.griffin_lim_iters
+    kw = dict(n_iter=n_it, momentum=acfg.gl_momentum, **gl_kw(acfg))
+    res = {}
+    with torch.no_grad():
+        k_ms, k_n = kernel_ms(lambda: res.update(k=griffin_lim_spectrum(mag_fast, **kw)), gl_names)
+        p_ms = cuda_ms(lambda: res.update(p=gl_spectrum_reference(mag_fast, **kw)))
+        lib_ms = dft_products_ms(mag_fast, acfg, n_it, torch.bfloat16)
+        # [main]'s shape and depth: momentum 0, 1000 iterations
+        m_it = 1000
+        main_ms, _ = kernel_ms(lambda: res.update(km=griffin_lim_spectrum(
+            mag_main, n_iter=m_it, **gl_kw(acfg))), gl_names)
+        res["pm"] = gl_spectrum_reference(mag_main, n_iter=m_it, **gl_kw(acfg))
+    chk = check_gl_path(
+        f"griffin_lim bf16 at [fast]'s shape (B {mag_fast.shape[0]}, F {mag_fast.shape[1]})",
+        mag_fast, acfg,
+        lambda it: griffin_lim_spectrum(mag_fast, **{**kw, "n_iter": it}),
+        lambda it: gl_spectrum_reference(mag_fast, **{**kw, "n_iter": it}), n_it,
+        at_depth=(res["k"], res["p"]), steps=False)
+    report["checks"]["griffin_lim_bf16_fast_shape"] = chk
+    chk_main = check_gl_path(
+        f"griffin_lim bf16 as [main] runs it (B {mag_main.shape[0]}, F {mag_main.shape[1]}, "
+        f"momentum 0)", mag_main, acfg,
+        lambda it: griffin_lim_spectrum(mag_main, n_iter=it, **gl_kw(acfg)),
+        lambda it: gl_spectrum_reference(mag_main, n_iter=it, **gl_kw(acfg)), m_it,
+        at_depth=(res["km"], res["pm"]), steps=False)
+    chk_main["speech_like"] = check_gl_speech(
+        "griffin_lim bf16 at [main]'s and [fast]'s shape", *mag_main.shape[:2], acfg,
+        [(10, 0.0), (9, acfg.gl_momentum), (10, acfg.gl_momentum)])
+    report["checks"]["griffin_lim_bf16_main_shape"] = chk_main
+    rows = mag_fast.shape[0] * mag_fast.shape[1]
+    b4 = gl_bound_bf16(rows, nb, win, n_it)
+    k4 = {"name": "griffin_lim_bf16", "route": "cuda",
+          "source": "tacotron_tpu_torch/csrc/griffin_lim.cu",
+          "replaces": "tacotron_tpu/dsp/pallas_gl.py:419",
+          "launches": fast_res["launches"].get("griffin_lim", 0), "path": "[fast]",
+          "main_launches": main_launches.get("griffin_lim", 0),
+          "max_abs_err": max(chk["max_abs_err"], chk_main["speech_like"]["max_abs_err"]),
+          "max_abs_err_of": f"waveform over its peak: the path's magnitudes after "
+                            f"{GL_PATH['iters']} iterations, a speech-like magnitude of its "
+                            f"shape after 9 and 10",
+          "ms": k_ms, "plain_ms": p_ms, "bound_ms": b4[0], "bound_by": b4[1],
+          "library_ms": lib_ms,
+          "shape": f"B {mag_fast.shape[0]} F {mag_fast.shape[1]} iters {n_it} momentum "
+                   f"{acfg.gl_momentum} bf16",
+          "ms_per_iteration": k_ms / n_it, "device_launches": k_n,
+          "main_shape_ms": main_ms, "main_shape_ms_per_iteration": main_ms / m_it,
+          "main_shape": f"B {mag_main.shape[0]} F {mag_main.shape[1]} iters {m_it} momentum 0 bf16",
+          "main_shape_bound_ms": gl_bound_bf16(mag_main.shape[0] * mag_main.shape[1], nb, win,
+                                               m_it)[0]}
+    log(f"  griffin_lim_bf16: {k_ms:.3f} ms per call, {k_ms / n_it * 1e3:.1f} us per iteration "
+        f"(plain {p_ms:.3f} ms, bound {b4[0]:.3f} ms by {b4[1]}, library {lib_ms:.3f} ms); at "
+        f"[main]'s shape {main_ms:.3f} ms, {main_ms / m_it * 1e3:.1f} us per iteration "
+        f"(bound {k4['main_shape_bound_ms']:.3f} ms)")
+
+    launches, call_ms, plain_step_ms, s_err = stream
+    reps = 20
+    with torch.no_grad():
+        s_ms, s_n = kernel_ms(lambda: griffin_lim_spectrum(mag_main, n_iter=reps, inner=1,
+                                                           **gl_kw(acfg)), gl_names)
+        s_lib = dft_products_ms(mag_main, acfg, reps, torch.bfloat16) / reps
+    b5 = gl_bound_bf16(mag_main.shape[0] * mag_main.shape[1], nb, win, 1, planar_io=True)
+    k5 = {"name": "griffin_lim_step", "route": "cuda",
+          "source": "tacotron_tpu_torch/csrc/griffin_lim.cu",
+          "replaces": "tacotron_tpu/dsp/pallas_gl.py:535",
+          "launches": launches.get("griffin_lim_step", 0), "path": "[stream]",
+          "max_abs_err": s_err,
+          "max_abs_err_of": "one call from the plain loop's state, over the magnitude's peak",
+          "ms": s_ms / reps, "plain_ms": plain_step_ms, "bound_ms": b5[0], "bound_by": b5[1],
+          "library_ms": s_lib,
+          "shape": f"B {mag_main.shape[0]} F {mag_main.shape[1]} one iteration per call bf16",
+          "call_ms": call_ms, "device_launches_per_call": s_n / reps}
+    log(f"  griffin_lim_step: {k5['ms']:.3f} ms of device time per call in "
+        f"{k5['device_launches_per_call']:.0f} launches, {call_ms:.3f} ms per call with the "
+        f"host (plain {plain_step_ms:.3f} ms, bound {b5[0]:.3f} ms by {b5[1]}, library "
+        f"{s_lib:.3f} ms)")
+
+    x = torch.ones(probe.SMEM_SHAPE, device=dev)
+    ops_in = probe.ops_inputs(dev)
+    reps = 50
+    with torch.no_grad():
+        p1_ms, _ = kernel_ms(lambda: probe.probe_smem(x, 227), ("probe_smem_kernel",), reps)
+        p1_plain = sum(ms for ms, _ in device_kernels(
+            lambda: probe.probe_smem_reference(x), reps).values())
+        p1_lib = sum(ms for ms, _ in device_kernels(lambda: torch.mul(x, 2), reps).values())
+        p2_ms, _ = kernel_ms(lambda: probe.probe_ops(*ops_in), ("probe_ops_kernel",), reps)
+        p2_plain = sum(ms for ms, _ in device_kernels(
+            lambda: probe.probe_ops_reference(*ops_in), reps).values())
+        # on seeded normal operands: the all-ones ones sum exactly in any order
+        seeded = probe.ops_inputs(dev, seed=0)
+        p2_err = max_err(probe.probe_ops(*seeded), probe.probe_ops_reference(*seeded))
+        p1_err = max_err(probe.probe_smem(x, 227)[0], probe.probe_smem_reference(x))
+    f, s_, h = probe.OPS_F, probe.OPS_S, probe.OPS_H
+    # P1: x read, out written; one multiply per element. P2: spec, d, p read,
+    # out written; the NT product, the permutation product, the accumulations
+    bp1 = bound(2 * x.numel() * 4, x.numel(), PEAK_FLOPS["f32"])
+    bp2 = bound((f * s_ + h * s_ + h * h + (f + 8) * h) * 4,
+                2 * f * h * s_ + 2 * h * h + 4 * f * h, PEAK_FLOPS["f32"])
+    p1 = {"name": "probe_smem", "route": "cuda", "source": "tacotron_tpu_torch/csrc/probe.cu",
+          "replaces": "scripts/probe_pallas.py:16", "launches": launches.get("probe_smem", 0),
+          "path": "[probe]",
+          "max_abs_err": p1_err, "ms": p1_ms, "plain_ms": p1_plain, "bound_ms": bp1[0],
+          "bound_by": bp1[1], "library_ms": p1_lib, "shape": "x (8, 512) f32, 227 KiB"}
+    p2 = {"name": "probe_ops", "route": "cuda", "source": "tacotron_tpu_torch/csrc/probe.cu",
+          "replaces": "scripts/probe_pallas.py:35", "launches": launches.get("probe_ops", 0),
+          "path": "[probe]",
+          "max_abs_err": p2_err, "ms": p2_ms, "plain_ms": p2_plain, "bound_ms": bp2[0],
+          "bound_by": bp2[1], "library_ms": None,
+          "shape": "spec (64, 256), d (275, 256), p (275, 275) f32"}
+    for k in (p1, p2):
+        log(f"  {k['name']}: {k['ms'] * 1e3:.2f} us of device time per launch (plain "
+            f"{k['plain_ms'] * 1e3:.2f} us, bound {k['bound_ms'] * 1e3:.3f} us by "
+            f"{k['bound_by']}, library "
+            + ("none)" if k["library_ms"] is None else f"torch.mul {k['library_ms'] * 1e3:.2f} us)"))
+    return [k4, k5, p1, p2]
+
+
+def phase_lowp_convergence(report, acfg, mag_main):
+    """What the bf16 mode costs in convergence: the magnitude error of the
+    bf16 kernel's waveform beside the f32 kernel's, on a speech-like
+    magnitude at the serving recipes' depths and on [main]'s own magnitudes."""
+    from tacotron_tpu_torch.dsp.fused_gl import griffin_lim_spectrum
+
+    dev = torch.device("cuda")
+    log("[bf16 vs f32] magnitude error of the Griffin-Lim kernel's result, by mode")
+    speech = sample_magnitude(4, 400, acfg, dev, seed=3)
+    cases = [("speech-like B 4 F 400", speech, 100, 0.99), ("speech-like B 4 F 400", speech, 100, 0.0),
+             ("speech-like B 4 F 400", speech, 1000, 0.0),
+             ("[main]'s magnitudes B 8 F 1000", mag_main, 1000, 0.0)]
+    rows = []
+    for name, mag, n_iter, mom in cases:
+        errs = {}
+        for lowp in (False, True):
+            with torch.no_grad():
+                spec = griffin_lim_spectrum(mag, n_iter=n_iter, momentum=mom, lowp=lowp,
+                                            **gl_kw(acfg))
+            errs["bf16" if lowp else "f32"] = gl_errors(spec, spec, mag, acfg)[1]
+        log(f"  {name}, {n_iter} iterations, momentum {mom}: f32 {errs['f32']:.5f}, bf16 "
+            f"{errs['bf16']:.5f} ({100 * (errs['bf16'] / errs['f32'] - 1):+.2f}%)")
+        require(all(np.isfinite(list(errs.values()))), "both finite")
+        rows.append({"input": name, "n_iter": n_iter, "momentum": mom, **errs})
+    report["bf16_vs_f32_magnitude_error"] = rows
 
 
 def phase_train(report):
@@ -661,7 +1201,8 @@ def phase_train_timing(report, state, batch, launches):
     k1 = {"name": "attn_energy_fwd", "route": "cuda",
           "source": "tacotron_tpu_torch/csrc/attn_energy.cu",
           "replaces": "tacotron_tpu/ops/pallas/attn_energy.py:63",
-          "launches": launches.get("attn_energy_fwd", 0), "max_abs_err": errs["e"][0],
+          "launches": launches.get("attn_energy_fwd", 0), "path": "[train]",
+          "max_abs_err": errs["e"][0],
           "ms": f_ms, "plain_ms": fp_ms, "bound_ms": fb[0], "bound_by": fb[1],
           "library_ms": None, "shape": shape, "call_ms": call_ms["fwd"],
           "plain_call_ms": call_ms["fwd_plain"],
@@ -669,7 +1210,7 @@ def phase_train_timing(report, state, batch, launches):
     k2 = {"name": "attn_energy_bwd", "route": "cuda",
           "source": "tacotron_tpu_torch/csrc/attn_energy.cu",
           "replaces": "tacotron_tpu/ops/pallas/attn_energy.py:69",
-          "launches": launches.get("attn_energy_bwd", 0),
+          "launches": launches.get("attn_energy_bwd", 0), "path": "[train]",
           "max_abs_err": max(errs[n][0] for n in ("dkeys", "dq", "dv")),
           "ms": b_ms, "plain_ms": bp_ms, "bound_ms": bb[0], "bound_by": bb[1],
           "library_ms": None, "shape": shape, "call_ms": call_ms["bwd"],
@@ -714,11 +1255,19 @@ def main(argv=None) -> int:
     phase_train_e2e(report)
     kernels = None
     if not args.quick:
-        synth, out, launches = phase_main(report, cfg, vocab)
-        kernels = phase_timing(report, synth, out, launches)
-        del synth, out
+        synth, out, launches, mag_main, f32_spec, f32_ms = phase_main(report, cfg, vocab)
+        kernels = phase_timing(report, synth, launches, mag_main, f32_spec, f32_ms)
+        del synth, out, f32_spec
+        fast_cfg, fast_res, mag_fast = phase_fast(report, vocab)
+        stream = phase_stream(report, mag_main, fast_cfg.audio)
+        kernels += phase_timing_serving(report, fast_cfg, fast_res, mag_fast, mag_main, launches,
+                                        stream)
+        phase_lowp_convergence(report, fast_cfg.audio, mag_main)
+        del mag_main, mag_fast
         state, batch, train_launches = phase_train(report)
         kernels = phase_train_timing(report, state, batch, train_launches) + kernels
+        for k in kernels:
+            require(k["launches"] > 0, f"{k['name']} launched on its path ({k['launches']})")
         report["kernels"] = kernels
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)

@@ -38,13 +38,16 @@ class AudioConfig:
     min_level_db: float = -100.0
     griffin_lim_iters: int = 1000     # the reference runs ~1000 iterations
     griffin_lim_power: float = 1.5    # magnitude raised to 1.5 before inversion (paper §3.3)
-    # GL transform backend: "pallas" = the fused Griffin-Lim kernel
-    # (dsp/fused_gl.py; its plain f32 version on CPU tensors), "mm_f32" =
-    # the plain matmul-DFT loop in f32. "mm" (bf16) and "fft" are not ported.
+    # GL transform backend: "pallas" = the Griffin-Lim kernel in its bf16
+    # mode (dsp/fused_gl.py; its plain version on CPU tensors), "mm" = the
+    # plain matmul-DFT loop in bf16, "mm_f32" = the same in f32, "fft" =
+    # classic Griffin-Lim over torch.fft.
     gl_backend: str = "pallas"
     # Fast Griffin-Lim momentum (Perraudin 2013); 0.0 = vanilla GL.
     gl_momentum: float = 0.0
-    # JAX kernel only: lane-trim of partially windowed chunks (no effect here).
+    # JAX kernel: lane-trim of partially windowed chunks. Accepted and
+    # without effect here: the port's products cover only the window's
+    # nonzero span.
     gl_trim_chunks: bool = False
 
     def __post_init__(self):
@@ -291,8 +294,8 @@ PRESETS: dict[str, Config] = {
         train=TrainConfig(batch_size=256, per_chip_batch_size=32,
                           summary_every=50),
     ),
-    # serving recipe: Fast Griffin-Lim (momentum 0.99 x 100 iterations) +
-    # early-exit decode + trimming (the last two are not ported yet)
+    # serving recipe: Fast Griffin-Lim (momentum 0.99 x 100 iterations, the
+    # kernel's bf16 mode) + early-exit decode + trimming before Griffin-Lim
     "synth_fast": Config(
         name="synth_fast",
         audio=AudioConfig(griffin_lim_iters=100, gl_momentum=0.99,

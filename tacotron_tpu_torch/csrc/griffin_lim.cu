@@ -1,9 +1,16 @@
 // Griffin-Lim phase recovery: every iteration as three hand-written
-// launches, f32 products and f32 carried spectrum.
+// launches. Two storage modes: f32 throughout, or bf16 (carried spectrum,
+// previous iterate, both DFT bases and both product operands in bf16, f32
+// accumulation, everything else f32).
 //
-// Replaces the TPU kernel tacotron_tpu/dsp/pallas_gl.py
-// (_make_gl_call_fused, body _iteration_body), which runs all iterations in
-// one launch with the spectrum resident in VMEM. Here each iteration is
+// Replaces two TPU kernels of tacotron_tpu/dsp/pallas_gl.py that share one
+// iteration body (_iteration_body):
+//   _make_gl_call_fused  all iterations in one launch, the spectrum resident
+//                        in VMEM, momentum           -> tt_griffin_lim
+//   _make_gl_call        one iteration per launch, separate re and im arrays
+//                        in and out through HBM, no momentum
+//                                                    -> tt_griffin_lim_step
+// Here each iteration is
 //   1. synthesis: frames (B*F, win) = spectrum (B*F, 2*n_bins) x windowed
 //      inverse-DFT basis (2*n_bins, win), a shared-memory tiled product;
 //   2. overlap-add + normalise: a gather-form OLA (each output sample sums
@@ -18,31 +25,65 @@
 // Only the window's nonzero span [lpad, lpad + win) of each frame takes
 // part, so the dead chunks of the TPU plan are skipped here too.
 //
+// bf16 mode, the rounding points of the TPU body: the analysis operand is
+// rounded to bf16 after the reflect gather from the f32 signal; the
+// projection runs in f32 and its result is rounded to bf16 (the carrier);
+// the extrapolation is formed in f32 from the bf16 carriers and rounded to
+// bf16 as the next synthesis operand. bf16 values are widened to f32 and
+// multiplied with fmaf: a product of two bf16 values is exact in f32, so
+// this is a tensor-core bf16 product up to the order of the sum.
+//
 // What bounds it on an H100: the two products, 2 x (B*F) x win x 2*n_bins
-// multiply-adds per iteration in f32, run on the CUDA cores (67 TFLOP/s
-// peak at 700 W); the carried spectrum (B*F x 2050 x 4 bytes) and the
-// frames cross device memory each iteration but take far less time than
-// the products. The design answers the compute bound with a register-
-// blocked tile (128 x 128 per block, 8 x 8 outputs per thread, operands
-// staged through shared memory with one tile prefetched in registers).
-// The spectrum is stored interleaved (re, im per bin) so that a thread's
-// output tile holds both parts of each bin for the projection.
+// multiply-adds per iteration. As written they run on the CUDA cores in
+// both modes (67 TFLOP/s peak at 700 W), while the bf16 mode's bound is the
+// tensor cores' (989 TFLOP/s): moving its tiles to wgmma is what is left
+// to do. The carried spectrum and the frames cross device memory each
+// iteration but take far less time than the products. The design answers
+// the compute bound with a register-blocked tile (128 x 128 per block, 8 x
+// 8 outputs per thread, operands staged through shared memory with one
+// tile prefetched in registers). tt_griffin_lim stores the spectrum
+// interleaved (re, im per bin) so that a thread's output tile holds both
+// parts of each bin for the projection; tt_griffin_lim_step keeps the TPU
+// kernel's planar re / im interface and reads and writes the two arrays
+// through the same tiles.
 #include "common.cuh"
 
 namespace {
 
 constexpr int BM = 128, BN = 128, BK = 8, kThreads = 256;
 
-// MODE 0 (synthesis): A = spectrum rows, C written out.
+template <typename T> __device__ __forceinline__ void store_pair(T* p, float a, float b);
+template <> __device__ __forceinline__ void store_pair<float>(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+template <> __device__ __forceinline__ void store_pair<__nv_bfloat16>(
+    __nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+template <typename T> __device__ __forceinline__ T to_storage(float x);
+template <> __device__ __forceinline__ float to_storage<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 to_storage<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// The spectrum operand / result of one product. Interleaved: one array
+// (M, 2*n_bins), (re, im) per bin. Planar: a = re, b = im, each (M, n_bins).
+template <typename T> struct Spec {
+  T* a;
+  T* b;
+};
+
+// MODE 0 (synthesis): A = spectrum rows (src), frames written out.
 // MODE 1 (analysis): A gathered from the signal with reflect padding; the
-// epilogue projects onto the target magnitude.
-template <int MODE>
+// epilogue projects onto the target magnitude and writes the spectrum (dst).
+// T: storage type of the spectrum and the basis. PLANAR: spectrum layout.
+template <int MODE, typename T, bool PLANAR>
 __global__ void __launch_bounds__(kThreads)
-gl_gemm(int M, int N, int K, const float* __restrict__ A,
-        const float* __restrict__ Bm, float* __restrict__ C, int F, int L,
-        int hop, int off, const float* __restrict__ mag,
-        const float* __restrict__ s_cur, float* __restrict__ s_new,
-        float beta) {
+gl_gemm(int M, int N, int K, Spec<const T> src, const float* __restrict__ sig,
+        const T* __restrict__ Bm, float* __restrict__ frames, Spec<T> dst,
+        int F, int L, int hop, int off, const float* __restrict__ mag,
+        const T* __restrict__ s_cur, T* __restrict__ s_new, float beta) {
   __shared__ __align__(16) float As[BK][BM];
   __shared__ __align__(16) float Bs[BK][BN];
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -53,13 +94,12 @@ gl_gemm(int M, int N, int K, const float* __restrict__ A,
   const int bk = tid >> 5, bn = (tid & 31) * 4;
   const int am = m0 + ar;
   const bool arow_ok = am < M;
-  const float* arow;
+  const size_t arow = arow_ok ? am : 0;
+  const float* srow = sig;
   int abase = 0;
-  if (MODE == 0) {
-    arow = A + (size_t)(arow_ok ? am : 0) * K;
-  } else {
+  if (MODE == 1) {
     const int b = arow_ok ? am / F : 0, f = arow_ok ? am % F : 0;
-    arow = A + (size_t)b * L;
+    srow = sig + (size_t)b * L;
     abase = f * hop + off;
   }
 
@@ -71,12 +111,13 @@ gl_gemm(int M, int N, int K, const float* __restrict__ A,
       float v = 0.f;
       if (arow_ok && k < K) {
         if (MODE == 0) {
-          v = arow[k];
+          v = PLANAR ? tt::to_f32(((k & 1) ? src.b : src.a)[arow * (K / 2) + (k >> 1)])
+                     : tt::to_f32(src.a[arow * K + k]);
         } else {
           int idx = abase + k;
           idx = idx < 0 ? -idx : idx;
           idx = idx >= L ? 2 * (L - 1) - idx : idx;
-          v = arow[idx];
+          v = tt::round_to<T>(srow[idx]);
         }
       }
       ra[i] = v;
@@ -85,7 +126,7 @@ gl_gemm(int M, int N, int K, const float* __restrict__ A,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int n = n0 + bn + i;
-      rb[i] = (kb < K && n < N) ? Bm[(size_t)kb * N + n] : 0.f;
+      rb[i] = (kb < K && n < N) ? tt::to_f32(Bm[(size_t)kb * N + n]) : 0.f;
     }
   };
 
@@ -127,7 +168,7 @@ gl_gemm(int M, int N, int K, const float* __restrict__ A,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int n = n0 + tx * 4 + (j < 4 ? j : 60 + j);
-        if (n < N) C[(size_t)m * N + n] = acc[i][j];
+        if (n < N) frames[(size_t)m * N + n] = acc[i][j];
       }
     } else {
 #pragma unroll
@@ -137,17 +178,23 @@ gl_gemm(int M, int N, int K, const float* __restrict__ A,
         const float re = acc[i][j], im = acc[i][j + 1];
         const float scale = mag[(size_t)m * (N / 2) + n / 2] /
                             fmaxf(sqrtf(re * re + im * im), 1e-8f);
-        const float nr = re * scale, ni = im * scale;
+        // the projected value as the carrier holds it
+        const float nr = tt::round_to<T>(re * scale), ni = tt::round_to<T>(im * scale);
+        if (PLANAR) {
+          const size_t o = (size_t)m * (N / 2) + n / 2;
+          dst.a[o] = to_storage<T>(nr);
+          dst.b[o] = to_storage<T>(ni);
+          continue;
+        }
         const size_t o = (size_t)m * N + n;
         if (s_new) {
-          const float cr = s_cur[o], ci = s_cur[o + 1];
-          s_new[o] = nr;
-          s_new[o + 1] = ni;
-          C[o] = nr + beta * (nr - cr);
-          C[o + 1] = ni + beta * (ni - ci);
+          const float cr = tt::to_f32(s_cur[o]), ci = tt::to_f32(s_cur[o + 1]);
+          store_pair<T>(s_new + o, nr, ni);
+          // two roundings, as the plain version's separate multiply and add
+          store_pair<T>(dst.a + o, __fadd_rn(nr, __fmul_rn(beta, nr - cr)),
+                        __fadd_rn(ni, __fmul_rn(beta, ni - ci)));
         } else {
-          C[o] = nr;
-          C[o + 1] = ni;
+          store_pair<T>(dst.a + o, nr, ni);
         }
       }
     }
@@ -172,45 +219,104 @@ __global__ void gl_ola(const float* __restrict__ frames,
   sig[idx] = y * invwss[t];
 }
 
+struct Geometry {
+  int M, S, win, F, L, hop, lpad, pad, B;
+  dim3 g_syn, g_ana;
+  int ola_blocks;
+  Geometry(int B_, int F_, int n_bins, int n_fft, int hop_, int win_)
+      : M(B_ * F_), S(2 * n_bins), win(win_), F(F_), L(hop_ * (F_ - 1)), hop(hop_),
+        lpad((n_fft - win_) / 2), pad(n_fft / 2), B(B_),
+        g_syn((win_ + BN - 1) / BN, (M + BM - 1) / BM),
+        g_ana((S + BN - 1) / BN, (M + BM - 1) / BM),
+        ola_blocks((int)(((size_t)B_ * L + 255) / 256)) {}
+};
+
+// One iteration: synthesis from `src`, overlap-add, analysis into `dst`.
+template <typename T, bool PLANAR>
+cudaError_t iterate(const Geometry& g, Spec<const T> src, Spec<T> dst, const float* mag,
+                    const T* bwd, const T* fwd, const float* invwss, float* frames,
+                    float* sig, const T* s_cur, T* s_new, float beta, cudaStream_t st) {
+  gl_gemm<0, T, PLANAR><<<g.g_syn, kThreads, 0, st>>>(
+      g.M, g.win, g.S, src, nullptr, bwd, frames, Spec<T>{nullptr, nullptr}, 0, 0, 0, 0,
+      nullptr, nullptr, nullptr, 0.f);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gl_ola<<<g.ola_blocks, 256, 0, st>>>(frames, invwss, sig, g.B, g.F, g.win, g.hop, g.lpad,
+                                       g.pad, g.L);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gl_gemm<1, T, PLANAR><<<g.g_ana, kThreads, 0, st>>>(
+      g.M, g.S, g.win, Spec<const T>{nullptr, nullptr}, sig, fwd, nullptr, dst, g.F, g.L,
+      g.hop, g.lpad - g.pad, mag, s_cur, s_new, beta);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int run_loop(const Geometry& g, const float* mag, void* e_, void* s0_, void* s1_,
+             const void* bwd, const void* fwd, const float* invwss, float* frames,
+             float* sig, int n_iter, float beta, cudaStream_t st) {
+  T* e = static_cast<T*>(e_);
+  T* s0 = static_cast<T*>(s0_);
+  T* s1 = static_cast<T*>(s1_);
+  for (int it = 0; it < n_iter; ++it) {
+    T* s_cur = (it % 2 == 0) ? s0 : s1;
+    T* s_new = (it % 2 == 0) ? s1 : s0;
+    cudaError_t err = iterate<T, false>(
+        g, Spec<const T>{e, nullptr}, Spec<T>{e, nullptr}, mag, static_cast<const T*>(bwd),
+        static_cast<const T*>(fwd), invwss, frames, sig, beta != 0.f ? s_cur : nullptr,
+        beta != 0.f ? s_new : nullptr, beta, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+template <typename T>
+int run_step(const Geometry& g, const float* mag, const void* re, const void* im,
+             void* out_re, void* out_im, const void* bwd, const void* fwd,
+             const float* invwss, float* frames, float* sig, cudaStream_t st) {
+  return (int)iterate<T, true>(
+      g, Spec<const T>{static_cast<const T*>(re), static_cast<const T*>(im)},
+      Spec<T>{static_cast<T*>(out_re), static_cast<T*>(out_im)}, mag,
+      static_cast<const T*>(bwd), static_cast<const T*>(fwd), invwss, frames, sig, nullptr,
+      nullptr, 0.f, st);
+}
+
 }  // namespace
 
 // n_iter Griffin-Lim iterations, three launches each, on `stream`.
-//   mag (B*F, n_bins); e (B*F, 2*n_bins): synthesis input, holds the
+//   lowp: 1 = bf16 storage of e, s0, s1, bwd and fwd; 0 = f32.
+//   mag (B*F, n_bins) f32; e (B*F, 2*n_bins): synthesis input, holds the
 //   zero-phase start and, with beta == 0, the result; s0/s1 (same shape,
 //   only with beta != 0): s0 holds the start, the result ends in s1 when
 //   n_iter is odd, else in s0. bwd (2*n_bins, win), fwd (win, 2*n_bins):
 //   live-span DFT bases with interleaved (re, im) rows/columns. frames
-//   (B*F, win) and sig (B, L) are scratch; invwss has n_fft + hop*(F-1)
-//   entries.
-extern "C" int tt_griffin_lim(const float* mag, float* e, float* s0, float* s1,
-                              const float* bwd, const float* fwd,
+//   (B*F, win) and sig (B, L) are f32 scratch; invwss has n_fft + hop*(F-1)
+//   f32 entries.
+extern "C" int tt_griffin_lim(const float* mag, void* e, void* s0, void* s1,
+                              const void* bwd, const void* fwd,
                               const float* invwss, float* frames, float* sig,
                               int B, int F, int n_bins, int n_fft, int hop,
-                              int win, int n_iter, float beta, void* stream) {
+                              int win, int n_iter, int lowp, float beta, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int M = B * F, S = 2 * n_bins;
-  const int lpad = (n_fft - win) / 2, pad = n_fft / 2;
-  const int L = hop * (F - 1);
-  const dim3 g_syn((win + BN - 1) / BN, (M + BM - 1) / BM);
-  const dim3 g_ana((S + BN - 1) / BN, (M + BM - 1) / BM);
-  const size_t n_sig = (size_t)B * L;
-  const int ola_blocks = (int)((n_sig + 255) / 256);
-  for (int it = 0; it < n_iter; ++it) {
-    float* s_cur = (it % 2 == 0) ? s0 : s1;
-    float* s_new = (it % 2 == 0) ? s1 : s0;
-    gl_gemm<0><<<g_syn, kThreads, 0, st>>>(M, win, S, e, bwd, frames, 0, 0, 0,
-                                           0, nullptr, nullptr, nullptr, 0.f);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    gl_ola<<<ola_blocks, 256, 0, st>>>(frames, invwss, sig, B, F, win, hop,
-                                       lpad, pad, L);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    gl_gemm<1><<<g_ana, kThreads, 0, st>>>(
-        M, S, win, sig, fwd, e, F, L, hop, lpad - pad, mag,
-        beta != 0.f ? s_cur : nullptr, beta != 0.f ? s_new : nullptr, beta);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+  const Geometry g(B, F, n_bins, n_fft, hop, win);
+  return lowp ? run_loop<__nv_bfloat16>(g, mag, e, s0, s1, bwd, fwd, invwss, frames, sig,
+                                        n_iter, beta, st)
+              : run_loop<float>(g, mag, e, s0, s1, bwd, fwd, invwss, frames, sig, n_iter,
+                                beta, st);
+}
+
+// ONE Griffin-Lim iteration without momentum, three launches, on `stream`:
+// planar re, im (B*F, n_bins) in the storage type in, out_re, out_im out;
+// the other arguments as tt_griffin_lim's.
+extern "C" int tt_griffin_lim_step(const float* mag, const void* re, const void* im,
+                                   void* out_re, void* out_im, const void* bwd,
+                                   const void* fwd, const float* invwss, float* frames,
+                                   float* sig, int B, int F, int n_bins, int n_fft,
+                                   int hop, int win, int lowp, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Geometry g(B, F, n_bins, n_fft, hop, win);
+  return lowp ? run_step<__nv_bfloat16>(g, mag, re, im, out_re, out_im, bwd, fwd, invwss,
+                                        frames, sig, st)
+              : run_step<float>(g, mag, re, im, out_re, out_im, bwd, fwd, invwss, frames,
+                                sig, st);
 }

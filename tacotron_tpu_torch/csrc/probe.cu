@@ -1,0 +1,138 @@
+// Capability probes: what the Griffin-Lim kernel design needs from the
+// card, asked of the card itself.
+//
+// Replaces the two TPU probes of scripts/probe_pallas.py:
+//   probe_vmem(mb)  can a kernel hold mb MiB of VMEM scratch and use it
+//                                                    -> tt_probe_smem
+//   probe_ops()     the op shapes the kernel relies on: an NT product, two
+//                   overlapping row-offset accumulations into scratch, an
+//                   unaligned one-row slice reversed by a permutation
+//                   product, a loop inside the kernel   -> tt_probe_ops
+// On Hopper the scarce on-chip memory is a block's shared memory: up to 227
+// KiB of an SM's 256 KiB, and above 48 KiB only as dynamic shared memory
+// after an opt-in. tt_probe_smem asks for `kib` KiB, opts in, and uses the
+// allocation; a refusal comes back as the CUDA error, never as a pass.
+//
+// Both are a single block and a few microseconds of work: launch latency
+// bounds them, not bytes or operations.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kProbeRows = 8, kProbeCols = 512;
+
+// scratch[0:8, :] = x * 2; out = scratch[0:8, :]
+__global__ void probe_smem_kernel(const float* __restrict__ x, float* __restrict__ out) {
+  extern __shared__ float scratch[];
+  const int n = kProbeRows * kProbeCols;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) scratch[i] = x[i] * 2.0f;
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += blockDim.x) out[i] = scratch[i];
+}
+
+constexpr int PF = 64, PS = 256, PH = 275, PK = 32, PT = 512;
+constexpr int kOpsSmem = ((PF + 8) * PH + PF * PH + PF * PK + PH * (PK + 1)) * 4 + 64;
+
+// spec (64, 256), d (275, 256), p (275, 275) -> out (72, 275), one block.
+__global__ void __launch_bounds__(PT)
+probe_ops_kernel(const float* __restrict__ spec, const float* __restrict__ d,
+                 const float* __restrict__ p, float* __restrict__ out) {
+  extern __shared__ float smem[];
+  float* y = smem;                        // (72, 275) scratch
+  float* prod = y + (PF + 8) * PH;        // (64, 275) the NT product
+  float* a_t = prod + PF * PH;            // (64, 32) tile of spec
+  float* b_t = a_t + PF * PK;             // (275, 33) tile of d, padded
+  float* red = b_t + PH * (PK + 1);       // 16 partial sums
+  const int tid = threadIdx.x;
+
+  // NT product: contract dimension 1 of both, from shared-memory tiles
+  for (int i = tid; i < PF * PH; i += PT) prod[i] = 0.f;
+  for (int k0 = 0; k0 < PS; k0 += PK) {
+    __syncthreads();
+    for (int i = tid; i < PF * PK; i += PT)
+      a_t[i] = spec[(i / PK) * PS + k0 + i % PK];
+    for (int i = tid; i < PH * PK; i += PT)
+      b_t[(i / PK) * (PK + 1) + i % PK] = d[(i / PK) * PS + k0 + i % PK];
+    __syncthreads();
+    for (int i = tid; i < PF * PH; i += PT) {
+      const int f = i / PH, h = i % PH;
+      float acc = prod[i];
+#pragma unroll
+      for (int k = 0; k < PK; ++k) acc = fmaf(a_t[f * PK + k], b_t[h * (PK + 1) + k], acc);
+      prod[i] = acc;
+    }
+  }
+  // two overlapping row-offset accumulations, in order
+  for (int i = tid; i < (PF + 8) * PH; i += PT) y[i] = 0.f;
+  __syncthreads();
+  for (int i = tid; i < PF * PH; i += PT) y[3 * PH + i] += prod[i];
+  __syncthreads();
+  for (int i = tid; i < PF * PH; i += PT) y[5 * PH + i] += prod[i] * 0.5f;
+  __syncthreads();
+  // an unaligned one-row slice times the permutation, into row 7
+  float rev = 0.f;
+  if (tid < PH)
+    for (int k = 0; k < PH; ++k) rev = fmaf(y[5 * PH + k], p[k * PH + tid], rev);
+  __syncthreads();
+  if (tid < PH) y[7 * PH + tid] = rev;
+  __syncthreads();
+  // a loop inside the kernel with a carried value
+  float s = 0.f;
+  for (int trip = 0; trip < 4; ++trip) {
+    float part = 0.f;
+    for (int i = tid; i < 8 * PH; i += PT) part += y[i];
+    part = tt::warp_sum(part);
+    if ((tid & 31) == 0) red[tid >> 5] = part;
+    __syncthreads();
+    float total = 0.f;
+    for (int w = 0; w < PT / 32; ++w) total += red[w];
+    s = s + total * 1e-9f;
+    __syncthreads();
+  }
+  for (int i = tid; i < (PF + 8) * PH; i += PT) out[i] = y[i] + s;
+}
+
+}  // namespace
+
+// x, out: (8, 512) f32 on the device. Launches one block with `kib` KiB of
+// dynamic shared memory. *max_optin receives
+// cudaDevAttrMaxSharedMemoryPerBlockOptin in bytes. Returns the CUDA error
+// of the opt-in or of the launch, 0 on success.
+extern "C" int tt_probe_smem(const float* x, float* out, int kib, int* max_optin,
+                             void* stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int bytes = kib * 1024;
+  err = cudaFuncSetAttribute(probe_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err != cudaSuccess) {
+    cudaGetLastError();   // reported to the caller; leave no error behind for the next call
+    return (int)err;
+  }
+  probe_smem_kernel<<<1, 256, bytes, static_cast<cudaStream_t>(stream)>>>(x, out);
+  return (int)cudaGetLastError();
+}
+
+// spec (64, 256), d (275, 256), p (275, 275), out (72, 275), f32 on the device.
+extern "C" int tt_probe_ops(const float* spec, const float* d, const float* p, float* out,
+                            void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      probe_ops_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kOpsSmem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  probe_ops_kernel<<<1, PT, kOpsSmem, static_cast<cudaStream_t>(stream)>>>(spec, d, p, out);
+  return (int)cudaGetLastError();
+}
+
+// The runtime's name and description of a CUDA error code.
+extern "C" const char* tt_probe_error_name(int err) {
+  return cudaGetErrorName(static_cast<cudaError_t>(err));
+}
+extern "C" const char* tt_probe_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -12,6 +12,7 @@ import torch
 from tacotron_tpu_torch.config import AudioConfig
 from tacotron_tpu_torch.dsp.dft import gl_spectrum_mm, istft_mm
 from tacotron_tpu_torch.dsp.fused_gl import griffin_lim_spectrum
+from tacotron_tpu_torch.dsp.stft import gl_spectrum_fft
 
 _PREEMPH_BLOCK = 256
 
@@ -63,20 +64,25 @@ def spectrogram_magnitude(s, cfg: AudioConfig):
 def gl_spectrum(mag, cfg: AudioConfig, n_iter: int | None = None):
     """Griffin-Lim phase recovery on the configured backend -> (re, im).
 
-    ``"pallas"`` is the fused Griffin-Lim kernel port (its plain f32
-    version on CPU tensors); ``"mm_f32"`` the plain matmul-DFT loop."""
-    kw = dict(n_fft=cfg.n_fft, hop_length=cfg.hop_length,
-              win_length=cfg.win_length, momentum=cfg.gl_momentum,
+    ``"pallas"`` is the Griffin-Lim kernel in its bf16 mode, the JAX
+    package's default (the plain version with the same rounding points on
+    CPU tensors); ``"mm"`` the plain matmul-DFT loop in its bf16 mode,
+    ``"mm_f32"`` the same loop in f32; ``"fft"`` classic Griffin-Lim over
+    ``torch.fft`` (no momentum, as in the JAX package).
+
+    ``cfg.gl_trim_chunks`` changes nothing here: in the JAX kernel it trims
+    the partially windowed chunks' products to their live lanes, and the
+    port's products cover only the window's nonzero span to begin with."""
+    kw = dict(n_fft=cfg.n_fft, hop_length=cfg.hop_length, win_length=cfg.win_length,
               n_iter=cfg.griffin_lim_iters if n_iter is None else n_iter)
     if cfg.gl_backend == "pallas":
-        return griffin_lim_spectrum(mag, **kw)
-    if cfg.gl_backend == "mm_f32":
-        return gl_spectrum_mm(mag, **kw)
-    if cfg.gl_backend in ("mm", "fft"):
-        raise NotImplementedError(
-            f"gl_backend={cfg.gl_backend!r} is not ported yet (ROADMAP.md, "
-            f"port queue: bf16 and fft Griffin-Lim backends); use 'pallas' "
-            f"or 'mm_f32'")
+        return griffin_lim_spectrum(mag, momentum=cfg.gl_momentum, **kw)
+    if cfg.gl_backend in ("mm", "mm_f32"):
+        return gl_spectrum_mm(mag, lowp=cfg.gl_backend == "mm",
+                              momentum=cfg.gl_momentum, **kw)
+    if cfg.gl_backend == "fft":
+        spec = gl_spectrum_fft(mag, **kw)
+        return spec.real, spec.imag
     raise ValueError(f"unknown gl_backend {cfg.gl_backend!r}")
 
 

@@ -1,10 +1,19 @@
-"""Matmul-DFT STFT/iSTFT and the plain Griffin-Lim loop, in f32.
+"""Matmul-DFT STFT/iSTFT and the plain Griffin-Lim loop.
 
-Port of the JAX package's ``dsp/dft.py`` (f32 mode). The 2048-point real
-transforms are products against DFT matrices with the analysis window (and,
-for synthesis, the window, 1/N and the one-sided weights) folded in, so
+Port of the JAX package's ``dsp/dft.py``. The 2048-point real transforms
+are products against DFT matrices with the analysis window (and, for
+synthesis, the window, 1/N and the one-sided weights) folded in, so
 framing -> windowing -> transform is one product. These large products go
 to ``torch.matmul``, as the JAX package left them to XLA.
+
+``lowp`` is the bf16 mode: both operands of every product are rounded to
+bf16 and accumulated in f32 (a product of two bf16 values is exact in f32,
+so an f32 product of the rounded operands is the same sum), and the
+Griffin-Lim loop carries its spectrum, its synthesis frames, the
+overlap-add and the window-sum-square division in bf16, with the rounding
+points of the JAX loop. ``gl_iteration`` is the one f32 Griffin-Lim
+iteration of the port (the f32 loop here and the plain version of the f32
+kernels), and with ``lowp`` the plain version of the bf16 kernels.
 """
 
 from __future__ import annotations
@@ -52,17 +61,25 @@ def dft_matrices(n_fft: int, win_length: int) -> tuple[np.ndarray, np.ndarray]:
     return fwd.astype(np.float32), bwd.astype(np.float32)
 
 
-def stft_mm(y, n_fft: int, hop_length: int, win_length: int):
+def _dot(x, w, lowp: bool):
+    """x @ w in f32; with ``lowp`` both operands are rounded to bf16 first."""
+    if lowp:
+        x, w = x.bfloat16(), w.bfloat16()
+    return x.float() @ w.float()
+
+
+def stft_mm(y, n_fft: int, hop_length: int, win_length: int, lowp: bool = False):
     """Matmul STFT -> (re, im), each (..., frames, n_bins)."""
     fwd, _ = dft_matrices(n_fft, win_length)
     lo, hi = live_span(n_fft, win_length)
     frames = frame_signal(y.float(), n_fft, hop_length)[..., lo:hi]
-    out = frames @ torch.from_numpy(fwd[lo:hi]).to(y.device)
+    out = _dot(frames, torch.from_numpy(fwd[lo:hi]).to(y.device), lowp)
     n_bins = n_fft // 2 + 1
     return out[..., :n_bins], out[..., n_bins:]
 
 
-def _inv_wss(win_length, n_fft, hop_length, n_frames, device):
+def inv_window_sumsquare(win_length, n_fft, hop_length, n_frames, device):
+    """1 / max(window sum-square, 1e-11) over the padded signal, f32."""
     wss = window_sumsquare(win_length, n_fft, hop_length, n_frames)
     return torch.from_numpy(
         (1.0 / np.maximum(wss.astype(np.float32), 1e-11)).astype(np.float32)
@@ -70,18 +87,18 @@ def _inv_wss(win_length, n_fft, hop_length, n_frames, device):
 
 
 def istft_mm(re, im, n_fft: int, hop_length: int, win_length: int,
-             length: int | None = None):
+             length: int | None = None, lowp: bool = False):
     """Matmul iSTFT with window-sum-square OLA; (..., F, n_bins) pair ->
     (..., hop*(F-1)) samples (or ``length``)."""
     _, bwd = dft_matrices(n_fft, win_length)
     lo, hi = live_span(n_fft, win_length)
     spec = torch.cat([re, im], dim=-1).float()
-    frames_t = spec @ torch.from_numpy(bwd[:, lo:hi]).to(spec.device)
+    frames_t = _dot(spec, torch.from_numpy(bwd[:, lo:hi]).to(spec.device), lowp)
     frames_t = torch.nn.functional.pad(frames_t, (lo, n_fft - hi))
     n_frames = frames_t.shape[-2]
     pad = n_fft // 2
     total = n_fft + hop_length * (n_frames - 1)
-    y = overlap_add(frames_t, hop_length) * _inv_wss(
+    y = overlap_add(frames_t, hop_length) * inv_window_sumsquare(
         win_length, n_fft, hop_length, n_frames, spec.device)
     y = y[..., pad:total - pad]
     if length is not None:
@@ -93,49 +110,128 @@ def istft_mm(re, im, n_fft: int, hop_length: int, win_length: int,
 
 def griffin_lim_mm(magnitude, *, n_fft: int, hop_length: int, win_length: int,
                    n_iter: int = 60, length: int | None = None,
-                   momentum: float = 0.0):
-    """Griffin-Lim phase recovery, then the final iSTFT -> waveform."""
+                   lowp: bool = True, momentum: float = 0.0):
+    """Griffin-Lim phase recovery, then the final iSTFT (f32) -> waveform."""
     re, im = gl_spectrum_mm(magnitude, n_fft=n_fft, hop_length=hop_length,
-                            win_length=win_length, n_iter=n_iter,
+                            win_length=win_length, n_iter=n_iter, lowp=lowp,
                             momentum=momentum)
     return istft_mm(re, im, n_fft, hop_length, win_length, length=length)
 
 
+def carrier_dtype(lowp: bool) -> torch.dtype:
+    """The dtype in which a Griffin-Lim loop carries its spectrum."""
+    return torch.bfloat16 if lowp else torch.float32
+
+
+def zero_phase(mag, lowp: bool):
+    """The zero-phase start (re, im) in the carrier dtype."""
+    re = mag.to(carrier_dtype(lowp))
+    return re, torch.zeros_like(re)
+
+
+def gl_iteration(magnitude, n_fft: int, hop_length: int, win_length: int, lowp: bool):
+    """``step(re, im, prev=None, momentum=0.0)``: one Griffin-Lim iteration
+    on ``magnitude`` (..., F, n_bins) over the window's nonzero span:
+    synthesis product, overlap-add, window-sum-square normalise, centre
+    reflect pad, analysis product, projection ``mag / max(|X|, 1e-8)``.
+
+    Without ``lowp`` everything is f32. With it the rounding points are the
+    Griffin-Lim kernel's (``dsp/fused_gl.py``), not those of
+    ``gl_spectrum_mm(lowp=True)``: (re, im) and ``prev`` are bf16 carriers,
+    the extrapolation is formed in f32, both operands of both products are
+    rounded to bf16, and everything between the products stays f32."""
+    sd = carrier_dtype(lowp)
+    mag = magnitude.float()
+    dev = mag.device
+    f, nb = mag.shape[-2:]
+    lpad, pad = (n_fft - win_length) // 2, n_fft // 2
+    fwd_np, bwd_np = dft_matrices(n_fft, win_length)
+    bwd = torch.from_numpy(bwd_np[:, lpad:lpad + win_length]).to(dev).to(sd).float()
+    fwd = torch.from_numpy(fwd_np[lpad:lpad + win_length]).to(dev).to(sd).float()
+    inv_wss = inv_window_sumsquare(win_length, n_fft, hop_length, f, dev)
+
+    def step(re, im, prev=None, momentum=0.0):
+        x = torch.cat([re, im], dim=-1).float()
+        if momentum:
+            x = x + momentum * (x - torch.cat(prev, dim=-1).float())
+        frames_t = x.to(sd).float() @ bwd
+        frames_t = torch.nn.functional.pad(frames_t, (lpad, n_fft - win_length - lpad))
+        y = overlap_add(frames_t, hop_length) * inv_wss
+        seg = frame_signal(y[..., pad:-pad], n_fft, hop_length)[..., lpad:lpad + win_length]
+        out = seg.to(sd).float() @ fwd
+        o_re, o_im = out[..., :nb], out[..., nb:]
+        scale = mag / torch.clamp(torch.sqrt(o_re * o_re + o_im * o_im), min=1e-8)
+        return (o_re * scale).to(sd), (o_im * scale).to(sd)
+
+    return step
+
+
+def gl_iterate(magnitude, *, n_fft: int, hop_length: int, win_length: int,
+               n_iter: int, momentum: float, lowp: bool):
+    """``n_iter`` steps of ``gl_iteration`` from a zero-phase start ->
+    (re, im) in the carrier dtype."""
+    step = gl_iteration(magnitude, n_fft, hop_length, win_length, lowp)
+    cur = prev = zero_phase(magnitude.float(), lowp)
+    for _ in range(n_iter):
+        cur, prev = step(*cur, prev, float(momentum)), cur
+    return cur
+
+
 def gl_spectrum_mm(magnitude, *, n_fft: int, hop_length: int, win_length: int,
-                   n_iter: int = 60, momentum: float = 0.0):
-    """Griffin-Lim over the matmul transforms, f32 throughout: per
-    iteration one synthesis product, OLA, window-sum-square normalise,
-    centre reflect pad, one analysis product and the magnitude projection
-    ``mag / max(|X|, 1e-8)``, from a zero-phase start. Returns the final
-    spectrum (re, im), each shaped like ``magnitude``.
+                   n_iter: int = 60, lowp: bool = True, momentum: float = 0.0):
+    """Griffin-Lim over the matmul transforms: per iteration one synthesis
+    product, OLA, window-sum-square normalise, centre reflect pad, one
+    analysis product and the magnitude projection ``mag / max(|X|, 1e-8)``
+    in f32, from a zero-phase start. Returns the final spectrum (re, im) in
+    f32, each shaped like ``magnitude``.
+
+    ``lowp`` (the default, as in the JAX package): bf16 bases and product
+    operands with f32 accumulation; the synthesis frames, the overlap-add
+    and the division by the window sum-square in bf16; the projected
+    spectrum and the momentum extrapolation carried in bf16. Without it
+    everything is f32: the loop of ``gl_iteration``.
 
     ``momentum``: Fast Griffin-Lim (Perraudin et al. 2013) — the projection
     input is extrapolated as ``s + beta * (s - s_prev)``; 0.0 is vanilla GL.
     """
+    if not lowp:
+        return gl_iterate(magnitude, n_fft=n_fft, hop_length=hop_length,
+                          win_length=win_length, n_iter=n_iter, momentum=momentum,
+                          lowp=False)
     mag = magnitude.float()
     beta = float(momentum)
     n_bins = n_fft // 2 + 1
     dev = mag.device
+    cdtype = torch.bfloat16
     fwd_np, bwd_np = dft_matrices(n_fft, win_length)
     fwd, bwd = torch.from_numpy(fwd_np).to(dev), torch.from_numpy(bwd_np).to(dev)
     *batch, f, _ = mag.shape
     mag2 = mag.reshape(-1, f, n_bins)
-    inv_wss = _inv_wss(win_length, n_fft, hop_length, f, dev)
     pad = n_fft // 2
+    # the JAX loop's own f32 window sum-square, rounded to bf16 and divided
+    # by (not multiplied by its inverse)
+    win = torch.from_numpy(padded_window(win_length, n_fft).astype(np.float32)).to(dev)
+    wss = overlap_add((win * win).expand(f, n_fft), hop_length)
+    wss = torch.clamp(wss, min=1e-11).to(cdtype)
 
     def project(spec):
-        y = overlap_add(spec @ bwd, hop_length) * inv_wss
-        out = frame_signal(y[..., pad:-pad], n_fft, hop_length) @ fwd
+        frames_t = _dot(spec, bwd, True).to(cdtype)
+        y = overlap_add(frames_t, hop_length) / wss
+        out = _dot(frame_signal(y[..., pad:-pad], n_fft, hop_length), fwd, True)
         re, im = out[..., :n_bins], out[..., n_bins:]
         scale = mag2 / torch.clamp(torch.sqrt(re * re + im * im), min=1e-8)
-        return torch.cat([re * scale, im * scale], dim=-1)
+        return torch.cat([re * scale, im * scale], dim=-1).to(cdtype)
 
-    spec = torch.cat([mag2, torch.zeros_like(mag2)], dim=-1)   # zero phase
+    spec = torch.cat([mag2, torch.zeros_like(mag2)], dim=-1).to(cdtype)   # zero phase
+    # beta itself is rounded to bf16, and the subtraction, the product and
+    # the sum each round to bf16, as the JAX loop's bf16 arithmetic does
+    beta_c = torch.tensor(beta, dtype=cdtype)
     prev = spec
     for _ in range(n_iter):
         if beta:
-            spec, prev = project(spec + beta * (spec - prev)), spec
+            spec, prev = project(spec + beta_c * (spec - prev)), spec
         else:
             spec = project(spec)
+    spec = spec.float()
     return (spec[..., :n_bins].reshape(*batch, f, n_bins),
             spec[..., n_bins:].reshape(*batch, f, n_bins))

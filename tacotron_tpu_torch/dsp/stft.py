@@ -1,7 +1,9 @@
-"""Framing, windowing and overlap-add for the STFT.
+"""Framing, windowing and overlap-add for the STFT, and the FFT transforms.
 
 Port of the parts of the JAX package's ``dsp/stft.py`` that synthesis
-uses. Conventions follow librosa's, as the reference did: centre-padded
+uses, and of its ``dsp/griffin_lim.py`` (the ``"fft"`` Griffin-Lim backend
+over ``torch.fft``; the JAX package computes these transforms outside any
+kernel too). Conventions follow librosa's, as the reference did: centre-padded
 (reflect), periodic Hann window of ``win_length`` zero-padded (centred) to
 ``n_fft``, one-sided transform.
 """
@@ -61,3 +63,53 @@ def window_sumsquare(win_length: int, n_fft: int, hop_length: int,
     for f in range(n_frames):
         wss[f * hop_length:f * hop_length + n_fft] += win * win
     return wss
+
+
+def _window(win_length: int, n_fft: int, like):
+    return torch.from_numpy(padded_window(win_length, n_fft)).to(like.device, torch.float32)
+
+
+def stft(y, n_fft: int, hop_length: int, win_length: int, center: bool = True):
+    """Complex STFT. (..., T) -> (..., frames, n_fft//2 + 1)."""
+    frames = frame_signal(y.float(), n_fft, hop_length, center=center)
+    return torch.fft.rfft(frames * _window(win_length, n_fft, y), n=n_fft, dim=-1)
+
+
+def istft(spec, n_fft: int, hop_length: int, win_length: int,
+          length: int | None = None):
+    """Inverse STFT with window-sum-square normalisation: (..., frames,
+    n_fft//2 + 1) complex -> (..., hop*(frames-1)) real (or ``length``)."""
+    win = _window(win_length, n_fft, spec)
+    frames_t = torch.fft.irfft(spec, n=n_fft, dim=-1) * win
+    n_frames = spec.shape[-2]
+    pad = n_fft // 2
+    total = n_fft + hop_length * (n_frames - 1)
+    wss = overlap_add((win * win).expand(n_frames, n_fft), hop_length)
+    y = overlap_add(frames_t, hop_length) / torch.clamp(wss, min=1e-11)
+    y = y[..., pad:total - pad]
+    if length is not None:
+        n = y.shape[-1]
+        y = F.pad(y, (0, length - n)) if n < length else y[..., :length]
+    return y
+
+
+def gl_spectrum_fft(magnitude, *, n_fft: int, hop_length: int, win_length: int,
+                    n_iter: int = 60):
+    """Classic Griffin-Lim over the FFT pair, from zero phase: iSTFT ->
+    STFT, keep the phase, re-impose the magnitude. Returns the complex
+    spectrum. No momentum, as in the JAX package."""
+    mag = magnitude.float()
+    spec = mag.to(torch.complex64)
+    for _ in range(n_iter):
+        rebuilt = stft(istft(spec, n_fft, hop_length, win_length),
+                       n_fft, hop_length, win_length)
+        spec = mag * (rebuilt / torch.clamp(rebuilt.abs(), min=1e-8))
+    return spec
+
+
+def griffin_lim(magnitude, *, n_fft: int, hop_length: int, win_length: int,
+                n_iter: int = 60, length: int | None = None):
+    """Magnitude (..., frames, n_bins) -> waveform, all through the FFT."""
+    spec = gl_spectrum_fft(magnitude, n_fft=n_fft, hop_length=hop_length,
+                           win_length=win_length, n_iter=n_iter)
+    return istft(spec, n_fft, hop_length, win_length, length=length)

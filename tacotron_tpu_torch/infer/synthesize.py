@@ -6,7 +6,15 @@ as audio-seconds synthesized per second, so the API is batch-first.
 ``fused=True`` decodes through the fused decode kernel (``ops/
 decode_loop.py``) instead of the step-by-step ``Decoder``; both paths
 share the parameters. Griffin-Lim runs on the backend ``cfg.audio``
-names (the fused Griffin-Lim kernel by default).
+names (the Griffin-Lim kernel in its bf16 mode by default).
+
+``cfg.infer`` holds the mitigations for the missing stop token, all off by
+default: ``early_exit`` decodes with ``decode_while``, which stops once the
+whole batch has gone silent; ``trim_before_gl`` cuts the linear spectrogram
+to the batch's largest detected end frame, rounded up to
+``gl_length_quantum``, before Griffin-Lim, so the dominant cost is not
+spent on padding. The trimming metadata (end_frames, wav_lengths, trimmed
+audio seconds) is returned whatever the flags.
 """
 
 from __future__ import annotations
@@ -19,7 +27,7 @@ import torch
 from tacotron_tpu_torch.config import Config
 from tacotron_tpu_torch.data.vocab import Vocab
 from tacotron_tpu_torch.dsp.audio import gl_spectrum, spectrogram_magnitude, spectrum_to_wav
-from tacotron_tpu_torch.infer.early_exit import end_frames_device
+from tacotron_tpu_torch.infer.early_exit import decode_while, end_frames_device
 from tacotron_tpu_torch.models.tacotron import Tacotron, length_mask
 from tacotron_tpu_torch.ops.decode_loop import decode_loop, pack_decoder_weights
 from tacotron_tpu_torch.runtime import resolve_device
@@ -68,10 +76,6 @@ class Synthesizer:
         if mesh is not None:
             raise NotImplementedError("multi-device synthesis is not ported yet "
                                       "(ROADMAP.md, port queue: parallel)")
-        if icfg.early_exit or icfg.trim_before_gl:
-            raise NotImplementedError("early_exit / trim_before_gl are not ported "
-                                      "yet (ROADMAP.md, port queue: decode_while "
-                                      "and trimming)")
         if cfg.model.compute_dtype != "float32":
             raise NotImplementedError("only compute_dtype float32 is ported")
         self.cfg = cfg
@@ -105,7 +109,7 @@ class Synthesizer:
         trimmed_audio_seconds, as numpy; with ``stage_ms`` also the
         milliseconds of each of ``STAGES``."""
         cfg, m = self.cfg, self.model
-        mcfg = cfg.model
+        mcfg, icfg = cfg.model, cfg.infer
         n_steps = mcfg.max_decode_steps if n_steps is None else n_steps
         gl_iters = cfg.audio.griffin_lim_iters if gl_iters is None else gl_iters
         text, lengths = self.encode_texts(texts)
@@ -125,12 +129,27 @@ class Synthesizer:
                 dropout=mcfg.prenet_dropout > 0,
                 dropout_rate=mcfg.prenet_dropout, generator=gen)
             mel = frames.reshape(text.shape[0], n_steps * mcfg.r, mcfg.n_mels)
+        elif icfg.early_exit:
+            # the stop unit is a decoder step = r frames
+            mel, align, _ = decode_while(
+                memory, keys, mask, pack_decoder_weights(m.decoder.cell), gen,
+                n_steps=n_steps, r=mcfg.r, n_mels=mcfg.n_mels,
+                dropout_rate=mcfg.prenet_dropout,
+                silence_threshold=icfg.silence_threshold,
+                min_silence_steps=max(1, -(-icfg.min_silence_frames // mcfg.r)))
         else:
             mel, align = m.decoder(memory, keys, mask, n_steps, gen)
         clock.mark("decode")
         linear = m.postnet(mel)
         clock.mark("postnet")
-        re, im = gl_spectrum(spectrogram_magnitude(linear, cfg.audio), cfg.audio,
+        ends = end_frames_device(mel, threshold=icfg.silence_threshold,
+                                 min_run=icfg.min_silence_frames).cpu().numpy()
+        gl_in = linear
+        if icfg.trim_before_gl:
+            q = icfg.gl_length_quantum
+            t_gl = min(int(-(-max(int(ends.max()), q) // q) * q), linear.shape[1])
+            gl_in = linear[:, :t_gl]
+        re, im = gl_spectrum(spectrogram_magnitude(gl_in, cfg.audio), cfg.audio,
                              gl_iters)
         clock.mark("griffin_lim")
         wav = spectrum_to_wav(re, im, cfg.audio)
@@ -139,9 +158,6 @@ class Synthesizer:
             wav = wav / torch.clamp(peak, min=1e-3)
         clock.mark("istft_inv_preemphasis")
 
-        icfg = cfg.infer
-        ends = end_frames_device(mel, threshold=icfg.silence_threshold,
-                                 min_run=icfg.min_silence_frames).cpu().numpy()
         wav = wav.cpu().numpy()
         wav_lengths = np.minimum(ends * cfg.audio.hop_length, wav.shape[1])
         out = {

@@ -80,26 +80,29 @@ def _maskbias(mask, b, t_in, device):
     return torch.where(mask.to(device), 0.0, NEG_INF).float().contiguous()
 
 
-def decode_loop_reference(memory, keys, mask, weights: DecoderWeights, *,
-                          n_steps: int, dropout: bool = True,
-                          dropout_rate: float = 0.5,
-                          lowp: bool = True, generator: torch.Generator | None = None):
-    """Plain PyTorch version of the fused decode (same semantics and
-    rounding points as the kernel; dropout masks from ``generator``)."""
+def packed_decoder_step(memory, keys, mask, weights: DecoderWeights, *,
+                        dropout_rate: float, lowp: bool,
+                        generator: torch.Generator | None):
+    """(initial state, ``step``) of the decoder over the packed weights.
+    ``state, frames, alpha = step(state)`` runs one feed-previous step:
+    prenet (dropout masks from ``generator``), attention GRU, Bahdanau
+    attention, input projection, two residual GRUs, r-frame projection,
+    with every product input rounded to the storage dtype (bf16 when
+    ``lowp``; f32 storage rounds nothing). The fused decode's plain version
+    and the early-exit decode both loop over it."""
     sd = torch.bfloat16 if lowp else torch.float32
     b, t_in, m_dim, n_mels, r = _geometry(memory, keys, weights)
     w = DecoderWeights(*[x.to(sd).float() for x in weights])  # rounded storage
     mem = memory.to(sd)
     keys_s = keys.to(sd)
     maskbias = _maskbias(mask, b, t_in, memory.device)
-    rate = dropout_rate if dropout else 0.0
     dev = memory.device
 
     def dot(x, wt, bias=None):
         return F.linear(x.to(sd).float(), wt, bias)
 
     def drop(x):
-        return modules.dropout(x, rate, generator)
+        return modules.dropout(x, dropout_rate, generator)
 
     def gru(h, x, wg, bg, wc, bc):
         ru = torch.sigmoid(dot(torch.cat([x, h], -1), wg, bg))
@@ -107,13 +110,8 @@ def decode_loop_reference(memory, keys, mask, weights: DecoderWeights, *,
         c = torch.tanh(dot(torch.cat([x, rr * h], -1), wc, bc))
         return u * h + (1.0 - u) * c
 
-    h_att = torch.zeros(b, w.ag_wc.shape[0], device=dev)
-    h0 = torch.zeros(b, w.d0_wc.shape[0], device=dev)
-    h1 = torch.zeros_like(h0)
-    ctx = torch.zeros(b, m_dim, device=dev)
-    prev = torch.zeros(b, n_mels, device=dev)
-    frames_out, aligns_out = [], []
-    for _ in range(n_steps):
+    def step(state):
+        h_att, h0, h1, ctx, prev = state
         x = drop(torch.relu(dot(prev, w.p_w0, w.p_b0)))
         x = drop(torch.relu(dot(x, w.p_w1, w.p_b1)))
         h_att = gru(h_att, torch.cat([x, ctx], -1), w.ag_wg, w.ag_bg, w.ag_wc, w.ag_bc)
@@ -129,10 +127,29 @@ def decode_loop_reference(memory, keys, mask, weights: DecoderWeights, *,
         h = h + h1
         frames = dot(h, w.f_w, w.f_b)
         prev = frames[:, (r - 1) * n_mels:r * n_mels]
+        return (h_att, h0, h1, ctx, prev), frames, alpha
+
+    h0 = torch.zeros(b, w.d0_wc.shape[0], device=dev)
+    state = (torch.zeros(b, w.ag_wc.shape[0], device=dev), h0, torch.zeros_like(h0),
+             torch.zeros(b, m_dim, device=dev), torch.zeros(b, n_mels, device=dev))
+    return state, step
+
+
+def decode_loop_reference(memory, keys, mask, weights: DecoderWeights, *,
+                          n_steps: int, dropout: bool = True,
+                          dropout_rate: float = 0.5,
+                          lowp: bool = True, generator: torch.Generator | None = None):
+    """Plain PyTorch version of the fused decode (same semantics and
+    rounding points as the kernel; dropout masks from ``generator``)."""
+    state, step = packed_decoder_step(
+        memory, keys, mask, weights, dropout_rate=dropout_rate if dropout else 0.0,
+        lowp=lowp, generator=generator)
+    frames_out, aligns_out = [], []
+    for _ in range(n_steps):
+        state, frames, alpha = step(state)
         frames_out.append(frames)
         aligns_out.append(alpha)
-    frames = torch.stack(frames_out, 1)
-    return frames, torch.stack(aligns_out, 1)
+    return torch.stack(frames_out, 1), torch.stack(aligns_out, 1)
 
 
 def decode_loop(memory, keys, mask, weights: DecoderWeights, *, n_steps: int,

@@ -27,7 +27,7 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "tacotron_tpu_torch"
-KERNEL_SOURCES = ("attn_energy", "decode_loop", "griffin_lim")
+KERNEL_SOURCES = ("attn_energy", "decode_loop", "griffin_lim", "probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 

@@ -1,0 +1,139 @@
+"""The early-exit decode, ``decode_while``, against the JAX package's on the
+same weights and encoder outputs (tiny config, prenet dropout 0: JAX's
+per-step PRNG streams cannot be reproduced).
+
+Tolerance: f32 on both sides, atol 1e-5 on frames and alignments [6e-8
+measured]; ``steps_done`` equal.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from tacotron_tpu.config import get_config as jax_get_config
+from tacotron_tpu.infer.early_exit import decode_while as jax_decode_while
+from tacotron_tpu.models import Tacotron as JaxTacotron
+from tacotron_tpu.models.encoder import Encoder as JaxEncoder
+from tacotron_tpu.ops.pallas.decode_loop import pack_decoder_weights as jax_pack
+from tacotron_tpu_torch.config import Config
+from tacotron_tpu_torch.infer.early_exit import decode_while
+from tacotron_tpu_torch.models.tacotron import Tacotron
+from tacotron_tpu_torch.ops.decode_loop import decode_loop_reference, pack_decoder_weights
+from tacotron_tpu_torch.weights import from_flax
+
+N_STEPS = 8
+LENGTHS = np.array([9, 6, 4])
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg = dataclasses.replace(jax_get_config("tiny_cpu").model, vocab_size=32,
+                               prenet_dropout=0.0)
+    b, t = len(LENGTHS), int(LENGTHS.max())
+    text = np.random.default_rng(0).integers(1, 30, (b, t))
+    text[np.arange(t)[None, :] >= LENGTHS[:, None]] = 0
+    jm = JaxTacotron(jcfg, train=False)
+    v = jm.init({"params": jax.random.PRNGKey(1), "dropout": jax.random.PRNGKey(2)},
+                jnp.asarray(text), jnp.asarray(LENGTHS),
+                gt_mel=jnp.zeros((b, 2 * jcfg.r, jcfg.n_mels)))
+    v = jax.tree_util.tree_map(np.asarray, v)
+    memory = JaxEncoder(jcfg, train=False).apply(
+        {"params": v["params"]["encoder"], "batch_stats": v["batch_stats"]["encoder"]},
+        jnp.asarray(text), jnp.asarray(LENGTHS), rngs={"dropout": jax.random.PRNGKey(9)})
+    keys = memory @ v["params"]["memory_proj"]["kernel"]
+    mask = np.arange(t)[None, :] < LENGTHS[:, None]
+    cfg = Config.from_json(dataclasses.replace(
+        jax_get_config("tiny_cpu"), model=jcfg).to_json()).model
+    model = Tacotron(cfg, device="cpu")
+    params, stats = from_flax(v)
+    model.load_state_dict({**params, **stats})
+    model.eval()
+    return dict(memory=np.array(memory), keys=np.array(keys), mask=mask, cfg=cfg,
+                jax_w=jax_pack(v["params"]["decoder"]["cell"]), model=model,
+                w=pack_decoder_weights(model.decoder.cell))
+
+
+def _both(s, **kw):
+    kw = dict(n_steps=N_STEPS, r=s["cfg"].r, n_mels=s["cfg"].n_mels, **kw)
+    want = jax_decode_while(jnp.asarray(s["memory"]), jnp.asarray(s["keys"]),
+                            jnp.asarray(s["mask"]), s["jax_w"], jax.random.PRNGKey(0), **kw)
+    with torch.no_grad():
+        got = decode_while(torch.from_numpy(s["memory"]), torch.from_numpy(s["keys"]),
+                           torch.from_numpy(s["mask"]), s["w"], **kw)
+    return got, want
+
+
+def _assert_same(got, want):
+    assert got[0].shape == want[0].shape and got[1].shape == want[1].shape
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), atol=1e-5)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), atol=1e-5)
+    assert got[2] == int(want[2])
+
+
+def test_never_trips_equals_the_fixed_length_decode(setup):
+    s = setup
+    got, want = _both(s, silence_threshold=-1.0)
+    _assert_same(got, want)
+    assert got[2] == N_STEPS
+    b = len(LENGTHS)
+    assert got[0].shape == (b, N_STEPS * s["cfg"].r, s["cfg"].n_mels)
+    assert got[1].shape == (b, N_STEPS, int(LENGTHS.max()))
+    # ... and the scan decoder of the model, and the fused decode's plain version
+    mem, keys, mask = (torch.from_numpy(s[k]) for k in ("memory", "keys", "mask"))
+    with torch.no_grad():
+        mel, align = s["model"].decoder(mem, keys, mask, N_STEPS, None)
+        frames, align_f = decode_loop_reference(mem, keys, mask, s["w"], n_steps=N_STEPS,
+                                                dropout=False, lowp=False)
+    np.testing.assert_allclose(got[0].numpy(), mel.numpy(), atol=1e-5)
+    np.testing.assert_allclose(got[1].numpy(), align.numpy(), atol=1e-5)
+    assert torch.equal(got[0], frames.reshape(b, -1, s["cfg"].n_mels))
+    assert torch.equal(got[1], align_f)
+
+
+@pytest.mark.parametrize("min_silence_steps", [1, 3])
+def test_always_silent_stops_after_min_steps(setup, min_silence_steps):
+    got, want = _both(setup, silence_threshold=1e9, min_silence_steps=min_silence_steps)
+    _assert_same(got, want)
+    assert got[2] == min_silence_steps
+    r = setup["cfg"].r
+    assert float(got[0][:, :min_silence_steps * r].abs().max()) > 0
+    assert float(got[0][:, min_silence_steps * r:].abs().max()) == 0.0
+    assert float(got[1][:, min_silence_steps:].abs().max()) == 0.0
+
+
+def test_exit_waits_for_every_row(setup):
+    """A threshold between the rows' peaks: the loud row keeps the loop
+    going, so it runs to the end, as in JAX."""
+    s = setup
+    full, _ = _both(s, silence_threshold=-1.0)
+    peaks = full[0].reshape(len(LENGTHS), N_STEPS, -1).amax(-1)       # (B, steps)
+    row_max = peaks.max(dim=1).values
+    thr = float((row_max.min() + row_max.max()) / 2)
+    assert row_max.min() < thr < row_max.max()
+    got, want = _both(s, silence_threshold=thr, min_silence_steps=2)
+    _assert_same(got, want)
+
+
+def test_threshold_inside_the_run_exits_inside(setup):
+    """A threshold just above the whole batch's peaks from step 3 on, so the
+    run of silent steps starts there: exit strictly inside (0, n_steps)."""
+    s = setup
+    full, _ = _both(s, silence_threshold=-1.0)
+    peaks = full[0].reshape(len(LENGTHS), N_STEPS, -1).amax(-1)
+    thr = float(peaks.max()) + 1.0
+    got, want = _both(s, silence_threshold=thr, min_silence_steps=4)
+    _assert_same(got, want)
+    assert 0 < got[2] == 4 < N_STEPS
+
+
+def test_frame_width_is_checked(setup):
+    s = setup
+    mem, keys, mask = (torch.from_numpy(s[k]) for k in ("memory", "keys", "mask"))
+    with pytest.raises(ValueError, match="r \\* n_mels"):
+        decode_while(mem, keys, mask, s["w"], n_steps=2, r=s["cfg"].r + 1,
+                     n_mels=s["cfg"].n_mels)

@@ -1,7 +1,8 @@
-"""Griffin-Lim (TPU kernel K4 port) and the synthesis DSP around it.
+"""Griffin-Lim (TPU kernel K4 port, f32 mode) and the synthesis DSP around
+it; the bf16 mode is in tests/test_torch_gl_lowp.py.
 
-The port's plain f32 Griffin-Lim (reached through the kernel wrapper, which
-takes it for CPU tensors) vs the JAX Pallas kernel interpreted in f32
+The port's plain f32 Griffin-Lim (reached through the kernel wrapper with
+``lowp=False``, which takes it for CPU tensors) vs the JAX Pallas kernel interpreted in f32
 (``lowp=False``); ``istft_mm`` and ``inv_preemphasis`` vs JAX; an emulation
 of the CUDA kernel's three stages (interleaved live-span bases, gather OLA,
 reflect-by-index analysis, projection and momentum epilogue) vs the plain
@@ -25,7 +26,8 @@ from tacotron_tpu.dsp.dft import stft_mm as jax_stft_mm
 from tacotron_tpu.dsp.pallas_gl import griffin_lim_pallas
 from tacotron_tpu_torch.dsp.audio import inv_preemphasis
 from tacotron_tpu_torch.dsp.dft import gl_spectrum_mm, istft_mm
-from tacotron_tpu_torch.dsp.fused_gl import griffin_lim, griffin_lim_spectrum, live_bases
+from tacotron_tpu_torch.dsp.fused_gl import (gl_spectrum_reference, griffin_lim,
+                                             griffin_lim_spectrum, live_bases)
 from tacotron_tpu_torch.dsp.stft import window_sumsquare
 
 KW = dict(n_fft=256, hop_length=48, win_length=190)
@@ -49,7 +51,8 @@ def test_plain_gl_matches_jax_kernel_f32(momentum, n_iter):
     mag = _mag(seed=3)
     want = np.asarray(griffin_lim_pallas(jnp.asarray(mag), **KW, n_iter=n_iter,
                                          momentum=momentum, lowp=False, interpret=True))
-    got = griffin_lim(torch.from_numpy(mag), **KW, n_iter=n_iter, momentum=momentum)
+    got = griffin_lim(torch.from_numpy(mag), **KW, n_iter=n_iter, momentum=momentum,
+                      lowp=False)
     assert got.shape == want.shape
     _close_to_peak(got.numpy(), want)
 
@@ -109,7 +112,7 @@ def _kernel_emulation(mag, n_fft, hop_length, win_length, n_iter, momentum):
 def test_kernel_algorithm_matches_plain(momentum):
     mag = torch.from_numpy(_mag(seed=5))
     kw = dict(n_fft=256, hop_length=48, win_length=190, n_iter=5, momentum=momentum)
-    want = istft_mm(*gl_spectrum_mm(mag, **kw), **KW).numpy()
+    want = istft_mm(*gl_spectrum_mm(mag, lowp=False, **kw), **KW).numpy()
     got = istft_mm(*_kernel_emulation(mag, **kw), **KW).numpy()
     _close_to_peak(got, want, tol=1e-5)
 
@@ -118,8 +121,11 @@ def test_cpu_tensors_take_the_plain_path():
     from tacotron_tpu_torch import runtime
     before = dict(runtime.LAUNCHES)
     mag = torch.from_numpy(_mag())
-    got = griffin_lim_spectrum(mag, **KW, n_iter=2, momentum=0.5)
-    want = gl_spectrum_mm(mag, **KW, n_iter=2, momentum=0.5)
+    got = griffin_lim_spectrum(mag, **KW, n_iter=2, momentum=0.5, lowp=False)
+    want = gl_spectrum_reference(mag, **KW, n_iter=2, momentum=0.5, lowp=False)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+    # the wrapper's plain version and the matmul-DFT loop are the same f32 loop
+    mm = gl_spectrum_mm(mag, **KW, n_iter=2, momentum=0.5, lowp=False)
+    assert all(torch.equal(g, w) for g, w in zip(got, mm))
     assert dict(runtime.LAUNCHES) == before
 

@@ -6,7 +6,13 @@ is installed: ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``.
 Tolerances (max abs error): decode frames and alignments in f32 storage
 1e-4 (summation order only); in bf16 storage 2e-2 on frames and 1e-3 on
 alignments (a last-bit difference in an f32 sum can flip a bf16 rounding);
-Griffin-Lim waveform 1e-3 of its peak; attention energy (K1) and its
+Griffin-Lim waveform 1e-3 of its peak in f32 and 2e-2 in bf16 (kernel and
+plain version share every rounding point, so only sums that differ in their
+last bit flip a bf16 rounding, which Griffin-Lim then carries along), the
+bf16 kernel also held to converging as well as its plain version (magnitude
+error <= plain's * 1.05 + 1e-3); the streaming kernel (K5) the same per
+mode, and in f32 within 1e-3 of the whole-loop kernel; the probes: shared
+memory exact, ops 1e-4 of its peak; attention energy (K1) and its
 three gradients (K2) 1e-5 of each one's peak (f32, summation order only);
 the teacher-forced training loss through the kernels vs the plain formula
 rtol 1e-5, every parameter gradient within 1e-4 of its peak plus 1e-7.
@@ -20,7 +26,10 @@ import torch
 from tacotron_tpu_torch import runtime
 from tacotron_tpu_torch.config import get_config
 from tacotron_tpu_torch.dsp.dft import gl_spectrum_mm, istft_mm, stft_mm
-from tacotron_tpu_torch.dsp.fused_gl import griffin_lim_spectrum
+from tacotron_tpu_torch import probe
+from tacotron_tpu_torch.dsp.fused_gl import (gl_spectrum_reference, gl_step_reference,
+                                             griffin_lim_spectrum, griffin_lim_step,
+                                             zero_phase)
 from tacotron_tpu_torch.models.tacotron import Tacotron, length_mask
 from tacotron_tpu_torch.ops.attn_energy import attention_energy, attention_energy_reference
 from tacotron_tpu_torch.ops.decode_loop import (decode_loop, decode_loop_reference,
@@ -82,19 +91,108 @@ def test_decode_kernel_dropout(decoder_inputs):
     assert torch.equal(off, r0)
 
 
+GL_KW = dict(n_fft=256, hop_length=48, win_length=190)
+
+
+def _gl_mag(dev):
+    y = torch.cumsum(torch.randn(2, 4096, generator=torch.Generator().manual_seed(6)), -1)
+    re, im = stft_mm((0.1 * y).to(dev), **GL_KW)
+    return torch.sqrt(re * re + im * im + 1e-12)
+
+
+def _wav_err(got, want):
+    got, want = (istft_mm(*(x.float() for x in s), **GL_KW) for s in (got, want))
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def _mag_err(spec, mag):
+    re, im = stft_mm(istft_mm(*(x.float() for x in spec), **GL_KW), **GL_KW)
+    return float((torch.sqrt(re * re + im * im + 1e-12) - mag).abs().mean() / mag.mean())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("momentum", [0.0, 0.99])
 def test_griffin_lim_kernel_matches_plain(dev, momentum):
-    kw = dict(n_fft=256, hop_length=48, win_length=190)
-    y = torch.cumsum(torch.randn(2, 4096, generator=torch.Generator().manual_seed(6)), -1)
-    re, im = stft_mm((0.1 * y).to(dev), **kw)
-    mag = torch.sqrt(re * re + im * im + 1e-12)
+    mag = _gl_mag(dev)
     before = runtime.LAUNCHES["griffin_lim"]
-    got = istft_mm(*griffin_lim_spectrum(mag, **kw, n_iter=8, momentum=momentum), **kw)
-    want = istft_mm(*gl_spectrum_mm(mag, **kw, n_iter=8, momentum=momentum), **kw)
+    got = griffin_lim_spectrum(mag, **GL_KW, n_iter=8, momentum=momentum, lowp=False)
     assert runtime.LAUNCHES["griffin_lim"] == before + 3 * 8
-    peak = float(want.abs().max())
-    assert float((got - want).abs().max()) / peak <= 1e-3
+    # the matmul-DFT f32 loop and the kernel's plain f32 version are one loop
+    want = gl_spectrum_mm(mag, **GL_KW, n_iter=8, momentum=momentum, lowp=False)
+    assert _wav_err(got, want) <= 1e-3
+    ref = gl_spectrum_reference(mag, **GL_KW, n_iter=8, momentum=momentum, lowp=False)
+    assert all(torch.equal(a, b) for a, b in zip(want, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("momentum,n_iter", [(0.0, 8), (0.99, 8), (0.99, 7)])
+def test_griffin_lim_bf16_kernel_matches_plain(dev, momentum, n_iter):
+    mag = _gl_mag(dev)
+    before = runtime.LAUNCHES["griffin_lim"]
+    got = griffin_lim_spectrum(mag, **GL_KW, n_iter=n_iter, momentum=momentum)
+    assert runtime.LAUNCHES["griffin_lim"] == before + 3 * n_iter
+    want = gl_spectrum_reference(mag, **GL_KW, n_iter=n_iter, momentum=momentum)
+    assert want[0].dtype == torch.bfloat16
+    assert _wav_err(got, want) <= 2e-2
+    assert _mag_err(got, mag) <= _mag_err(want, mag) * 1.05 + 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lowp,tol", [(False, 1e-3), (True, 2e-2)])
+def test_streaming_kernel_matches_plain_and_whole_loop(dev, lowp, tol):
+    mag = _gl_mag(dev)
+    re, im = zero_phase(mag, lowp)
+    before = runtime.LAUNCHES["griffin_lim_step"]
+    k_re, k_im = griffin_lim_step(re, im, mag, **GL_KW, lowp=lowp)
+    assert runtime.LAUNCHES["griffin_lim_step"] == before + 3
+    p_re, p_im = gl_step_reference(re, im, mag, **GL_KW, lowp=lowp)
+    assert k_re.dtype == re.dtype and k_re.shape == mag.shape
+    assert _wav_err((k_re, k_im), (p_re, p_im)) <= tol
+    got = griffin_lim_spectrum(mag, **GL_KW, n_iter=6, inner=1, lowp=lowp)
+    assert runtime.LAUNCHES["griffin_lim_step"] == before + 3 + 3 * 6
+    assert _wav_err(got, gl_spectrum_reference(mag, **GL_KW, n_iter=6, lowp=lowp)) <= tol
+    assert _wav_err(got, griffin_lim_spectrum(mag, **GL_KW, n_iter=6, lowp=lowp)) <= tol
+    with pytest.raises(TypeError):
+        griffin_lim_step(re.double(), im.double(), mag, **GL_KW, lowp=lowp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kib", [48, 100, 227])
+def test_probe_smem_fits(dev, kib):
+    x = torch.randn(probe.SMEM_SHAPE, generator=torch.Generator().manual_seed(kib)).to(dev)
+    before = runtime.LAUNCHES["probe_smem"]
+    out, limit = probe.probe_smem(x, kib)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["probe_smem"] == before + 1
+    assert torch.equal(out, probe.probe_smem_reference(x))
+    assert limit >= kib * 1024
+
+
+@pytest.mark.cuda
+def test_probe_smem_refusal_is_raised(dev):
+    x = torch.ones(probe.SMEM_SHAPE, device=dev)
+    _, limit = probe.probe_smem(x, 48)
+    before = runtime.LAUNCHES["probe_smem"]
+    with pytest.raises(probe.ProbeError, match="CUDA error"):
+        probe.probe_smem(x, limit // 1024 + 1)
+    assert runtime.LAUNCHES["probe_smem"] == before
+    out, _ = probe.probe_smem(x, 48)                 # the device is still usable
+    torch.cuda.synchronize()
+    assert torch.equal(out, x * 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [None, 0])
+def test_probe_ops_matches_plain(dev, seed):
+    inputs = probe.ops_inputs(dev, seed)
+    before = runtime.LAUNCHES["probe_ops"]
+    got = probe.probe_ops(*inputs)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["probe_ops"] == before + 1
+    want = probe.probe_ops_reference(*inputs)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    with pytest.raises(ValueError, match="probe_ops: d"):
+        probe.probe_ops(inputs[0], inputs[1][:, :-1], inputs[2])
 
 
 def _energy_inputs(dev, b, t, a, seed=0):

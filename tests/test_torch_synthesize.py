@@ -1,19 +1,28 @@
 """The whole synthesis slice: JAX ``Synthesizer`` vs the port's
 ``Synthesizer(device="cpu")`` on the same weights, for the step-by-step
-decode and the fused decode; plus the port's entry-point contract (GPU by
-default, refusals, config compatibility) and its import rule.
+decode, the fused decode, the early-exit decode and trimming before
+Griffin-Lim (the ``synth_fast`` recipe's shape) and every Griffin-Lim
+backend; plus the port's entry-point contract (GPU by default, refusals,
+config compatibility) and its import rule.
 
-JAX runs with ``gl_backend="mm_f32"``: its ``"pallas"`` falls back to the
-bf16 ``"mm"`` loop on the CPU, which would compare bf16 against the port's
-f32. The port runs its default ``"pallas"`` backend (the plain f32 loop on
-CPU tensors) against it. Dropout is 0: JAX's PRNG cannot be reproduced.
+Both sides run ``gl_backend="mm_f32"`` unless a test says otherwise, so
+that the model's tolerances are not hidden under bf16 Griffin-Lim noise.
+Dropout is 0: JAX's PRNG cannot be reproduced.
 
 Tolerances (max abs error measured on this setup in brackets): the
 step-by-step path is f32 everywhere, atol 1e-5 on mel, linear, alignments
-and the peak-normalised wavs [all <= 6e-8]; the fused path stores in bf16
+and the peak-normalised wavs [all <= 6e-8], the same for the early-exit and
+trimmed runs [<= 8.7e-7]; the fused path stores in bf16
 on both sides, where a last-bit difference in an f32 sum can flip a bf16
 rounding: mel rtol 1e-2 atol 2e-3 [5.1e-4 on a peak of 0.175], alignments
 atol 2e-4 [2.7e-5], linear atol 1e-3 [2.0e-4], wavs atol 5e-4 [3.7e-5].
+Griffin-Lim backends, peak-normalised wavs: ``"mm"`` (the bf16 loop with
+the JAX loop's rounding points) one bf16 ulp, 2^-8 [9.3e-6]; ``"fft"``
+1e-4 [1.9e-8]; ``"pallas"``, where JAX on the CPU runs its bf16 ``"mm"`` loop
+and the port the kernel's plain bf16 version, which round at different
+points (tests/test_torch_gl_lowp.py says why), 1e-2 [5.4e-5: the random
+weights' linear spectrogram is nearly flat, so the two agree far better
+here than on the speech-like input of that file].
 """
 
 import ast
@@ -27,11 +36,12 @@ import torch
 import jax
 
 from tacotron_tpu.config import AudioConfig, get_config as jax_get_config
+from tacotron_tpu.config import apply_overrides as jax_apply_overrides
 from tacotron_tpu.data.vocab import Vocab as JaxVocab
 from tacotron_tpu.infer import Synthesizer as JaxSynthesizer
 from tacotron_tpu.infer.early_exit import end_frames_device as jax_end_frames_device
 from tacotron_tpu.models import Tacotron as JaxTacotron
-from tacotron_tpu_torch.config import Config, apply_overrides
+from tacotron_tpu_torch.config import Config, apply_overrides, get_config
 from tacotron_tpu_torch.data.vocab import Vocab
 from tacotron_tpu_torch.infer import Synthesizer
 from tacotron_tpu_torch.infer.early_exit import end_frames, end_frames_device
@@ -59,7 +69,6 @@ def setup():
                gt_mel=np.zeros((2, 2 * jcfg.model.r, 80), np.float32))
     v = jax.tree_util.tree_map(np.asarray, v)
     cfg = Config.from_json(jcfg.to_json())
-    cfg = apply_overrides(cfg, ['audio.gl_backend="pallas"'])
     params, stats = from_flax(v)
     return dict(jcfg=jcfg, v=v, jvocab=JaxVocab.build(vocab_chars), cfg=cfg,
                 params=params, stats=stats, vocab=Vocab.build(vocab_chars))
@@ -138,8 +147,6 @@ def test_default_device_is_the_gpu(setup):
 @pytest.mark.parametrize("override,fused,error", [
     ("infer.early_exit=true", True, ValueError),
     ("infer.trim_before_gl=true", True, ValueError),
-    ("infer.early_exit=true", False, NotImplementedError),
-    ("infer.trim_before_gl=true", False, NotImplementedError),
     ("model.compute_dtype=bfloat16", False, NotImplementedError),
 ])
 def test_refusals(setup, override, fused, error):
@@ -154,11 +161,86 @@ def test_unported_backends_and_mesh_raise(setup):
     with pytest.raises(NotImplementedError):
         Synthesizer(s["cfg"], s["params"], s["stats"], s["vocab"], mesh=object(),
                     device="cpu")
-    for backend in ("mm", "fft"):
-        cfg = apply_overrides(s["cfg"], [f"audio.gl_backend={backend}"])
-        synth = Synthesizer(cfg, s["params"], s["stats"], s["vocab"], device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            synth(TEXTS, n_steps=2, gl_iters=1)
+    cfg = apply_overrides(s["cfg"], ["audio.gl_backend=librosa"])
+    synth = Synthesizer(cfg, s["params"], s["stats"], s["vocab"], device="cpu")
+    with pytest.raises(ValueError, match="unknown gl_backend"):
+        synth(TEXTS, n_steps=2, gl_iters=1)
+
+
+def _pair(s, overrides, **call):
+    """The JAX Synthesizer and the port's on the same overrides and call."""
+    jcfg = jax_apply_overrides(s["jcfg"], overrides)
+    cfg = apply_overrides(s["cfg"], overrides)
+    want = JaxSynthesizer(jcfg, s["v"]["params"], s["v"]["batch_stats"],
+                          s["jvocab"])(TEXTS, seed=3, **call)
+    got = Synthesizer(cfg, s["params"], s["stats"], s["vocab"],
+                      device="cpu")(TEXTS, seed=3, **call)
+    assert sorted(got) == sorted(want)
+    for k in ("mel", "linear", "alignments", "wavs"):
+        assert got[k].shape == np.asarray(want[k]).shape, k
+    np.testing.assert_array_equal(got["end_frames"], np.asarray(want["end_frames"]))
+    np.testing.assert_array_equal(got["wav_lengths"], np.asarray(want["wav_lengths"]))
+    assert got["audio_seconds"] == pytest.approx(want["audio_seconds"])
+    assert got["trimmed_audio_seconds"] == pytest.approx(want["trimmed_audio_seconds"])
+    return got, want
+
+
+# The tiny model's per-step peaks rise from 0.09 / 0.11 (rows 0 / 1) at step
+# 0 to 0.15 / 0.19 at step 9; row 1 crosses 0.133 at step 3. Per frame, row
+# 0 first falls below 0.0675 at frame 1, row 1 at frame 3.
+_EXIT = ["infer.early_exit=true", "infer.silence_threshold=0.133"]
+_TRIM = ["infer.trim_before_gl=true", "infer.silence_threshold=0.0675",
+         "infer.min_silence_frames=1", "infer.gl_length_quantum=2"]
+
+
+@pytest.mark.parametrize("name,overrides,steps_done,t_gl,ends", [
+    ("early_exit, not fused", _EXIT, 3, 50, [0, 0]),
+    ("trim_before_gl, not fused", _TRIM, 10, 4, [1, 3]),
+    ("synth_fast shape: early exit + trim, quantum 8",
+     _EXIT + ["infer.trim_before_gl=true", "infer.gl_length_quantum=8"], 3, 8, [0, 0]),
+])
+def test_split_path_matches_jax(setup, name, overrides, steps_done, t_gl, ends):
+    s = setup
+    hop, r = s["cfg"].audio.hop_length, s["cfg"].model.r
+    got, want = _pair(s, overrides, n_steps=10)
+    for k in ("mel", "linear", "alignments", "wavs"):
+        np.testing.assert_allclose(got[k], np.asarray(want[k]), atol=1e-5, err_msg=k)
+    assert got["wavs"].shape == (2, hop * (t_gl - 1))
+    np.testing.assert_array_equal(got["end_frames"], ends)
+    mel = got["mel"]
+    assert np.abs(mel[:, :steps_done * r]).min(axis=(0, 2)).max() > 0
+    assert np.abs(mel[:, steps_done * r:]).max(initial=0.0) == 0.0
+    assert np.abs(got["alignments"][:, steps_done:]).max(initial=0.0) == 0.0
+
+
+@pytest.mark.parametrize("backend,atol", [("mm", 2.0 ** -8), ("fft", 1e-4), ("pallas", 1e-2)])
+def test_gl_backends_match_jax(setup, backend, atol):
+    got, want = _pair(setup, [f"audio.gl_backend={backend}"], n_steps=N_STEPS)
+    np.testing.assert_allclose(got["linear"], np.asarray(want["linear"]), atol=1e-5)
+    np.testing.assert_allclose(got["wavs"], np.asarray(want["wavs"]), atol=atol)
+
+
+def test_synth_fast_preset_runs_the_split_path(setup):
+    """The preset itself (early exit, trim, momentum 0.99, the kernel's bf16
+    mode through its plain version, gl_trim_chunks accepted) on the tiny
+    model and geometry."""
+    s = setup
+    fast = get_config("synth_fast")
+    assert fast.infer.early_exit and fast.infer.trim_before_gl
+    assert fast.audio.gl_backend == "pallas" and fast.audio.gl_trim_chunks
+    assert fast.audio.gl_momentum == 0.99 and fast.audio.griffin_lim_iters == 100
+    cfg = dataclasses.replace(
+        s["cfg"], infer=dataclasses.replace(fast.infer, silence_threshold=0.133),
+        audio=dataclasses.replace(s["cfg"].audio, gl_backend="pallas", gl_momentum=0.99,
+                                  gl_trim_chunks=True, griffin_lim_iters=3))
+    out = Synthesizer(cfg, s["params"], s["stats"], s["vocab"], device="cpu")(
+        TEXTS, n_steps=40, seed=3)
+    q, hop = fast.infer.gl_length_quantum, cfg.audio.hop_length
+    assert out["mel"].shape[1] == 40 * cfg.model.r
+    assert out["wavs"].shape == (2, hop * (q - 1))            # trimmed to one quantum
+    assert np.isfinite(out["wavs"]).all() and np.abs(out["wavs"]).max() > 0
+    with pytest.raises(ValueError, match="fused decode cannot combine"):
+        Synthesizer(cfg, s["params"], s["stats"], s["vocab"], fused=True, device="cpu")
 
 
 def test_config_json_from_jax_parses_strictly():
