@@ -19,10 +19,12 @@ Phases, in order; any failure raises and exits non-zero:
    refused with the CUDA error shown; P2); a small end-to-end check, the
    fused Synthesizer against the step-by-step one with every plain
    version; the attention energy (K1) and its backward (K2) at B 32, T_in
-   128, A 256 against autograd through the plain formula; and the
-   teacher-forced loss and every parameter gradient on the tiny config
-   through K1/K2 against the plain formula, for both decoder forms, with
-   and without remat;
+   128, A 256 against autograd through the plain formula, and their bf16
+   mode at B 32/T_in 128/A 256, B 6/T_in 37/A 256 and B 3/T_in 11/A 100
+   (the scalar path) against the plain forward and ``energy_bwd_reference``
+   and under autograd; and the teacher-forced loss and every parameter
+   gradient on the tiny config through K1/K2 against the plain formula,
+   for both decoder forms, with and without remat;
 4. [main] the parity synthesis path: ``Synthesizer(fused=True)`` at the
    synth_gl1000 config (256-d model, r 2, 500 decode steps, Griffin-Lim
    1000, the kernel's bf16 mode by default) on 8 prompts with seeded random
@@ -50,14 +52,27 @@ Phases, in order; any failure raises and exits non-zero:
    the f32 mode's;
 8. the training path: ``create_train_state`` + ``train_step`` at the
    full_1chip widths (hoisted teacher-forced decoder, fused energy, remat,
-   f32) on B 32, T_in 128, T_out 400: one warm step, then 5 timed steps
+   f32) on B 32, T_in 128, T_out 400: one warm step, then 3 timed steps
    with the launch counts set to 0 just before them; step milliseconds,
    train frames per second, peak memory and a forward / backward /
    optimizer split; the device's busy share of one profiled step; the
    same steps through the plain energy, interleaved with the fused ones;
 9. K1's and K2's time at that path's shapes beside the plain version and
-   the bound; one JSON line with all eight kernel rows;
-10. last line: {"ok": true, "device": {...}}.
+   the bound;
+10. [train-bf16] bench.py's training recipe (compute_dtype="bfloat16",
+   hoisted, remat, fused energy) at the same widths and batch, as 8: one
+   warm and 5 timed steps, the profiled step (400 bf16 K1 and 200 bf16 K2
+   launches), the plain energy interleaved, f32 parameters and Adam
+   moments; on one set of weights and dropout masks the loss through the
+   plain energy beside the fused one and the mel against the f32 model's
+   (JAX's drift rule); then bf16 K1's and K2's time at that path's shapes;
+11. [main-bf16] ``Synthesizer(fused=True)`` at synth_gl1000 with
+   compute_dtype="bfloat16" (K3 on bf16-computed keys, Griffin-Lim 100
+   iterations to keep the script short): a warm and a timed call, and the
+   mel's drift from [main]'s f32 mel, printed, not held (500 feed-previous
+   steps on random weights may diverge); one JSON line with all ten kernel
+   rows;
+12. last line: {"ok": true, "device": {...}}.
 
 ``--report PATH`` also writes every check and measurement as JSON.
 """
@@ -112,8 +127,22 @@ GL_PATH = {"iters": 2, "tol": 5e-2, "step_tol": 2.0 ** -7, "step_depths": (0, 1,
 # K1/K2 vs autograd through the plain formula, f32 (summation order only):
 # max abs error of e, dkeys, dq and dv each within this fraction of its peak
 ENERGY_TOL = 1e-5
-# the training main path: full_1chip widths, B 32, T_in 128, T_out 400
-TRAIN_B, TRAIN_T_IN, TRAIN_T_OUT, TRAIN_STEPS = 32, 128, 400, 5
+# K1/K2 bf16 vs their plain versions (the same rounding points): e and dv
+# (f32) as ENERGY_TOL; each entry of dkeys and dq within one bf16 ulp (2^-7
+# of its magnitude; an f32 sum's last bit can flip a rounding) plus
+# ENERGY_TOL of the peak (dq is an f32 sum taken in another order); under
+# autograd against autograd through the formula, which rounds elsewhere,
+# 4e-2 of each peak (JAX's bf16 tolerance for its kernel against its formula)
+ENERGY_BF16 = {"ulp": 2.0 ** -7, "autograd": 4e-2,
+               "shapes": ((32, 128, 256), (6, 37, 256), (3, 11, 100))}
+# [main-bf16]: Griffin-Lim iterations (the bf16 kernel's 1000 are timed in [main])
+MAIN_BF16_GL_ITERS = 100
+# the training main path: full_1chip widths, B 32, T_in 128, T_out 400; timed
+# steps and interleaved rounds (fused, xla, xla, fused) per compute dtype: the
+# f32 path, measured the longest, is cut to keep the whole script short
+TRAIN_B, TRAIN_T_IN, TRAIN_T_OUT = 32, 128, 400
+TRAIN_STEPS = {"float32": 3, "bfloat16": 5}
+TRAIN_ROUNDS = {"float32": 1, "bfloat16": 3}
 
 PROMPTS = [
     "The birch canoe slid on the smooth planks, and the boy glued the sheet to the dark blue background.",
@@ -400,8 +429,12 @@ def phase_kernels(report):
                                                     pack_decoder_weights)
 
     dev = torch.device("cuda")
+    # Plain versions in full precision: f32 products and convolutions in
+    # f32, not TF32; and bf16 products summed in f32, as XLA sums them
+    # (cuBLAS may otherwise reduce a split-K bf16 product in bf16)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     cfg = get_config("synth_gl1000")
     vocab = Vocab.build(PROMPTS)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, vocab_size=len(vocab)))
@@ -519,6 +552,48 @@ def energy_check(keys, q, v, de):
     return out, torch.equal(dv2, got[3])
 
 
+def energy_bf16_check(keys, q, v, de, label=""):
+    """K1/K2 in bf16 (keys, q bf16) against their plain versions on the same
+    inputs, and under autograd against autograd through the formula, with
+    ENERGY_BF16's tolerances -> {name: (max abs error, peak)}; raises on a
+    miss."""
+    from tacotron_tpu_torch.ops.attn_energy import (attention_energy,
+                                                    attention_energy_reference,
+                                                    energy_bwd, energy_bwd_reference,
+                                                    energy_fwd)
+    keys, q = keys.bfloat16(), q.bfloat16()
+    got = (energy_fwd(keys, q, v), *energy_bwd(keys, q, v, de))
+    want = (attention_energy_reference(keys, q, v), *energy_bwd_reference(keys, q, v, de))
+    leaves = [x.detach().clone().requires_grad_(True) for x in (keys, q, v)]
+    auto = torch.autograd.grad(attention_energy(*leaves), leaves, de)
+    ref_leaves = [x.detach().clone().requires_grad_(True) for x in (keys, q, v)]
+    auto_ref = torch.autograd.grad(attention_energy_reference(*ref_leaves), ref_leaves, de)
+    torch.cuda.synchronize()
+    out = {}
+    for n, g, w in zip(("e", "dkeys", "dq", "dv"), got, want):
+        require(g.dtype == w.dtype and g.shape == w.shape, f"{label}{n}: {g.dtype} {tuple(g.shape)}")
+        err, peak = max_err(g, w), float(w.float().abs().max())
+        tol = ENERGY_TOL * peak
+        if n in ("dkeys", "dq"):
+            d = (g.float() - w.float()).abs()
+            flips = int((d > 0).sum())
+            within = bool((d <= ENERGY_BF16["ulp"] * w.float().abs() + tol).all())
+            log(f"  {label}{n} ({g.dtype}): max abs err {err:.3e} (peak {peak:.3f}); "
+                f"{flips} of {d.numel()} entries differ")
+            require(within, f"{label}{n}: each entry within one bf16 ulp + {ENERGY_TOL} of the peak")
+        else:
+            log(f"  {label}{n} ({g.dtype}): max abs err {err:.3e} (peak {peak:.3f})")
+            require(err <= tol, f"{label}{n} within {ENERGY_TOL} of its peak")
+        out[n] = (err, peak)
+    for n, g, w in zip(("dkeys", "dq", "dv"), auto, auto_ref):
+        err, peak = max_err(g, w), float(w.float().abs().max())
+        log(f"  {label}autograd {n}: max abs err {err:.3e} (peak {peak:.3f})")
+        require(err <= ENERGY_BF16["autograd"] * peak,
+                f"{label}autograd {n} within {ENERGY_BF16['autograd']} of its peak")
+        out[f"autograd_{n}"] = (err, peak)
+    return out
+
+
 def phase_energy(report):
     log("[K1/K2] attention energy and its backward vs autograd through the plain "
         "formula, B 32, T_in 128, A 256, f32")
@@ -529,6 +604,13 @@ def phase_energy(report):
         log(f"  {n}: max abs err {err:.3e} (peak {peak:.3f})")
         require(err <= ENERGY_TOL * peak, f"{n} within {ENERGY_TOL} of its peak")
     require(same_dv, "dv bit-identical across two runs")
+    log("[K1/K2 bf16] keys and q in bf16 vs the plain forward and energy_bwd_reference, "
+        "and under autograd")
+    chk = report["checks"].setdefault("attn_energy_bf16", {"tol": ENERGY_BF16 | {
+        "e_dv_of_peak": ENERGY_TOL}})
+    for b, t, a in ENERGY_BF16["shapes"]:
+        chk[f"B{b}_T{t}_A{a}"] = energy_bf16_check(
+            *energy_inputs(torch.device("cuda"), b, t, a), label=f"B {b} T {t} A {a}: ")
 
 
 def phase_train_e2e(report):
@@ -637,6 +719,57 @@ def phase_main(report, cfg, vocab):
     report["main"].update(griffin_lim_f32_ms=f32_ms, audio_seconds_per_s_f32_gl=aps_f32)
     launches["griffin_lim_f32"] = f32_launches
     return synth, out, launches, mag, res["f32"], f32_ms
+
+
+def phase_main_bf16(report, cfg, vocab, mel_f32):
+    """[main-bf16]: [main]'s call with compute_dtype="bfloat16" on the same
+    seed-0 weights, prompts and dropout seed; the counts set to 0 just
+    before the timed call. ``mel_f32``: [main]'s mel, for the drift."""
+    from tacotron_tpu_torch import runtime
+    from tacotron_tpu_torch.infer.synthesize import STAGES, Synthesizer
+    from tacotron_tpu_torch.weights import split_state
+
+    cfg16 = cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype="bfloat16"))
+    n_it = MAIN_BF16_GL_ITERS
+    log(f"[main-bf16] Synthesizer(fused=True), synth_gl1000 with compute_dtype bfloat16, B 8, "
+        f"500 steps, GL {n_it} (not 1000: [main] times the same kernel at 1000)")
+    p, bs = split_state(full_model(cfg16, torch.device("cuda")))
+    synth = Synthesizer(cfg16, p, bs, vocab, fused=True)
+    t0 = time.perf_counter()
+    synth(PROMPTS, seed=0, gl_iters=n_it)
+    warm_s = time.perf_counter() - t0
+    runtime.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out = synth(PROMPTS, seed=1, gl_iters=n_it, stage_ms=True)
+    wall = time.perf_counter() - t0
+    launches = dict(runtime.LAUNCHES)
+    log(f"  warm call {warm_s:.3f} s, timed call {wall:.3f} s")
+    for s_ in STAGES:
+        log(f"  stage {s_}: {out['stage_ms'][s_]:.3f} ms")
+    aps = out["audio_seconds"] / wall
+    log(f"  audio_seconds {out['audio_seconds']:.3f}, audio_seconds_per_s {aps:.3f}; "
+        f"launches {launches}")
+    keys = synth.model.memory_proj(torch.zeros(1, 1, cfg.model.memory_dim, device="cuda"))
+    require(keys.dtype == torch.bfloat16, "the keys are a bf16 product")
+    require(launches.get("decode_loop") == 1 and launches.get("griffin_lim") == 3 * n_it,
+            f"K3 launched once and K4 3 x {n_it} times")
+    mel, wav = out["mel"], out["wavs"]
+    require(mel.shape == mel_f32.shape and out["linear"].shape[:2] == mel.shape[:2]
+            and wav.shape == (8, cfg.audio.hop_length * (2 * 500 - 1)),
+            f"shapes: mel {mel.shape}, linear {out['linear'].shape}, wavs {wav.shape}")
+    require(all(bool(np.isfinite(x).all()) for x in (mel, out["linear"], wav))
+            and float(np.abs(wav).max()) > 0, "mel, linear and wavs finite, a peak > 0")
+    d = np.abs(mel - mel_f32)
+    drift = {"mean_abs": float(d.mean()), "max_abs": float(d.max()),
+             "f32_mean_abs": float(np.abs(mel_f32).mean()),
+             "first_50_steps_max_abs": float(d[:, :100].max())}
+    log(f"  mel drift from [main]'s f32 mel (printed, not held): mean {drift['mean_abs']:.5f} "
+        f"(f32 mean magnitude {drift['f32_mean_abs']:.5f}), max {drift['max_abs']:.5f}, max over "
+        f"the first 50 steps {drift['first_50_steps_max_abs']:.5f}")
+    report["main_bf16"] = {"stage_ms": out["stage_ms"], "wall_s": wall, "warm_s": warm_s,
+                           "gl_iters": n_it, "audio_seconds": out["audio_seconds"],
+                           "audio_seconds_per_s": aps, "launches": launches,
+                           "mel_drift_from_f32": drift}
 
 
 def steps_done_of(mel, r):
@@ -1043,20 +1176,31 @@ def phase_lowp_convergence(report, acfg, mag_main):
     report["bf16_vs_f32_magnitude_error"] = rows
 
 
-def phase_train(report):
-    from tacotron_tpu_torch import runtime
+def train_config(compute_dtype):
+    """bench.py's training recipe at full_1chip widths: hoisted teacher-forced
+    decoder, remat, the fused energy, in ``compute_dtype``."""
     from tacotron_tpu_torch.config import get_config
+    base = get_config("full_1chip")
+    return base.replace(model=dataclasses.replace(
+        base.model, tf_decoder="hoisted", attention_energy="fused", remat_decoder=True,
+        compute_dtype=compute_dtype))
+
+
+def phase_train(report, compute_dtype="float32"):
+    """The training path in ``compute_dtype``: [train] (f32) or [train-bf16]."""
+    from tacotron_tpu_torch import runtime
     from tacotron_tpu_torch.train import create_train_state, train_step
     from tacotron_tpu_torch.train.step import STAGES
 
     dev = torch.device("cuda")
-    base = get_config("full_1chip")
-    cfg = base.replace(model=dataclasses.replace(
-        base.model, tf_decoder="hoisted", attention_energy="fused", remat_decoder=True))
+    bf16 = compute_dtype == "bfloat16"
+    tag, key = ("[train-bf16]", "train_bf16") if bf16 else ("[train]", "train")
+    cfg = train_config(compute_dtype)
+    steps = TRAIN_STEPS[compute_dtype]
     b, t_in, t_out = TRAIN_B, TRAIN_T_IN, TRAIN_T_OUT
     n_dec = t_out // cfg.model.r
-    log(f"[train] train_step, full_1chip widths, hoisted + fused + remat, f32, "
-        f"B {b}, T_in {t_in}, T_out {t_out}: 1 warm step, {TRAIN_STEPS} timed")
+    log(f"{tag} train_step, full_1chip widths, hoisted + fused + remat, {compute_dtype}, "
+        f"B {b}, T_in {t_in}, T_out {t_out}: 1 warm step, {steps} timed")
     state = create_train_state(cfg, seed=0)
     g = torch.Generator().manual_seed(0)         # the batch as bench.py makes it
     batch = [torch.randint(1, 60, (b, t_in), generator=g),
@@ -1070,7 +1214,7 @@ def phase_train(report):
     torch.cuda.reset_peak_memory_stats()
     runtime.LAUNCHES.clear()
     step_ms, stages, losses = [], [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         state, m, align = train_step(state, *batch, cfg=cfg, stage_ms=True)
         losses.append(float(m["total_loss"]))
@@ -1081,10 +1225,10 @@ def phase_train(report):
     med = float(np.median(step_ms))
     fps = b * t_out / (med / 1e3)
     split = {s_: float(np.median([st[s_] for st in stages])) for s_ in STAGES}
-    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    per_step = {k: v / steps for k, v in launches.items()}
     log(f"  warm step {warm_s:.3f} s; losses {first:.5f} (warm) -> {losses}")
     log(f"  step ms median {med:.3f}, range {min(step_ms):.3f}-{max(step_ms):.3f} "
-        f"over {TRAIN_STEPS} steps")
+        f"over {steps} steps")
     log(f"  train frames/s {fps:.1f} (= {b} x {t_out} / median step s)")
     log(f"  split (median ms, CUDA events): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
     log(f"  max_memory_allocated {peak / 2**30:.3f} GiB")
@@ -1095,16 +1239,76 @@ def phase_train(report):
             f"alignments finite, shape {(b, n_dec, t_in)}")
     require(per_step.get("attn_energy_fwd") == 2 * n_dec and per_step.get("attn_energy_bwd") == n_dec,
             f"K1 {2 * n_dec} launches per step (forward + remat recompute), K2 {n_dec}")
-    report["train"] = {"step_ms": step_ms, "step_ms_median": med, "train_frames_per_s": fps,
-                       "split_ms_median": split, "max_memory_allocated": peak,
-                       "losses": [first] + losses, "warm_s": warm_s,
-                       "launches": launches, "launches_per_step": per_step}
-    report["train"]["profile"] = profile_step(state, batch, cfg, med)
-    report["train"]["fused_vs_xla_step_ms"] = compare_energy_forms(state, batch, cfg)
+    rep = {"step_ms": step_ms, "step_ms_median": med, "train_frames_per_s": fps,
+           "split_ms_median": split, "max_memory_allocated": peak,
+           "losses": [first] + losses, "warm_s": warm_s,
+           "launches": launches, "launches_per_step": per_step}
+    report[key] = rep
+    rep["profile"] = prof = profile_step(state, batch, cfg, med)
+    kinds = prof["energy_kernels"]
+    mode = "__nv_bfloat16" if bf16 else "float"
+    log(f"  attention energy kernels in the profiled step: {kinds}")
+    require(kinds.get(f"energy_fwd<{mode}>") == 2 * n_dec
+            and kinds.get(f"energy_bwd_partial<{mode}>") == n_dec
+            and kinds.get(f"energy_bwd_reduce<{mode}>") == n_dec and len(kinds) == 3,
+            f"the profiled step ran K1 <{mode}> {2 * n_dec} times and K2 <{mode}> {n_dec} times "
+            f"(partial + reduce), no other mode")
+    if bf16:
+        params = [p_ for p_ in state.model.parameters()]
+        moments = [v_ for st in state.opt.state.values() for k_, v_ in st.items()
+                   if k_ in ("exp_avg", "exp_avg_sq")]
+        require(all(p_.dtype == torch.float32 and p_.grad.dtype == torch.float32 for p_ in params)
+                and len(moments) == 2 * len(params)
+                and all(v_.dtype == torch.float32 for v_ in moments),
+                "parameters, their gradients and the Adam moments are f32")
+        rep["same_weights"] = bf16_forward_checks(state, batch, cfg)
+    rep["fused_vs_xla_step_ms"] = compare_energy_forms(state, batch, cfg,
+                                                       TRAIN_ROUNDS[compute_dtype])
     return state, batch, launches
 
 
-def compare_energy_forms(state, batch, cfg, pairs: int = 3):
+def bf16_forward_checks(state, batch, cfg):
+    """On the state's weights, one batch and one set of dropout masks: the
+    teacher-forced loss through the plain energy beside the fused one (K1/K2
+    bf16 in place of the formula), and the bf16 mel against the f32 model's
+    under JAX's drift rule (tests/unit/test_mixed_precision.py: mean |d mel|
+    < 0.1 mean |mel_f32| + 0.05)."""
+    from tacotron_tpu_torch.models.tacotron import Tacotron
+    from tacotron_tpu_torch.train.loss import tacotron_loss
+
+    dev = torch.device("cuda")
+    text, lengths, mel, linear, frame_len = batch
+    weights = state.model.state_dict()
+    out = {}
+    for name, over in (("bf16_fused", {}), ("bf16_xla", {"attention_energy": "xla"}),
+                       ("f32_fused", {"compute_dtype": "float32"})):
+        model = Tacotron(dataclasses.replace(cfg.model, **over), device=dev)
+        model.load_state_dict(weights)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        with torch.no_grad():
+            o = model.train()(text, lengths, gt_mel=mel, generator=gen)
+            loss, _ = tacotron_loss(o.mel, o.linear, mel, linear, frame_len,
+                                    mask_padding=cfg.train.mask_padding,
+                                    linear_weight=cfg.train.loss_linear_weight)
+        out[name] = (float(loss), o.mel)
+        del model
+    gap = abs(out["bf16_fused"][0] - out["bf16_xla"][0])
+    m16, m32 = out["bf16_fused"][1], out["f32_fused"][1]
+    drift = float((m16 - m32).abs().mean())
+    scale = float(m32.abs().mean()) + 1e-3
+    log(f"  same weights and masks: loss bf16 fused {out['bf16_fused'][0]:.6f}, bf16 xla "
+        f"{out['bf16_xla'][0]:.6f} (gap {gap:.3e}), f32 {out['f32_fused'][0]:.6f}; mel drift "
+        f"bf16 vs f32 {drift:.5f} against {0.1 * scale + 0.05:.5f} (0.1 x {scale:.5f} + 0.05)")
+    require(all(np.isfinite(v[0]) for v in out.values()), "losses finite")
+    require(gap <= 1e-3 * abs(out["bf16_xla"][0]),
+            "bf16 loss through K1/K2 within 1e-3 of the plain energy's")
+    require(drift < 0.1 * scale + 0.05, "bf16 mel within JAX's drift rule of the f32 mel")
+    return {"loss": {k: v[0] for k, v in out.items()}, "loss_gap_fused_xla": gap,
+            "mel_drift_mean_abs": drift, "mel_f32_mean_abs": scale - 1e-3,
+            "drift_limit": 0.1 * scale + 0.05}
+
+
+def compare_energy_forms(state, batch, cfg, pairs: int):
     """Step milliseconds of the same training steps through the fused
     energy and through the plain one (same weights), in the order fused,
     xla, xla, fused, repeated: the host's noise falls on both alike."""
@@ -1137,22 +1341,32 @@ def profile_step(state, batch, cfg, step_ms):
                   key=lambda r: -r[1][0])
     busy = sum(ms for _, (ms, _) in rows)
     launches = sum(n for _, (_, n) in rows)
+    energy = {}
+    for k, (_, n) in rows:
+        for kern in ("energy_fwd<", "energy_bwd_partial<", "energy_bwd_reduce<"):
+            if kern in k:
+                name = k[k.index(kern):k.index(">", k.index(kern)) + 1]
+                energy[name] = energy.get(name, 0) + n
     log(f"  profile: device busy {busy:.3f} ms in {launches:.0f} kernel launches = "
         f"{100 * busy / step_ms:.1f}% of the median step ({step_ms:.3f} ms)")
     for k, (ms, n) in rows[:15]:
         log(f"    {ms:9.3f} ms  {n:6.0f}x  {k[:100]}")
     return {"device_busy_ms": busy, "kernel_launches": launches,
-            "busy_share_of_median_step": busy / step_ms,
+            "busy_share_of_median_step": busy / step_ms, "energy_kernels": energy,
             "top": [{"name": k, "ms": ms, "count": n} for k, (ms, n) in rows[:30]]}
 
 
 def phase_train_timing(report, state, batch, launches):
+    """K1/K2 at the training path's shapes, in the mode of the state's
+    model: keys and q are that model's (bf16 under bf16 compute)."""
     from tacotron_tpu_torch.ops.attn_energy import (attention_energy_reference, energy_bwd,
-                                                    energy_fwd)
+                                                    energy_bwd_reference, energy_fwd)
 
     dev = torch.device("cuda")
     m = state.model
-    log("[timing] K1/K2 at the training path's shapes")
+    bf16 = m.cfg.cdtype == torch.bfloat16
+    sfx, path = ("_bf16", "[train-bf16]") if bf16 else ("", "[train]")
+    log(f"[timing] K1/K2{' bf16' if bf16 else ''} at the training path's shapes")
     with torch.no_grad():
         text, lengths = batch[0], batch[1]
         keys = m.memory_proj(m.encoder(text, lengths))
@@ -1161,12 +1375,18 @@ def phase_train_timing(report, state, batch, launches):
         q = m.decoder.cell.attention.query(h)
         v = m.decoder.cell.attention.v.detach()
     de = torch.randn(keys.shape[:2], generator=torch.Generator().manual_seed(2)).to(dev)
-    errs, same_dv = energy_check(keys, q, v, de)
-    report["checks"]["attn_energy_main_shapes"] = {"errors": errs, "dv_bit_identical": same_dv}
-    for n, (err, peak) in errs.items():
-        log(f"  {n} at main shapes: max abs err {err:.3e} (peak {peak:.3f})")
-        require(err <= ENERGY_TOL * peak, f"{n} at main shapes within {ENERGY_TOL} of its peak")
-    require(same_dv, "dv bit-identical across two runs at main shapes")
+    require(keys.dtype == q.dtype == (torch.bfloat16 if bf16 else torch.float32),
+            f"the path's keys and q are {keys.dtype}")
+    if bf16:
+        errs = energy_bf16_check(keys, q, v, de, label="at main shapes: ")
+        report["checks"]["attn_energy_bf16_main_shapes"] = errs
+    else:
+        errs, same_dv = energy_check(keys, q, v, de)
+        report["checks"]["attn_energy_main_shapes"] = {"errors": errs, "dv_bit_identical": same_dv}
+        for n, (err, peak) in errs.items():
+            log(f"  {n} at main shapes: max abs err {err:.3e} (peak {peak:.3f})")
+            require(err <= ENERGY_TOL * peak, f"{n} at main shapes within {ENERGY_TOL} of its peak")
+        require(same_dv, "dv bit-identical across two runs at main shapes")
 
     # ms: the kernels' device time per call (torch.profiler); call_ms: CUDA
     # events around back-to-back calls, the Python wrapper included, which
@@ -1174,10 +1394,12 @@ def phase_train_timing(report, state, batch, launches):
     reps = 200
     leaves = [x.detach().clone().requires_grad_(True) for x in (keys, q, v)]
     e_ref = attention_energy_reference(*leaves)
+    bwd_plain = ((lambda: energy_bwd_reference(keys, q, v, de)) if bf16 else
+                 (lambda: torch.autograd.grad(e_ref, leaves, de, retain_graph=True)))
     calls = {"fwd": lambda: energy_fwd(keys, q, v),
              "fwd_plain": lambda: attention_energy_reference(keys, q, v),
              "bwd": lambda: energy_bwd(keys, q, v, de),
-             "bwd_plain": lambda: torch.autograd.grad(e_ref, leaves, de, retain_graph=True)}
+             "bwd_plain": bwd_plain}
     dev_ms, call_ms = {}, {}
     for name, fn in calls.items():
         with torch.no_grad() if name != "bwd_plain" else torch.enable_grad():
@@ -1190,31 +1412,34 @@ def phase_train_timing(report, state, batch, launches):
             f"per call with the host")
     f_ms, fp_ms, b_ms, bp_ms = (dev_ms[k] for k in ("fwd", "fwd_plain", "bwd", "bwd_plain"))
     b, t, a = keys.shape
-    el = b * t * a
-    # K1: keys, q, v read, e written; add, tanh, multiply, accumulate per element.
+    el, es = b * t * a, keys.element_size()
+    # K1: keys, q (in their dtype), v read, e written; add, tanh, multiply,
+    # accumulate per element (f32 arithmetic in both modes).
     # K2: keys, q, v, de read, dkeys, dq, dv written; add, tanh, 1 - t^2,
     # de * v, times (1 - t^2), dq accumulate, t * de, dv accumulate per element.
-    fb = bound((el + b * a + a + b * t) * 4, 4 * el, PEAK_FLOPS["f32"])
-    bb = bound((2 * el + 2 * b * a + 2 * a + b * t) * 4, 9 * el, PEAK_FLOPS["f32"])
-    per_step = {k: launches.get(k, 0) / TRAIN_STEPS for k in ("attn_energy_fwd", "attn_energy_bwd")}
-    shape = f"B {b} T_in {t} A {a} f32"
-    k1 = {"name": "attn_energy_fwd", "route": "cuda",
+    fb = bound((el + b * a) * es + (a + b * t) * 4, 4 * el, PEAK_FLOPS["f32"])
+    bb = bound((2 * el + 2 * b * a) * es + (2 * a + b * t) * 4, 9 * el, PEAK_FLOPS["f32"])
+    steps = TRAIN_STEPS[m.cfg.compute_dtype]
+    per_step = {k: launches.get(k, 0) / steps for k in ("attn_energy_fwd", "attn_energy_bwd")}
+    shape = f"B {b} T_in {t} A {a} {'bf16' if bf16 else 'f32'}"
+    k1 = {"name": "attn_energy_fwd" + sfx, "route": "cuda",
           "source": "tacotron_tpu_torch/csrc/attn_energy.cu",
           "replaces": "tacotron_tpu/ops/pallas/attn_energy.py:63",
-          "launches": launches.get("attn_energy_fwd", 0), "path": "[train]",
+          "launches": launches.get("attn_energy_fwd", 0), "path": path,
           "max_abs_err": errs["e"][0],
           "ms": f_ms, "plain_ms": fp_ms, "bound_ms": fb[0], "bound_by": fb[1],
           "library_ms": None, "shape": shape, "call_ms": call_ms["fwd"],
           "plain_call_ms": call_ms["fwd_plain"],
           "ms_per_step": f_ms * per_step["attn_energy_fwd"]}
-    k2 = {"name": "attn_energy_bwd", "route": "cuda",
+    k2 = {"name": "attn_energy_bwd" + sfx, "route": "cuda",
           "source": "tacotron_tpu_torch/csrc/attn_energy.cu",
           "replaces": "tacotron_tpu/ops/pallas/attn_energy.py:69",
-          "launches": launches.get("attn_energy_bwd", 0), "path": "[train]",
+          "launches": launches.get("attn_energy_bwd", 0), "path": path,
           "max_abs_err": max(errs[n][0] for n in ("dkeys", "dq", "dv")),
           "ms": b_ms, "plain_ms": bp_ms, "bound_ms": bb[0], "bound_by": bb[1],
           "library_ms": None, "shape": shape, "call_ms": call_ms["bwd"],
           "plain_call_ms": call_ms["bwd_plain"],
+          "plain_is": "energy_bwd_reference" if bf16 else "autograd through the formula",
           "ms_per_step": b_ms * per_step["attn_energy_bwd"]}
     for k in (k1, k2):
         log(f"  {k['name']}: {k['ms'] * 1e3:.2f} us per launch, {k['ms_per_step']:.3f} ms per "
@@ -1257,6 +1482,7 @@ def main(argv=None) -> int:
     if not args.quick:
         synth, out, launches, mag_main, f32_spec, f32_ms = phase_main(report, cfg, vocab)
         kernels = phase_timing(report, synth, launches, mag_main, f32_spec, f32_ms)
+        mel_main = out["mel"]
         del synth, out, f32_spec
         fast_cfg, fast_res, mag_fast = phase_fast(report, vocab)
         stream = phase_stream(report, mag_main, fast_cfg.audio)
@@ -1266,6 +1492,11 @@ def main(argv=None) -> int:
         del mag_main, mag_fast
         state, batch, train_launches = phase_train(report)
         kernels = phase_train_timing(report, state, batch, train_launches) + kernels
+        del state
+        state, batch, train_launches = phase_train(report, "bfloat16")
+        kernels = kernels[:2] + phase_train_timing(report, state, batch, train_launches) + kernels[2:]
+        del state
+        phase_main_bf16(report, cfg, vocab, mel_main)
         for k in kernels:
             require(k["launches"] > 0, f"{k['name']} launched on its path ({k['launches']})")
         report["kernels"] = kernels

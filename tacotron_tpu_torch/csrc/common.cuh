@@ -18,6 +18,13 @@ template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// Store an f32 value in the storage type T (round to nearest even).
+template <typename T> __device__ __forceinline__ T to_storage(float x);
+template <> __device__ __forceinline__ float to_storage<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 to_storage<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
 // 16-byte vector load of V = 16 / sizeof(T) consecutive values as f32.
 template <typename T> struct Vec;
 template <> struct Vec<float> {

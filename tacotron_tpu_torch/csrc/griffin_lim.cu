@@ -61,12 +61,6 @@ template <> __device__ __forceinline__ void store_pair<__nv_bfloat16>(
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-template <typename T> __device__ __forceinline__ T to_storage(float x);
-template <> __device__ __forceinline__ float to_storage<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 to_storage<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 // The spectrum operand / result of one product. Interleaved: one array
 // (M, 2*n_bins), (re, im) per bin. Planar: a = re, b = im, each (M, n_bins).
 template <typename T> struct Spec {
@@ -182,8 +176,8 @@ gl_gemm(int M, int N, int K, Spec<const T> src, const float* __restrict__ sig,
         const float nr = tt::round_to<T>(re * scale), ni = tt::round_to<T>(im * scale);
         if (PLANAR) {
           const size_t o = (size_t)m * (N / 2) + n / 2;
-          dst.a[o] = to_storage<T>(nr);
-          dst.b[o] = to_storage<T>(ni);
+          dst.a[o] = tt::to_storage<T>(nr);
+          dst.b[o] = tt::to_storage<T>(ni);
           continue;
         }
         const size_t o = (size_t)m * N + n;

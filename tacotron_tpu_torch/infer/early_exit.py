@@ -53,7 +53,8 @@ def decode_while(memory, keys, mask, w: DecoderWeights, generator=None, *,
     """Feed-previous decode with silence early exit, in f32 over the packed
     decoder weights (the step of the fused decode's plain version).
 
-    memory (B, T_in, D_mem), keys (B, T_in, attn_dim), mask (B, T_in) bool.
+    memory (B, T_in, D_mem), keys (B, T_in, attn_dim), mask (B, T_in) bool;
+    bf16 keys (bf16 compute) are widened, as JAX's f32 loop promotes them.
     Returns (mel (B, n_steps*r, n_mels), alignments (B, n_steps, T_in),
     steps_done). The loop stops after the step at which every row's
     ``silent_run`` (consecutive steps whose r frames all peak below

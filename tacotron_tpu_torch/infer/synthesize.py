@@ -60,7 +60,9 @@ class Synthesizer:
     """``Synthesizer(cfg, params, batch_stats, vocab, fused=..., device=None)``.
 
     ``params``/``batch_stats`` are the port's state-dict entries
-    (``weights.from_flax``). ``device=None`` means the GPU and raises when
+    (``weights.from_flax``). ``cfg.model.compute_dtype`` "bfloat16" runs the
+    model's products in bf16, the attention keys included, on every decode
+    path. ``device=None`` means the GPU and raises when
     there is none; pass ``device="cpu"`` for the plain PyTorch versions.
     """
 
@@ -76,8 +78,6 @@ class Synthesizer:
         if mesh is not None:
             raise NotImplementedError("multi-device synthesis is not ported yet "
                                       "(ROADMAP.md, port queue: parallel)")
-        if cfg.model.compute_dtype != "float32":
-            raise NotImplementedError("only compute_dtype float32 is ported")
         self.cfg = cfg
         self.vocab = vocab
         self.fused = fused

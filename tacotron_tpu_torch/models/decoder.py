@@ -19,6 +19,12 @@ share the parameters (``ModelConfig.tf_decoder``):
 (``torch.utils.checkpoint``) instead of keeping its activations. Dropout
 masks are drawn outside the recomputed step, so the recomputation sees the
 same masks without touching the generator.
+
+With a bf16 ``compute_dtype`` the two forms keep JAX's two kinds of weight
+cast: the step-by-step cell casts its f32 parameters in every step (flax
+``Dense``), so their gradients sum in f32; the hoisted form casts them once,
+before the loop, so autograd sums each bf16 copy's per-step gradients in
+bf16, as JAX's scan does for its bf16 constants (``keys`` among them).
 """
 
 from __future__ import annotations
@@ -26,14 +32,13 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tacotron_tpu_torch.config import ModelConfig
 from tacotron_tpu_torch.ops.attention import NEG_INF, BahdanauAttention, energy_scores
-from tacotron_tpu_torch.ops.gru import GRUCell
-from tacotron_tpu_torch.ops.modules import Dense, Prenet, dropout
+from tacotron_tpu_torch.ops.gru import GRUCell, gru_cell_step
+from tacotron_tpu_torch.ops.modules import Dense, Prenet, dense, dropout
 
 TF_DECODER_FORMS = ("scan", "hoisted")
 
@@ -57,7 +62,7 @@ class DecoderCell(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=torch.float32):
         super().__init__()
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(device=device, dtype=dtype, compute_dtype=cfg.cdtype)
         self.cfg = cfg
         p1 = cfg.prenet_dims[-1]
         self.prenet = Prenet(cfg.n_mels, cfg.prenet_dims, cfg.prenet_dropout, **kw)
@@ -81,13 +86,13 @@ class DecoderCell(nn.Module):
         x = self.prenet(x, generator, keep)
         h_att = self.attention_gru(state.h_att, torch.cat([x, state.context], dim=-1))
         context, alignment = self.attention(h_att, keys, memory, mask)
-        h = self.decoder_input_proj(torch.cat([h_att, context], dim=-1))
+        h = self.decoder_input_proj(torch.cat([h_att, context], dim=-1)).float()
         new_h_dec = []
         for i, h_prev in enumerate(state.h_dec):
             h_i = getattr(self, f"decoder_gru{i}")(h_prev, h)
             h = h + h_i                                  # residual connection
             new_h_dec.append(h_i)
-        frames = self.frame_proj(h)                      # (B, r*n_mels)
+        frames = self.frame_proj(h).float()              # (B, r*n_mels)
         last = frames[:, (cfg.r - 1) * cfg.n_mels:]
         return DecoderState(h_att, tuple(new_h_dec), context, last), (frames, alignment)
 
@@ -102,15 +107,20 @@ def hoisted_teacher_forced(cell: DecoderCell, frames_in, keys, memory, mask,
       (B, S, d) per layer;
     * the prenet rows of the attention-GRU weights pre-multiplied over all
       steps; only the [context, h] rows stay in the loop;
-    * the r-frame projection once on the stacked states after the loop.
+    * the r-frame projection once on the stacked states after the loop;
+    * in bf16, every weight the loop uses cast once, before it.
 
     frames_in: (B, S, n_mels) shifted last-of-group ground-truth frames.
     Returns (mel (B, S*r, n_mels), alignments (B, S, T_in)).
     """
     cfg = cell.cfg
+    cd = cfg.cdtype
     b, s, _ = frames_in.shape
     p1 = cfg.prenet_dims[-1]
     pn = cell.prenet
+
+    def cast(w):
+        return w if cd is None else w.to(cd)
 
     x = frames_in
     for i in range(pn.n):
@@ -120,28 +130,35 @@ def hoisted_teacher_forced(cell: DecoderCell, frames_in, keys, memory, mask,
     # weights are (out, in): the [prenet | context | h] split is on axis 1
     ag = cell.attention_gru
     wg, wc = ag.gates.weight, ag.candidate.weight
-    gx = F.linear(pre, wg[:, :p1], ag.gates.bias)       # (B, S, 2d)
-    cx = F.linear(pre, wc[:, :p1], ag.candidate.bias)   # (B, S, d)
-    wg_ch, wc_ch = wg[:, p1:], wc[:, p1:]
+    gx = dense(pre, wg[:, :p1], ag.gates.bias, cd).float()      # (B, S, 2d)
+    cx = dense(pre, wc[:, :p1], ag.candidate.bias, cd).float()  # (B, S, d)
+    wg_ch, wc_ch = cast(wg[:, p1:]), cast(wc[:, p1:])
     att = cell.attention
+    wq = cast(att.query.weight)
+    ip = cell.decoder_input_proj
+    wp, bp = cast(ip.weight), cast(ip.bias)
+    keys_c = cast(keys)
     mem_f = memory.float()
-    grus = [getattr(cell, f"decoder_gru{i}") for i in range(cfg.decoder_depth)]
+    grus = [tuple(cast(w) for w in (g.gates.weight, g.gates.bias,
+                                    g.candidate.weight, g.candidate.bias))
+            for g in (getattr(cell, f"decoder_gru{i}") for i in range(cfg.decoder_depth))]
 
     def step(h_att, ctx, h_dec, gx_t, cx_t):
         ch = torch.cat([ctx, h_att], dim=-1)
-        ru = torch.sigmoid(gx_t + F.linear(ch, wg_ch))
+        ru = torch.sigmoid(gx_t + dense(ch, wg_ch, None, cd).float())
         r, u = ru.chunk(2, dim=-1)
-        cand = torch.tanh(cx_t + F.linear(torch.cat([ctx, r * h_att], dim=-1), wc_ch))
+        cand = torch.tanh(cx_t + dense(torch.cat([ctx, r * h_att], dim=-1), wc_ch,
+                                       None, cd).float())
         h_att = u * h_att + (1.0 - u) * cand
-        scores = energy_scores(keys, att.query(h_att), att.v, att.energy)
+        scores = energy_scores(keys_c, dense(h_att, wq, None, cd), att.v, att.energy)
         if mask is not None:
             scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
         align = torch.softmax(scores, dim=-1)
         ctx = torch.einsum("bt,btd->bd", align, mem_f)
-        h = cell.decoder_input_proj(torch.cat([h_att, ctx], dim=-1))
+        h = dense(torch.cat([h_att, ctx], dim=-1), wp, bp, cd).float()
         new_hd = []
-        for gru, h_prev in zip(grus, h_dec):
-            h_i = gru(h_prev, h)
+        for w, h_prev in zip(grus, h_dec):
+            h_i = gru_cell_step(h_prev, h, *w, cd)
             h = h + h_i
             new_hd.append(h_i)
         return h_att, ctx, tuple(new_hd), h, align
@@ -157,7 +174,7 @@ def hoisted_teacher_forced(cell: DecoderCell, frames_in, keys, memory, mask,
         h_att, ctx, h_dec, h, a = _remat(step, *args) if cfg.remat_decoder else step(*args)
         hs.append(h)
         aligns.append(a)
-    frames = cell.frame_proj(torch.stack(hs, 1))        # (B, S, r*n_mels)
+    frames = cell.frame_proj(torch.stack(hs, 1)).float()  # (B, S, r*n_mels)
     return frames.reshape(b, s * cfg.r, cfg.n_mels), torch.stack(aligns, 1)
 
 

@@ -31,7 +31,8 @@ class Encoder(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.embed = Embed(cfg.vocab_size, cfg.embed_dim, **kw)
+        self.embed = Embed(cfg.vocab_size, cfg.embed_dim, **kw)    # stays f32
+        kw["compute_dtype"] = cfg.cdtype
         # paper: prenet dropout is always on
         self.prenet = Prenet(cfg.embed_dim, cfg.prenet_dims, cfg.prenet_dropout, **kw)
         self.cbhg = CBHG(cfg.prenet_dims[-1], cfg.encoder_bank_k,

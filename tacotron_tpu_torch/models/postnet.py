@@ -16,7 +16,7 @@ from tacotron_tpu_torch.ops.modules import Dense
 class PostNet(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=torch.float32):
         super().__init__()
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(device=device, dtype=dtype, compute_dtype=cfg.cdtype)
         self.cbhg = CBHG(cfg.n_mels, cfg.postnet_bank_k, cfg.postnet_bank_channels,
                          cfg.postnet_proj_dims, cfg.highway_layers,
                          cfg.highway_dim, cfg.gru_dim, **kw)

@@ -4,7 +4,8 @@ Port of the JAX package's ``models/tacotron.py``. Shapes: text (B, T_in)
 -> memory (B, T_in, 256) -> mel (B, T_out, 80) -> linear (B, T_out, 1025).
 Training or evaluation is the module's mode (``model.train()`` /
 ``model.eval()``): it selects batch or running statistics in the batch
-norms.
+norms. ``cfg.compute_dtype`` sets the products' dtype throughout
+(``ops/modules.py``); parameters and outputs stay f32.
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ class Tacotron(nn.Module):
         self.encoder = Encoder(cfg, **kw)
         # attention keys, hoisted out of the decode loop: one
         # (B, T_in, memory_dim) x (memory_dim, attention_dim) product
-        self.memory_proj = Dense(cfg.memory_dim, cfg.attention_dim, bias=False, **kw)
+        self.memory_proj = Dense(cfg.memory_dim, cfg.attention_dim, bias=False,
+                                 compute_dtype=cfg.cdtype, **kw)
         self.decoder = Decoder(cfg, **kw)
         self.postnet = PostNet(cfg, **kw)
 

@@ -11,6 +11,10 @@ The energy has two forms, chosen by ``ModelConfig.attention_energy``:
 ``"fused"`` is ``ops/attn_energy.attention_energy`` (kernels K1/K2 on CUDA
 tensors). This module is also the plain oracle for the attention inside the
 fused decode kernel.
+
+With a bf16 ``compute_dtype`` the query and memory projections are bf16, so
+the energy's tanh runs on bf16 ``keys``/``q``; ``v``, the scores, the
+softmax and the context (over f32 memory) stay f32, as in JAX.
 """
 
 from __future__ import annotations
@@ -41,14 +45,14 @@ class BahdanauAttention(nn.Module):
 
     def __init__(self, query_dim: int, dim: int = 256,
                  memory_dim: int | None = None, energy: str = "xla", *,
-                 device=None, dtype=torch.float32):
+                 device=None, dtype=torch.float32, compute_dtype=None):
         super().__init__()
         if energy not in ENERGY_FORMS:
             raise ValueError(f"attention_energy must be one of {ENERGY_FORMS}, got {energy!r}")
         self.energy = energy
-        self.query = Dense(query_dim, dim, bias=False, device=device, dtype=dtype)
-        self.memory = (Dense(memory_dim, dim, bias=False, device=device,
-                             dtype=dtype) if memory_dim is not None else None)
+        kw = dict(bias=False, device=device, dtype=dtype, compute_dtype=compute_dtype)
+        self.query = Dense(query_dim, dim, **kw)
+        self.memory = Dense(memory_dim, dim, **kw) if memory_dim is not None else None
         self.v = nn.Parameter(torch.empty(dim, 1, device=device, dtype=dtype))
 
     def process_memory(self, memory):

@@ -8,7 +8,12 @@ Port of the JAX package's ``ops/pallas/attn_energy.py``:
 forward launches K1 and its backward K2 (``csrc/attn_energy.cu``), so the
 (B, T_in, A) tanh is never stored; the backward recomputes it. CPU tensors
 run the plain formula, ``attention_energy_reference``, under ordinary
-autograd. Only f32 is ported (the bf16 kernels wait for bf16 training).
+autograd, as JAX's ``"auto"`` backend does off the TPU.
+
+``keys`` and ``q`` are both f32 or both bf16 (bf16 compute): the tanh is
+then rounded to bf16, ``dkeys`` and ``dq`` come out in bf16, while ``v``,
+the energies, ``de`` and ``dv`` are f32, as in the TPU kernels.
+``energy_bwd_reference`` is K2's plain version with K2's rounding points.
 """
 
 from __future__ import annotations
@@ -27,6 +32,18 @@ def attention_energy_reference(keys, q, v):
     """The plain formula, as the JAX package's XLA path: tanh in the dtype of
     ``keys``/``q``, contracted with ``v`` in f32 -> (B, T_in) f32."""
     return (torch.tanh(keys + q[:, None, :]).float() @ v.float()).squeeze(-1)
+
+
+def energy_bwd_reference(keys, q, v, de):
+    """K2's function in plain PyTorch: the tanh in the dtype of ``keys``/``q``,
+    widened; ``w = (de v) (1 - t^2)`` in f32, one rounding per operation;
+    ``dkeys = w`` and ``dq = sum_t w`` rounded to the dtype of keys/q, ``dv =
+    sum_{b,t} t de`` in f32, in ``v``'s shape and dtype."""
+    t = torch.tanh(keys + q[:, None, :]).float()
+    de3 = de.float()[..., None]
+    w = de3 * v.float().reshape(-1) * (1.0 - t * t)
+    dv = (t * de3).sum((0, 1)).reshape(v.shape).to(v.dtype)
+    return w.to(keys.dtype), w.sum(1).to(q.dtype), dv
 
 
 def attention_energy(keys, q, v):
@@ -56,29 +73,36 @@ def _lib():
     if _LIB is None:
         lib = runtime.load("attn_energy")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.tt_attn_energy_fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
-        lib.tt_attn_energy_bwd.argtypes = [vp] * 8 + [ci, ci, ci, ci, vp]
+        lib.tt_attn_energy_fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        lib.tt_attn_energy_bwd.argtypes = [vp] * 8 + [ci, ci, ci, ci, ci, vp]
         lib.tt_attn_energy_fwd.restype = ci
         lib.tt_attn_energy_bwd.restype = ci
         _LIB = lib
     return _LIB
 
 
+_STORAGE = (torch.float32, torch.bfloat16)
+
+
 def _inputs(keys, q, v, *extra):
-    """Checked contiguous f32 CUDA views of the kernel's inputs and its
-    geometry (B, T_in, A)."""
+    """Checked contiguous CUDA views of the kernel's inputs (keys and q in
+    their common storage dtype; v, and de when given, widened to f32) and
+    the geometry (B, T_in, A)."""
     if keys.device.type != "cuda":
         raise ValueError(f"attention energy kernels need CUDA tensors, got {keys.device}")
     if keys.ndim != 3 or 0 in keys.shape:
         raise ValueError(f"keys must be (B, T_in, A) and non-empty, got {tuple(keys.shape)}")
+    if keys.dtype not in _STORAGE or q.dtype != keys.dtype:
+        raise TypeError(f"attention energy kernels take keys and q both f32 or both bf16; "
+                        f"got keys {keys.dtype}, q {q.dtype}")
+    if not (v.is_floating_point() and all(x.is_floating_point() for x in extra)):
+        raise TypeError("attention energy kernels take floating-point v and de")
     b, t, a = keys.shape
-    want = {"keys": (keys, (b, t, a)), "q": (q, (b, a)), "v": (v, (a, 1))}
+    want = {"keys": (keys, (b, t, a)), "q": (q, (b, a)), "v": (v.float(), (a, 1))}
     if extra:
-        want["de"] = (extra[0], (b, t))
+        want["de"] = (extra[0].float(), (b, t))
     out = []
     for name, (x, shape) in want.items():
-        if x.dtype != torch.float32:
-            raise TypeError(f"attention energy kernels take f32 only; {name} is {x.dtype}")
         if tuple(x.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
         if x.device != keys.device:
@@ -90,11 +114,13 @@ def _inputs(keys, q, v, *extra):
 def energy_fwd(keys, q, v):
     """K1: launch the forward kernel -> e (B, T_in) f32."""
     (keys, q, v), (b, t, a) = _inputs(keys, q, v)
-    vec = int(a % 4 == 0 and all(x.data_ptr() % 16 == 0 for x in (keys, q, v)))
+    per_16_bytes = 16 // keys.element_size()
+    vec = int(a % per_16_bytes == 0 and all(x.data_ptr() % 16 == 0 for x in (keys, q, v)))
     e = torch.empty(b, t, device=keys.device)
     with torch.cuda.device(keys.device):
         err = _lib().tt_attn_energy_fwd(keys.data_ptr(), q.data_ptr(), v.data_ptr(),
                                         e.data_ptr(), b, t, a, vec,
+                                        int(keys.dtype == torch.bfloat16),
                                         runtime.stream_ptr(keys.device))
     runtime.check(err, "attn_energy_fwd kernel launch")
     runtime.LAUNCHES["attn_energy_fwd"] += 1
@@ -104,7 +130,8 @@ def energy_fwd(keys, q, v):
 def energy_bwd(keys, q, v, de):
     """K2: launch the backward kernel (partial sums, then their fixed-order
     reduction: two CUDA launches, counted as one) -> (dkeys, dq, dv) shaped
-    like (keys, q, v)."""
+    like (keys, q, v): dkeys and dq in the dtype of keys/q, dv in v's."""
+    v_dtype = v.dtype
     (keys, q, v, de), (b, t, a) = _inputs(keys, q, v, de)
     dev = keys.device
     dkeys, dq = torch.empty_like(keys), torch.empty_like(q)
@@ -115,7 +142,7 @@ def energy_bwd(keys, q, v, de):
         err = _lib().tt_attn_energy_bwd(
             keys.data_ptr(), q.data_ptr(), v.data_ptr(), de.data_ptr(),
             dkeys.data_ptr(), dq.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
-            b, t, a, _BWD_ROWS, runtime.stream_ptr(dev))
+            b, t, a, _BWD_ROWS, int(keys.dtype == torch.bfloat16), runtime.stream_ptr(dev))
     runtime.check(err, "attn_energy_bwd kernel launch")
     runtime.LAUNCHES["attn_energy_bwd"] += 1
-    return dkeys, dq, dv
+    return dkeys, dq, dv.to(v_dtype)

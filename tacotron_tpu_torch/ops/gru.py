@@ -11,6 +11,13 @@ product):
 The state stays f32. ``_ScanGRU`` hoists the input half of both products
 out of the time loop (one (B*T, D) product), so only the recurrent half runs
 step by step.
+
+With a bf16 ``compute_dtype`` the hoisted input products are bf16 (flax
+``Dense``), while the recurrent products are accumulated and returned in
+f32 (``preferred_element_type=f32`` in JAX): ``modules.widened`` operands.
+Their weights are rounded to bf16 once, before the time loop, and widened
+each step from that bf16 copy, so autograd sums the copy's per-step
+gradients in bf16, as JAX's scan does for a bf16 constant.
 """
 
 from __future__ import annotations
@@ -19,25 +26,35 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tacotron_tpu_torch.ops.modules import Dense
+from tacotron_tpu_torch.ops.modules import Dense, dense, widened
 
 
 class GRUCell(nn.Module):
     """One step: (h, x) -> h'. Fused [x, h] weight layout, as in JAX."""
 
     def __init__(self, in_features: int, features: int, *, device=None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, compute_dtype=None):
         super().__init__()
         d = features
-        self.gates = Dense(in_features + d, 2 * d, device=device, dtype=dtype)
-        self.candidate = Dense(in_features + d, d, device=device, dtype=dtype)
+        kw = dict(device=device, dtype=dtype, compute_dtype=compute_dtype)
+        self.gates = Dense(in_features + d, 2 * d, **kw)
+        self.candidate = Dense(in_features + d, d, **kw)
 
     def forward(self, h, x):
-        h = h.float()
-        ru = torch.sigmoid(self.gates(torch.cat([x, h], dim=-1)))
-        r, u = ru.chunk(2, dim=-1)
-        c = torch.tanh(self.candidate(torch.cat([x, r * h], dim=-1)))
-        return u * h + (1.0 - u) * c
+        return gru_cell_step(h, x, self.gates.weight, self.gates.bias,
+                             self.candidate.weight, self.candidate.bias,
+                             self.gates.compute_dtype)
+
+
+def gru_cell_step(h, x, wg, bg, wc, bc, compute_dtype=None):
+    """``GRUCell`` on explicit weights (the hoisted decoder passes copies
+    already in ``compute_dtype``): both products as flax ``Dense``, the
+    gates and the state in f32."""
+    h = h.float()
+    ru = torch.sigmoid(dense(torch.cat([x, h], dim=-1), wg, bg, compute_dtype).float())
+    r, u = ru.chunk(2, dim=-1)
+    c = torch.tanh(dense(torch.cat([x, r * h], dim=-1), wc, bc, compute_dtype).float())
+    return u * h + (1.0 - u) * c
 
 
 def _reverse_index(t: int, lengths, device):
@@ -60,15 +77,17 @@ class _ScanGRU(nn.Module):
     """
 
     def __init__(self, in_features: int, features: int, reverse: bool = False,
-                 *, device=None, dtype=torch.float32):
+                 *, device=None, dtype=torch.float32, compute_dtype=None):
         super().__init__()
         d = features
         self.features = d
         self.reverse = reverse
-        self.gates_x = Dense(in_features, 2 * d, device=device, dtype=dtype)
-        self.cand_x = Dense(in_features, d, device=device, dtype=dtype)
-        self.gates_h = Dense(d, 2 * d, bias=False, device=device, dtype=dtype)
-        self.cand_h = Dense(d, d, bias=False, device=device, dtype=dtype)
+        self.compute_dtype = compute_dtype
+        kw = dict(device=device, dtype=dtype, compute_dtype=compute_dtype)
+        self.gates_x = Dense(in_features, 2 * d, **kw)
+        self.cand_x = Dense(in_features, d, **kw)
+        self.gates_h = Dense(d, 2 * d, bias=False, **kw)
+        self.cand_h = Dense(d, d, bias=False, **kw)
 
     def forward(self, xs, h0=None, lengths=None):
         """xs (B, T, D_in) -> (ys (B, T, d), h_last (B, d))."""
@@ -84,12 +103,14 @@ class _ScanGRU(nn.Module):
 
         h = (torch.zeros(b, self.features, device=xs.device) if h0 is None
              else h0.float())
-        wg, wc = self.gates_h.weight, self.cand_h.weight
+        cd = self.compute_dtype
+        wg, wc = (w if cd is None else w.to(cd)
+                  for w in (self.gates_h.weight, self.cand_h.weight))
         ys = []
         for i in range(t):
-            ru = torch.sigmoid(gx[:, i] + F.linear(h, wg))
+            ru = torch.sigmoid(gx[:, i] + F.linear(widened(h, cd), widened(wg, cd)))
             r, u = ru.chunk(2, dim=-1)
-            c = torch.tanh(cx[:, i] + F.linear(r * h, wc))
+            c = torch.tanh(cx[:, i] + F.linear(widened(r * h, cd), widened(wc, cd)))
             h = u * h + (1.0 - u) * c
             ys.append(h)
         ys = torch.stack(ys, dim=1)
@@ -102,9 +123,10 @@ class _ScanGRU(nn.Module):
 
 class unidirectional_gru(nn.Module):
     def __init__(self, in_features: int, features: int, *, device=None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, compute_dtype=None):
         super().__init__()
-        self.fwd = _ScanGRU(in_features, features, device=device, dtype=dtype)
+        self.fwd = _ScanGRU(in_features, features, device=device, dtype=dtype,
+                            compute_dtype=compute_dtype)
 
     def forward(self, xs, h0=None):
         return self.fwd(xs, h0)
@@ -121,15 +143,17 @@ class bidirectional_gru(nn.Module):
     sequential chain. Parameters are the two ``_ScanGRU`` trees."""
 
     def __init__(self, in_features: int, features: int, *, device=None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, compute_dtype=None):
         super().__init__()
-        self.fwd = _ScanGRU(in_features, features, device=device, dtype=dtype)
-        self.bwd = _ScanGRU(in_features, features, reverse=True,
-                            device=device, dtype=dtype)
+        kw = dict(device=device, dtype=dtype, compute_dtype=compute_dtype)
+        self.compute_dtype = compute_dtype
+        self.fwd = _ScanGRU(in_features, features, **kw)
+        self.bwd = _ScanGRU(in_features, features, reverse=True, **kw)
 
     def forward(self, xs, lengths=None):
         b, t, _ = xs.shape
         d = self.fwd.features
+        cd = self.compute_dtype
         rev = (_reverse_index(t, lengths, xs.device) if lengths is not None
                else None)
         xs_r = _take_time(xs, rev) if rev is not None else xs.flip(1)
@@ -137,12 +161,14 @@ class bidirectional_gru(nn.Module):
         cx = torch.stack([self.fwd.cand_x(xs), self.bwd.cand_x(xs_r)])
         wg = torch.stack([self.fwd.gates_h.weight, self.bwd.gates_h.weight]).transpose(1, 2)
         wc = torch.stack([self.fwd.cand_h.weight, self.bwd.cand_h.weight]).transpose(1, 2)
+        if cd is not None:
+            wg, wc = wg.to(cd), wc.to(cd)
         h = torch.zeros(2, b, d, device=xs.device)
         ys = []
         for i in range(t):
-            ru = torch.sigmoid(gx[:, :, i] + torch.bmm(h, wg))
+            ru = torch.sigmoid(gx[:, :, i] + torch.bmm(widened(h, cd), widened(wg, cd)))
             r, u = ru.chunk(2, dim=-1)
-            c = torch.tanh(cx[:, :, i] + torch.bmm(r * h, wc))
+            c = torch.tanh(cx[:, :, i] + torch.bmm(widened(r * h, cd), widened(wc, cd)))
             h = u * h + (1.0 - u) * c
             ys.append(h)
         ys = torch.stack(ys, dim=2)                      # (2, B, T, d)

@@ -6,6 +6,13 @@ layout (B, T, C); convolutions transpose to PyTorch's (B, C, T) inside.
 Parameters are created empty (``torch.empty``) with an explicit device and
 dtype: weights come from ``weights.from_flax`` or ``weights.init_params``,
 so constructing a module draws no random numbers.
+
+``compute_dtype`` is flax's ``dtype=``: None (the default) computes in the
+parameters' f32 and inserts no cast; ``torch.bfloat16`` rounds each
+product's inputs to bf16 and returns the product in bf16, as flax does.
+Parameters, batch-norm statistics and everything between the products stay
+f32: the callers widen with ``.float()`` where the JAX code does
+``.astype(f32)`` (a no-op on an f32 tensor).
 """
 
 from __future__ import annotations
@@ -17,20 +24,41 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def dense(x, weight, bias=None, compute_dtype=None):
+    """flax ``Dense(dtype=compute_dtype)`` on a (out, in) weight. In bf16 the
+    product of the rounded inputs is rounded to bf16 and the rounded bias is
+    added in bf16, a second rounding, as in JAX (``F.linear`` with its bias
+    would round once). A weight already in ``compute_dtype`` is not copied."""
+    if compute_dtype is None:
+        return F.linear(x, weight, bias)
+    y = F.linear(x.to(compute_dtype), weight.to(compute_dtype))
+    return y if bias is None else y + bias.to(compute_dtype)
+
+
+def widened(x, compute_dtype):
+    """``x`` rounded to ``compute_dtype`` and widened back to f32, the
+    operand of a product that JAX accumulates and returns in f32
+    (``preferred_element_type=f32``): products of bf16 values are exact in
+    f32, so the product is the f32 sum of the exact ones. Identity when
+    ``compute_dtype`` is None."""
+    return x if compute_dtype is None else x.to(compute_dtype).float()
+
+
 class Dense(nn.Module):
     """y = x W^T + b with W (out, in): flax ``Dense`` with its kernel
     transposed to PyTorch's Linear layout."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 *, device=None, dtype=torch.float32):
+                 *, device=None, dtype=torch.float32, compute_dtype=None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.weight = nn.Parameter(torch.empty(out_features, in_features,
                                                device=device, dtype=dtype))
         self.bias = (nn.Parameter(torch.empty(out_features, device=device,
                                               dtype=dtype)) if bias else None)
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        return dense(x, self.weight, self.bias, self.compute_dtype)
 
 
 class Conv1d(nn.Module):
@@ -38,17 +66,21 @@ class Conv1d(nn.Module):
     Weight (C_out, C_in, W); SAME pads (W-1)//2 on the left, like flax."""
 
     def __init__(self, in_ch: int, out_ch: int, width: int, *, device=None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, compute_dtype=None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, width,
                                                device=device, dtype=dtype))
 
     def forward(self, x):
-        return conv1d_same(x, self.weight)
+        return conv1d_same(x, self.weight, self.compute_dtype)
 
 
-def conv1d_same(x, weight):
-    """(B, T, C_in) x (C_out, C_in, W) -> (B, T, C_out), flax SAME padding."""
+def conv1d_same(x, weight, compute_dtype=None):
+    """(B, T, C_in) x (C_out, C_in, W) -> (B, T, C_out), flax SAME padding;
+    in ``compute_dtype`` (inputs rounded, output in it) when given."""
+    if compute_dtype is not None:
+        x, weight = x.to(compute_dtype), weight.to(compute_dtype)
     w = weight.shape[-1]
     left = (w - 1) // 2
     xt = F.pad(x.transpose(1, 2), (left, w - 1 - left))
@@ -79,14 +111,15 @@ class Prenet(nn.Module):
 
     def __init__(self, in_dim: int, dims: Sequence[int] = (256, 128),
                  dropout: float = 0.5, deterministic: bool = False, *,
-                 device=None, dtype=torch.float32):
+                 device=None, dtype=torch.float32, compute_dtype=None):
         super().__init__()
         self.rate = dropout
         self.deterministic = deterministic
         self.n = len(dims)
         d_in = in_dim
         for i, d in enumerate(dims):
-            self.add_module(f"fc{i}", Dense(d_in, d, device=device, dtype=dtype))
+            self.add_module(f"fc{i}", Dense(d_in, d, device=device, dtype=dtype,
+                                            compute_dtype=compute_dtype))
             d_in = d
 
     @property
@@ -159,9 +192,10 @@ class ConvBank(nn.Module):
     offset its own SAME padding implies, the rest are zeros."""
 
     def __init__(self, k: int, in_ch: int, channels: int, *, device=None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, compute_dtype=None):
         super().__init__()
         self.k, self.channels = k, channels
+        self.compute_dtype = compute_dtype
         for w in range(1, k + 1):
             self.add_module(f"conv{w}", Conv1d(in_ch, channels, w,
                                                device=device, dtype=dtype))
@@ -179,9 +213,9 @@ class ConvBank(nn.Module):
         return big
 
     def forward(self, x):
-        y = conv1d_same(x, self.packed_weight())
+        y = conv1d_same(x, self.packed_weight(), self.compute_dtype)
         ch = self.channels
-        return torch.cat([torch.relu(getattr(self, f"bn{w}")(y[..., (w - 1) * ch:w * ch]))
+        return torch.cat([torch.relu(getattr(self, f"bn{w}")(y[..., (w - 1) * ch:w * ch].float()))
                           for w in range(1, self.k + 1)], dim=-1)
 
 
@@ -191,19 +225,20 @@ class Conv1dProjection(nn.Module):
 
     def __init__(self, in_ch: int, dims: Sequence[int],
                  activations: Sequence[str | None] = ("relu", None), *,
-                 device=None, dtype=torch.float32):
+                 device=None, dtype=torch.float32, compute_dtype=None):
         super().__init__()
         self.activations = tuple(activations)
         self.n = len(dims)
         c = in_ch
         for i, d in enumerate(dims):
-            self.add_module(f"proj{i}", Conv1d(c, d, 3, device=device, dtype=dtype))
+            self.add_module(f"proj{i}", Conv1d(c, d, 3, device=device, dtype=dtype,
+                                               compute_dtype=compute_dtype))
             self.add_module(f"bn{i}", BatchNorm(d, device=device, dtype=dtype))
             c = d
 
     def forward(self, x):
         for i, act in zip(range(self.n), self.activations):
-            x = getattr(self, f"bn{i}")(getattr(self, f"proj{i}")(x))
+            x = getattr(self, f"bn{i}")(getattr(self, f"proj{i}")(x).float())
             if act == "relu":
                 x = torch.relu(x)
         return x
@@ -214,20 +249,21 @@ class HighwayStack(nn.Module):
     stack when the input width differs from ``dim``."""
 
     def __init__(self, in_dim: int, layers: int = 4, dim: int = 128, *,
-                 device=None, dtype=torch.float32):
+                 device=None, dtype=torch.float32, compute_dtype=None):
         super().__init__()
+        kw = dict(device=device, dtype=dtype, compute_dtype=compute_dtype)
         self.layers = layers
-        self.resize = (Dense(in_dim, dim, device=device, dtype=dtype)
-                       if in_dim != dim else None)
+        self.resize = Dense(in_dim, dim, **kw) if in_dim != dim else None
         for i in range(layers):
-            self.add_module(f"H{i}", Dense(dim, dim, device=device, dtype=dtype))
-            self.add_module(f"T{i}", Dense(dim, dim, device=device, dtype=dtype))
+            self.add_module(f"H{i}", Dense(dim, dim, **kw))
+            self.add_module(f"T{i}", Dense(dim, dim, **kw))
 
     def forward(self, x):
         if self.resize is not None:
             x = self.resize(x)
         for i in range(self.layers):
-            h = torch.relu(getattr(self, f"H{i}")(x))
-            t = torch.sigmoid(getattr(self, f"T{i}")(x))
+            h = torch.relu(getattr(self, f"H{i}")(x).float())
+            t = torch.sigmoid(getattr(self, f"T{i}")(x).float())
+            x = x.float()
             x = h * t + x * (1.0 - t)
         return x

@@ -4,8 +4,10 @@ Port of the JAX package's ``train/step.py``. JAX's step is a pure function
 of an immutable state; here the state holds PyTorch objects that the step
 updates in place (parameters and batch statistics in the model, the Adam
 moments in the optimizer, the dropout generator), and ``train_step``
-returns it with the update count advanced. Only float32 compute is ported;
-data and tensor parallelism are not.
+returns it with the update count advanced. ``cfg.model.compute_dtype``
+"bfloat16" runs the products in bf16 (``ops/modules.py``) while the
+parameters, their gradients and the Adam moments stay f32, as in JAX. Data
+and tensor parallelism are not ported.
 """
 
 from __future__ import annotations
@@ -33,16 +35,9 @@ class TrainState(NamedTuple):
     generator: torch.Generator       # dropout; advances with every step
 
 
-def _check_supported(cfg: Config):
-    if cfg.model.compute_dtype != "float32":
-        raise NotImplementedError("only compute_dtype float32 is ported; bf16 "
-                                  "training waits for its own slice (ROADMAP.md)")
-
-
 def create_train_state(cfg: Config, seed: int = 0, device=None) -> TrainState:
     """Seeded random weights (``weights.init_params``) in training mode, a
     fresh Adam and a dropout generator on ``device`` (None: the GPU)."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     model = init_params(Tacotron(cfg.model, device=dev), seed=seed).train()
     opt = make_optimizer(model.parameters(), cfg.train)
@@ -91,7 +86,6 @@ def train_step(state: TrainState, text, text_len, mel_gt, linear_gt, frame_len,
     and with ``stage_ms`` a ``stage_ms`` dict of forward / backward /
     optimizer milliseconds.
     """
-    _check_supported(cfg)
     model, opt = state.model, state.opt
     if model.cfg != cfg.model:
         raise ValueError("cfg.model differs from the configuration the state's model was built with")

@@ -13,6 +13,17 @@ holds its kernel to its reference [energies 2.4e-6; dkeys 5.3e-7, dq
 1e-5 + 1e-5 |want|]; through a checkpointed five-step loop 2e-5 (rtol and
 atol), as the JAX scan test [dkeys 2.9e-6 of a peak 25, dq0 2.4e-6 of 22,
 dv 3.1e-5 of 191].
+
+bf16 (keys and q in bf16, as under bf16 compute): the port's plain forward
+and autograd against JAX's interpret-mode kernel and its VJP at JAX's own
+bf16 tolerances for its kernel against its formula, 2e-2 and 4e-2 (rtol
+and atol; the autograd formula rounds its backward at other points than
+the kernel) [forward 2.4e-7, gradients 6.9e-3 of the peak];
+``energy_bwd_reference``, which keeps K2's rounding points, against the
+interpreted ``_bwd_kernel`` tighter: dkeys and dq each entry within one
+bf16 ulp (2^-7 of its magnitude) plus 1e-5 of the peak, dv (f32) 1e-5 of
+the peak [dkeys bit-identical; one dq entry of 1024 off, by 7.1e-7 of the
+peak; dv 4.2e-7].
 """
 
 import numpy as np
@@ -26,7 +37,8 @@ import jax.numpy as jnp
 from tacotron_tpu.ops.pallas.attn_energy import attention_energy as jax_energy
 from tacotron_tpu_torch import runtime
 from tacotron_tpu_torch.ops.attention import BahdanauAttention, energy_scores
-from tacotron_tpu_torch.ops.attn_energy import attention_energy, attention_energy_reference
+from tacotron_tpu_torch.ops.attn_energy import (attention_energy, attention_energy_reference,
+                                                energy_bwd_reference)
 
 
 def _inputs(b, t, a, seed=0):
@@ -73,6 +85,47 @@ def test_grads_match_pallas_vjp(b, t, a):
         assert leaf.grad.shape == w.shape, name
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w), rtol=1e-5,
                                    atol=1e-5, err_msg=name)
+
+
+def _bf16(*arrays):
+    """The same values rounded to bf16 on both sides (round to nearest even
+    in both)."""
+    return ([jnp.asarray(x, jnp.bfloat16) for x in arrays],
+            [torch.from_numpy(x).bfloat16() for x in arrays])
+
+
+@pytest.mark.parametrize("b,t,a", SHAPES)
+def test_bf16_matches_pallas_interpret(b, t, a):
+    keys, q, v = _inputs(b, t, a, seed=4)
+    co = np.random.default_rng(6).standard_normal((b, t)).astype(np.float32)
+    (jk, jq), (tk, tq) = _bf16(keys, q)
+
+    def fwd_bwd(k, qq, vv, c):
+        e, vjp = jax.vjp(_jax_pallas, k, qq, vv)
+        return e, vjp(c)
+
+    # every bf16 rounding the kernel writes: by default XLA:CPU keeps the
+    # fused tanh(keys + q) in f32 (xla_allow_excess_precision)
+    args = (jk, jq, v, jnp.asarray(co))
+    want, wgrads = jax.jit(fwd_bwd).lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})(*args)
+    leaves = [tk.clone().requires_grad_(True), tq.clone().requires_grad_(True),
+              torch.tensor(v, requires_grad=True)]
+    got = attention_energy(*leaves)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=2e-2, atol=2e-2)
+    got.backward(torch.from_numpy(co))
+    for leaf, w, name in zip(leaves, wgrads, ("dkeys", "dq", "dv")):
+        assert str(leaf.grad.dtype).split(".")[-1] == str(w.dtype), name
+        np.testing.assert_allclose(leaf.grad.float().numpy(), np.asarray(w, np.float32),
+                                   rtol=4e-2, atol=4e-2, err_msg=name)
+    # K2's plain version against the interpreted K2: the same rounding points
+    ref = energy_bwd_reference(tk, tq, torch.from_numpy(v), torch.from_numpy(co))
+    for g, w, name in zip(ref, wgrads, ("dkeys", "dq", "dv")):
+        assert str(g.dtype).split(".")[-1] == str(w.dtype), name
+        g, w = g.float().numpy(), np.asarray(w, np.float32)
+        tol = 1e-5 * np.abs(w).max() + (2.0 ** -7 * np.abs(w) if name != "dv" else 0.0)
+        assert (np.abs(g - w) <= tol).all(), (name, float(np.abs(g - w).max()))
 
 
 def test_under_loop_and_checkpoint():

@@ -14,6 +14,13 @@ error <= plain's * 1.05 + 1e-3); the streaming kernel (K5) the same per
 mode, and in f32 within 1e-3 of the whole-loop kernel; the probes: shared
 memory exact, ops 1e-4 of its peak; attention energy (K1) and its
 three gradients (K2) 1e-5 of each one's peak (f32, summation order only);
+in bf16 (keys and q bf16) against ``energy_bwd_reference`` with the same
+rounding points: e and dv (f32) 1e-5 of the peak, dkeys and dq each entry
+within one bf16 ulp (2^-7 of its magnitude: an f32 sum's last bit can flip
+a rounding) plus 1e-5 of the peak (dq is an f32 sum taken in another
+order, which near 0 differs by more than an ulp of the result), and under
+autograd against autograd through the formula 4e-2
+of each peak, JAX's bf16 tolerance for its kernel against the formula;
 the teacher-forced training loss through the kernels vs the plain formula
 rtol 1e-5, every parameter gradient within 1e-4 of its peak plus 1e-7.
 """
@@ -31,7 +38,8 @@ from tacotron_tpu_torch.dsp.fused_gl import (gl_spectrum_reference, gl_step_refe
                                              griffin_lim_spectrum, griffin_lim_step,
                                              zero_phase)
 from tacotron_tpu_torch.models.tacotron import Tacotron, length_mask
-from tacotron_tpu_torch.ops.attn_energy import attention_energy, attention_energy_reference
+from tacotron_tpu_torch.ops.attn_energy import (attention_energy, attention_energy_reference,
+                                                energy_bwd, energy_bwd_reference, energy_fwd)
 from tacotron_tpu_torch.ops.decode_loop import (decode_loop, decode_loop_reference,
                                                 pack_decoder_weights)
 from tacotron_tpu_torch.train.loss import tacotron_loss
@@ -44,6 +52,7 @@ def dev():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda")
 
 
@@ -224,10 +233,46 @@ def test_attn_energy_kernels_match_plain(dev, b, t, a):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,t,a", [(6, 37, 256), (32, 128, 256), (3, 11, 100)])
+def test_attn_energy_bf16_kernels_match_plain(dev, b, t, a):
+    """The bf16 mode at JAX's odd shape, the training path's and a width
+    that takes the scalar path (A % 8 != 0)."""
+    keys, q, v, de = _energy_inputs(dev, b, t, a)
+    keys, q = keys.bfloat16(), q.bfloat16()
+    before = dict(runtime.LAUNCHES)
+    e = energy_fwd(keys, q, v)
+    dkeys, dq, dv = energy_bwd(keys, q, v, de)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["attn_energy_fwd"] == before.get("attn_energy_fwd", 0) + 1
+    assert runtime.LAUNCHES["attn_energy_bwd"] == before.get("attn_energy_bwd", 0) + 1
+    assert (e.dtype, dkeys.dtype, dq.dtype, dv.dtype) == (torch.float32, torch.bfloat16,
+                                                          torch.bfloat16, torch.float32)
+    e_ref = attention_energy_reference(keys, q, v)
+    ref = energy_bwd_reference(keys, q, v, de)
+    for got, want in ((e, e_ref), (dv, ref[2])):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    for got, want in zip((dkeys, dq), ref[:2]):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        w = want.float()
+        tol = 2.0 ** -7 * w.abs() + 1e-5 * float(w.abs().max())
+        assert bool(((got.float() - w).abs() <= tol).all())
+
+    leaves = [x.clone().requires_grad_(True) for x in (keys, q, v)]
+    grads = torch.autograd.grad(attention_energy(*leaves), leaves, de)
+    ref_leaves = [x.clone().requires_grad_(True) for x in (keys, q, v)]
+    ref = torch.autograd.grad(attention_energy_reference(*ref_leaves), ref_leaves, de)
+    for got, want in zip(grads, ref):
+        assert got.dtype == want.dtype
+        assert float((got.float() - want.float()).abs().max()) <= 4e-2 * float(want.abs().max())
+
+
+@pytest.mark.cuda
 def test_attn_energy_refuses_what_it_does_not_take(dev):
     keys, q, v, _ = _energy_inputs(dev, 2, 5, 8)
     with pytest.raises(TypeError, match="f32"):
         attention_energy(keys.double(), q.double(), v.double())
+    with pytest.raises(TypeError, match="both f32 or both bf16"):
+        attention_energy(keys.bfloat16(), q, v)
     with pytest.raises(ValueError, match="shape"):
         attention_energy(keys, q[:, :4], v)
 

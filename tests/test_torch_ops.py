@@ -17,12 +17,13 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from flax import linen as nn
 
 from tacotron_tpu import ops as jops
 from tacotron_tpu.ops.gru import GRUCell as JGRUCell, _ScanGRU as JScanGRU
 from tacotron_tpu_torch.ops import modules as tmod
 from tacotron_tpu_torch.ops.attention import BahdanauAttention
-from tacotron_tpu_torch.ops.cbhg import CBHG
+from tacotron_tpu_torch.ops.cbhg import CBHG, max_pool_same2
 from tacotron_tpu_torch.ops.gru import GRUCell, _ScanGRU, bidirectional_gru, unidirectional_gru
 from tacotron_tpu_torch.weights import from_flax
 
@@ -174,3 +175,19 @@ def test_dropout_keeps_half_and_follows_the_generator():
     assert set(torch.unique(a).tolist()) == {0.0, 2.0}
     assert torch.equal(a, b) and not torch.equal(a, c)
     assert tmod.dropout(x, 0.0, None) is x
+
+
+def test_max_pool_tie_gradient_goes_where_xla_sends_it():
+    """On a tie max(h[t], h[t+1]) sends its whole gradient to h[t], as the
+    select-and-scatter behind flax's ``max_pool`` does (``torch.maximum``
+    would split it; bf16 activations tie often)."""
+    h = np.array([[[1.0], [1.0], [0.5], [2.0], [2.0], [2.0]]], np.float32)
+    co = np.arange(1, 7, dtype=np.float32).reshape(1, 6, 1)
+    want = jax.grad(lambda x: jnp.sum(
+        nn.max_pool(x, window_shape=(2,), strides=(1,), padding="SAME") * co))(h)
+    x = torch.tensor(h, requires_grad=True)
+    y = max_pool_same2(x)
+    (y * torch.from_numpy(co)).sum().backward()
+    np.testing.assert_array_equal(y.detach().numpy(), np.asarray(
+        nn.max_pool(h, window_shape=(2,), strides=(1,), padding="SAME")))
+    np.testing.assert_array_equal(x.grad.numpy(), np.asarray(want))

@@ -147,7 +147,6 @@ def test_default_device_is_the_gpu(setup):
 @pytest.mark.parametrize("override,fused,error", [
     ("infer.early_exit=true", True, ValueError),
     ("infer.trim_before_gl=true", True, ValueError),
-    ("model.compute_dtype=bfloat16", False, NotImplementedError),
 ])
 def test_refusals(setup, override, fused, error):
     s = setup
@@ -189,6 +188,13 @@ def _pair(s, overrides, **call):
 # 0 to 0.15 / 0.19 at step 9; row 1 crosses 0.133 at step 3. Per frame, row
 # 0 first falls below 0.0675 at frame 1, row 1 at frame 3.
 _EXIT = ["infer.early_exit=true", "infer.silence_threshold=0.133"]
+# bf16 compute: JAX's jitted Synthesizer keeps a fusion's bf16 intermediates
+# in f32 on the CPU (xla_allow_excess_precision), the port rounds where the
+# JAX code writes bf16, so the two differ by bf16 roundings. atol, the
+# largest error over the scan, early-exit, trimmed and fused paths x 2:
+# mel [9.8e-4 on a peak of 0.22], linear [6.1e-4 of 0.11], alignments
+# [5.0e-5], peak-normalised wavs [2.2e-4]
+BF16_TOL = {"mel": (0, 2e-3), "linear": (0, 1.3e-3), "alignments": (0, 1e-4), "wavs": (0, 5e-4)}
 _TRIM = ["infer.trim_before_gl=true", "infer.silence_threshold=0.0675",
          "infer.min_silence_frames=1", "infer.gl_length_quantum=2"]
 
@@ -218,6 +224,31 @@ def test_gl_backends_match_jax(setup, backend, atol):
     got, want = _pair(setup, [f"audio.gl_backend={backend}"], n_steps=N_STEPS)
     np.testing.assert_allclose(got["linear"], np.asarray(want["linear"]), atol=1e-5)
     np.testing.assert_allclose(got["wavs"], np.asarray(want["wavs"]), atol=atol)
+
+
+@pytest.mark.parametrize("path,overrides", [
+    ("scan", []),
+    ("early_exit", _EXIT),
+    ("early_exit_trim", _EXIT + ["infer.trim_before_gl=true", "infer.gl_length_quantum=8"]),
+])
+def test_bf16_matches_jax(setup, path, overrides):
+    """``compute_dtype="bfloat16"`` through the step-by-step decode and the
+    split early-exit path, against JAX's bf16 ``Synthesizer``."""
+    got, want = _pair(setup, ["model.compute_dtype=bfloat16"] + overrides, n_steps=10)
+    for k, (rtol, atol) in BF16_TOL.items():
+        np.testing.assert_allclose(got[k], np.asarray(want[k]), rtol=rtol, atol=atol, err_msg=k)
+
+
+def test_bf16_fused_matches_jax(setup):
+    s = setup
+    cfg = apply_overrides(s["cfg"], ["model.compute_dtype=bfloat16"])
+    jcfg = jax_apply_overrides(s["jcfg"], ["model.compute_dtype=bfloat16"])
+    want = JaxSynthesizer(jcfg, s["v"]["params"], s["v"]["batch_stats"],
+                          s["jvocab"], fused=True)(TEXTS, seed=3)
+    got = Synthesizer(cfg, s["params"], s["stats"], s["vocab"], fused=True,
+                      device="cpu")(TEXTS, seed=3)
+    for k, (rtol, atol) in BF16_TOL.items():
+        np.testing.assert_allclose(got[k], np.asarray(want[k]), rtol=rtol, atol=atol, err_msg=k)
 
 
 def test_synth_fast_preset_runs_the_split_path(setup):

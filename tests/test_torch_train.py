@@ -303,9 +303,6 @@ def test_train_state_defaults_to_gpu():
 
 
 def test_refusals():
-    bf16 = _port_cfg(_jcfg(compute_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="float32"):
-        create_train_state(bf16, device="cpu")
     cfg = _port_cfg(_jcfg(remat_decoder=True, remat_policy="save_attn"))
     state = create_train_state(cfg, device="cpu")
     batch = (np.ones((2, 5), np.int64), np.array([5, 3]),
@@ -313,7 +310,13 @@ def test_refusals():
     batch = [torch.from_numpy(x) if x is not None else None for x in batch]
     with pytest.raises(NotImplementedError, match="save_attn"):
         train_step(state, *batch, cfg=cfg)
-    with pytest.raises(NotImplementedError, match="float32"):
+    # bf16 compute is ported (tests/test_torch_mixed_precision.py holds it
+    # against JAX): the same batch trains, the parameters stay f32
+    bf16 = _port_cfg(_jcfg(compute_dtype="bfloat16"))
+    state16, metrics, _ = train_step(create_train_state(bf16, device="cpu"), *batch, cfg=bf16)
+    assert state16.step == 1 and np.isfinite(float(metrics["total_loss"]))
+    assert all(p.dtype == torch.float32 for p in state16.model.parameters())
+    with pytest.raises(ValueError, match="cfg.model differs"):
         train_step(state, *batch, cfg=bf16)
     with pytest.raises(ValueError, match="multiple of r"):
         train_step(state, batch[0], batch[1], batch[2][:, :7], batch[3][:, :7], None, cfg=cfg)
