@@ -8,7 +8,8 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. the card's name and power limit (nvidia-smi); no GPU -> exit 2;
 2. build every kernel from the sources in the checkout (one nvcc each,
-   started together) and time the build;
+   started together), time the build, and print each kernel's registers,
+   spills and shared memory from the ``-Xptxas -v`` log;
 3. each kernel against its plain PyTorch version on the card, TF32 off:
    the fused decode (full synth_gl1000 widths, B 8, T_in ~120, 50 steps)
    in f32 and bf16 storage, its dropout keep rate and seed dependence; the
@@ -45,11 +46,15 @@ Phases, in order; any failure raises and exits non-zero:
    B 8, F 1000 in bf16, against K4 and the plain step; and the probes'
    entry point;
 7. K3's, K4's, K5's and the probes' time at their paths' shapes beside
-   the plain version, a library yardstick and the bound; K4's bf16 mode
-   against its plain version as [main] runs it (1000 iterations, momentum
-   0) and on a speech-like magnitude of that shape (9 and 10 iterations);
-   the magnitude error that the bf16 mode of Griffin-Lim reaches beside
-   the f32 mode's;
+   the plain version, a library yardstick and the bound; for the bf16
+   Griffin-Lim kernels each launch's device time per iteration (synthesis,
+   overlap-add + frame, analysis, K5's pack), the achieved TFLOP/s and
+   share of the bound, the device launches per iteration against
+   ``runtime.LAUNCHES``, and a second yardstick at the padded shapes; K4's
+   bf16 mode against its plain version as [main] runs it (1000 iterations,
+   momentum 0) and on a speech-like magnitude of that shape (9 and 10
+   iterations); the magnitude error that the bf16 mode of Griffin-Lim
+   reaches beside the f32 mode's;
 8. the training path: ``create_train_state`` + ``train_step`` at the
    full_1chip widths (hoisted teacher-forced decoder, fused energy, remat,
    f32) on B 32, T_in 128, T_out 400: one warm step, then 3 timed steps
@@ -261,12 +266,18 @@ def gl_bound_bf16(rows, nb, win, n_iter, planar_io=False):
     return bound(byts, n_iter * 2 * 2 * rows * win * 2 * nb, PEAK_FLOPS["bf16"])
 
 
-def dft_products_ms(mag, acfg, n_iter, dtype):
+def dft_products_ms(mag, acfg, n_iter, dtype, padded=False):
     """Library yardstick: an iteration's two DFT products alone, as
-    ``torch.matmul`` calls in ``dtype`` over the same live span."""
-    from tacotron_tpu_torch.dsp.fused_gl import live_bases
+    ``torch.matmul`` calls in ``dtype`` over the same live span; with
+    ``padded`` at the bf16 kernels' padded shapes (win and 2*n_bins rounded
+    up to a multiple of 64: 16-byte-aligned rows for cuBLAS too)."""
+    from tacotron_tpu_torch.dsp.fused_gl import live_bases, padded_bases
     dev = mag.device
-    bwd_np, fwd_np = live_bases(acfg.n_fft, acfg.win_length)
+    if padded:
+        bwd_t, fwd_t = padded_bases(acfg.n_fft, acfg.win_length)
+        bwd_np, fwd_np = np.ascontiguousarray(bwd_t.T), np.ascontiguousarray(fwd_t.T)
+    else:
+        bwd_np, fwd_np = live_bases(acfg.n_fft, acfg.win_length)
     bwd, fwd = (torch.from_numpy(x).to(dev).to(dtype) for x in (bwd_np, fwd_np))
     rows = mag.shape[0] * mag.shape[1]
     spec = torch.randn(rows, bwd.shape[0], device=dev).to(dtype)
@@ -915,8 +926,11 @@ def phase_stream(report, mag, acfg):
         res["k4"] = griffin_lim_spectrum(mag, **kw)
         plain_ms = cuda_ms(lambda: res.update(plain=gl_spectrum_reference(mag, **kw)))
     log(f"  {n} calls {call_ms:.3f} ms with the host; launches {launches}")
-    require(launches.get("griffin_lim_step") == 3 * n and "griffin_lim" not in launches,
-            f"the streaming kernel launched 3 x {n} times, the whole-loop kernel not at all")
+    require(launches.get("griffin_lim_step") == 4 * n and "griffin_lim" not in launches,
+            f"the streaming kernel launched 4 x {n} times (pack + 3), the whole-loop kernel "
+            f"not at all")
+    require(all(torch.equal(a, b) for a, b in zip(res["k5"], res["k4"])),
+            f"griffin_lim_step bf16 bit-equal to K4 bf16 at beta 0 after {n} iterations")
     k5 = lambda it: griffin_lim_spectrum(mag, inner=1, n_iter=it, **gl_kw(acfg))
     chk = {"vs_plain": check_gl_path(
                "griffin_lim_step bf16 vs plain steps", mag, acfg, k5,
@@ -1010,6 +1024,46 @@ def phase_timing(report, synth, launches, mag, f32_spec, gk_ms):
     return [dec, gl]
 
 
+# the bf16 Griffin-Lim kernels (csrc/griffin_lim.cu) by device-side name
+GL_STAGES = {"synthesis": "gl_wgmma<0", "ola_frame": "gl_ola_frame", "analysis": "gl_wgmma<1",
+             "pack": "gl_pack"}
+
+
+def gl_stages(fn, reps=1):
+    """Run ``fn`` ``reps`` times under torch.profiler -> {stage: (device ms
+    per rep, launches per rep)} of the bf16 Griffin-Lim kernels."""
+    rows = device_kernels(fn, reps)
+    return {st: (sum(v[0] for k, v in rows.items() if pat in k),
+                 sum(v[1] for k, v in rows.items() if pat in k))
+            for st, pat in GL_STAGES.items()}
+
+
+def ptxas_report(log_text):
+    """The ``-Xptxas -v`` build log -> [{kernel, registers, spill_stores,
+    spill_loads, static_smem}] per compiled entry function."""
+    import re
+    out, cur = [], None
+    for ln in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = {"kernel": m.group(1)}
+            out.append(cur)
+        elif cur is not None and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+            cur.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif cur is not None and (m := re.search(r"Used (\d+) registers", ln)):
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur["static_smem"] = int(sm.group(1)) if sm else 0
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(k["kernel"] for k in out),
+                               capture_output=True, text=True, check=True).stdout.splitlines()
+        for k, n in zip(out, names):
+            k["kernel"] = n.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    return out
+
+
 def kernel_ms(fn, names, reps=1):
     """Device milliseconds per rep of the kernels whose name holds one of
     ``names`` while ``fn`` runs (torch.profiler), and their launches per rep."""
@@ -1024,27 +1078,45 @@ def phase_timing_serving(report, fast_cfg, fast_res, mag_fast, mag_main, main_la
     K4 bf16 is also held to its plain version as [main] runs it (its
     magnitudes, momentum 0, 1000 iterations) and on a speech-like magnitude
     of that shape."""
-    from tacotron_tpu_torch import probe
+    from tacotron_tpu_torch import probe, runtime
     from tacotron_tpu_torch.dsp.fused_gl import gl_spectrum_reference, griffin_lim_spectrum
 
     dev = torch.device("cuda")
     acfg = fast_cfg.audio
     nb, win = acfg.n_freq, acfg.win_length
-    gl_names = ("gl_gemm", "gl_ola")
     log("[timing] K4 (bf16), K5, P1, P2 at their paths' shapes")
 
     n_it = acfg.griffin_lim_iters
     kw = dict(n_iter=n_it, momentum=acfg.gl_momentum, **gl_kw(acfg))
     res = {}
+
+    def timed(fn, reps=1):
+        """gl_stages of fn, and the wrapper's launch counts over the same reps."""
+        before = dict(runtime.LAUNCHES)
+        st = gl_stages(fn, reps)
+        counted = {k: (v - before.get(k, 0)) / reps for k, v in runtime.LAUNCHES.items()}
+        return st, counted
+
     with torch.no_grad():
-        k_ms, k_n = kernel_ms(lambda: res.update(k=griffin_lim_spectrum(mag_fast, **kw)), gl_names)
+        st_fast, cnt_fast = timed(lambda: res.update(k=griffin_lim_spectrum(mag_fast, **kw)))
         p_ms = cuda_ms(lambda: res.update(p=gl_spectrum_reference(mag_fast, **kw)))
         lib_ms = dft_products_ms(mag_fast, acfg, n_it, torch.bfloat16)
+        lib_pad_ms = dft_products_ms(mag_fast, acfg, n_it, torch.bfloat16, padded=True)
         # [main]'s shape and depth: momentum 0, 1000 iterations
         m_it = 1000
-        main_ms, _ = kernel_ms(lambda: res.update(km=griffin_lim_spectrum(
-            mag_main, n_iter=m_it, **gl_kw(acfg))), gl_names)
+        st_main, cnt_main = timed(lambda: res.update(km=griffin_lim_spectrum(
+            mag_main, n_iter=m_it, **gl_kw(acfg))))
         res["pm"] = gl_spectrum_reference(mag_main, n_iter=m_it, **gl_kw(acfg))
+        lib_main = dft_products_ms(mag_main, acfg, 10, torch.bfloat16) / 10
+        lib_pad_main = dft_products_ms(mag_main, acfg, 10, torch.bfloat16, padded=True) / 10
+    for label, st, cnt, it in (("[fast]", st_fast, cnt_fast, n_it), ("[main]", st_main, cnt_main,
+                                                                       m_it)):
+        dev_launches = sum(n for _, n in st.values())
+        require(dev_launches == cnt.get("griffin_lim") == 3 * it and st["pack"][1] == 0,
+                f"K4 bf16 at {label}'s shape: {dev_launches:.0f} device launches = LAUNCHES "
+                f"{cnt.get('griffin_lim')} = 3 per iteration")
+    k_ms = sum(ms for ms, _ in st_fast.values())
+    main_ms = sum(ms for ms, _ in st_main.values())
     chk = check_gl_path(
         f"griffin_lim bf16 at [fast]'s shape (B {mag_fast.shape[0]}, F {mag_fast.shape[1]})",
         mag_fast, acfg,
@@ -1063,7 +1135,11 @@ def phase_timing_serving(report, fast_cfg, fast_res, mag_fast, mag_main, main_la
         [(10, 0.0), (9, acfg.gl_momentum), (10, acfg.gl_momentum)])
     report["checks"]["griffin_lim_bf16_main_shape"] = chk_main
     rows = mag_fast.shape[0] * mag_fast.shape[1]
+    rows_main = mag_main.shape[0] * mag_main.shape[1]
     b4 = gl_bound_bf16(rows, nb, win, n_it)
+    b4_main = gl_bound_bf16(rows_main, nb, win, 1)
+    main_it_ms = main_ms / m_it
+    tflops = 2 * 2 * rows_main * win * 2 * nb / (main_it_ms * 1e-3) / 1e12
     k4 = {"name": "griffin_lim_bf16", "route": "cuda",
           "source": "tacotron_tpu_torch/csrc/griffin_lim.cu",
           "replaces": "tacotron_tpu/dsp/pallas_gl.py:419",
@@ -1074,26 +1150,44 @@ def phase_timing_serving(report, fast_cfg, fast_res, mag_fast, mag_main, main_la
                             f"{GL_PATH['iters']} iterations, a speech-like magnitude of its "
                             f"shape after 9 and 10",
           "ms": k_ms, "plain_ms": p_ms, "bound_ms": b4[0], "bound_by": b4[1],
-          "library_ms": lib_ms,
+          "library_ms": lib_ms, "library_padded_ms": lib_pad_ms,
           "shape": f"B {mag_fast.shape[0]} F {mag_fast.shape[1]} iters {n_it} momentum "
                    f"{acfg.gl_momentum} bf16",
-          "ms_per_iteration": k_ms / n_it, "device_launches": k_n,
-          "main_shape_ms": main_ms, "main_shape_ms_per_iteration": main_ms / m_it,
+          "ms_per_iteration": k_ms / n_it, "device_launches": sum(n for _, n in st_fast.values()),
+          "stage_ms_per_iteration": {k: v[0] / n_it for k, v in st_fast.items()},
+          "main_shape_ms": main_ms, "main_shape_ms_per_iteration": main_it_ms,
           "main_shape": f"B {mag_main.shape[0]} F {mag_main.shape[1]} iters {m_it} momentum 0 bf16",
-          "main_shape_bound_ms": gl_bound_bf16(mag_main.shape[0] * mag_main.shape[1], nb, win,
-                                               m_it)[0]}
-    log(f"  griffin_lim_bf16: {k_ms:.3f} ms per call, {k_ms / n_it * 1e3:.1f} us per iteration "
-        f"(plain {p_ms:.3f} ms, bound {b4[0]:.3f} ms by {b4[1]}, library {lib_ms:.3f} ms); at "
-        f"[main]'s shape {main_ms:.3f} ms, {main_ms / m_it * 1e3:.1f} us per iteration "
-        f"(bound {k4['main_shape_bound_ms']:.3f} ms)")
+          "main_shape_bound_ms_per_iteration": b4_main[0],
+          "main_shape_stage_ms_per_iteration": {k: v[0] / m_it for k, v in st_main.items()},
+          "main_shape_tflops": tflops, "main_shape_bound_share": b4_main[0] / main_it_ms,
+          "main_shape_library_ms_per_iteration": lib_main,
+          "main_shape_library_padded_ms_per_iteration": lib_pad_main}
+    log(f"  griffin_lim_bf16 at [fast]'s shape: {k_ms:.3f} ms per call, "
+        f"{k_ms / n_it * 1e3:.1f} us per iteration (plain {p_ms:.3f} ms, bound {b4[0]:.3f} ms by "
+        f"{b4[1]}, two bf16 torch.matmul {lib_ms:.3f} ms, at the padded shapes {lib_pad_ms:.3f} "
+        f"ms); per iteration "
+        + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in k4["stage_ms_per_iteration"].items()))
+    log(f"  griffin_lim_bf16 at [main]'s shape: {main_ms:.3f} ms per {m_it} iterations, "
+        f"{main_it_ms * 1e3:.1f} us per iteration: "
+        + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in
+                    k4["main_shape_stage_ms_per_iteration"].items())
+        + f"; {tflops:.1f} TFLOP/s, {100 * b4_main[0] / main_it_ms:.1f}% of the bound "
+        f"{b4_main[0] * 1e3:.1f} us; two bf16 torch.matmul {lib_main * 1e3:.1f} us, at the padded "
+        f"shapes {lib_pad_main * 1e3:.1f} us")
 
     launches, call_ms, plain_step_ms, s_err = stream
     reps = 20
     with torch.no_grad():
-        s_ms, s_n = kernel_ms(lambda: griffin_lim_spectrum(mag_main, n_iter=reps, inner=1,
-                                                           **gl_kw(acfg)), gl_names)
+        st5, cnt5 = timed(lambda: griffin_lim_spectrum(mag_main, n_iter=reps, inner=1,
+                                                       **gl_kw(acfg)))
         s_lib = dft_products_ms(mag_main, acfg, reps, torch.bfloat16) / reps
-    b5 = gl_bound_bf16(mag_main.shape[0] * mag_main.shape[1], nb, win, 1, planar_io=True)
+        s_lib_pad = dft_products_ms(mag_main, acfg, reps, torch.bfloat16, padded=True) / reps
+    s_ms = sum(ms for ms, _ in st5.values())
+    s_n = sum(n for _, n in st5.values())
+    require(s_n == cnt5.get("griffin_lim_step") == 4 * reps and st5["pack"][1] == reps,
+            f"K5: {s_n:.0f} device launches = LAUNCHES {cnt5.get('griffin_lim_step')} = 4 per "
+            f"call, one of them the pack")
+    b5 = gl_bound_bf16(rows_main, nb, win, 1, planar_io=True)
     k5 = {"name": "griffin_lim_step", "route": "cuda",
           "source": "tacotron_tpu_torch/csrc/griffin_lim.cu",
           "replaces": "tacotron_tpu/dsp/pallas_gl.py:535",
@@ -1101,13 +1195,16 @@ def phase_timing_serving(report, fast_cfg, fast_res, mag_fast, mag_main, main_la
           "max_abs_err": s_err,
           "max_abs_err_of": "one call from the plain loop's state, over the magnitude's peak",
           "ms": s_ms / reps, "plain_ms": plain_step_ms, "bound_ms": b5[0], "bound_by": b5[1],
-          "library_ms": s_lib,
+          "library_ms": s_lib, "library_padded_ms": s_lib_pad,
           "shape": f"B {mag_main.shape[0]} F {mag_main.shape[1]} one iteration per call bf16",
-          "call_ms": call_ms, "device_launches_per_call": s_n / reps}
+          "call_ms": call_ms, "device_launches_per_call": s_n / reps,
+          "stage_ms_per_call": {k: v[0] / reps for k, v in st5.items()}}
     log(f"  griffin_lim_step: {k5['ms']:.3f} ms of device time per call in "
-        f"{k5['device_launches_per_call']:.0f} launches, {call_ms:.3f} ms per call with the "
-        f"host (plain {plain_step_ms:.3f} ms, bound {b5[0]:.3f} ms by {b5[1]}, library "
-        f"{s_lib:.3f} ms)")
+        f"{k5['device_launches_per_call']:.0f} launches ("
+        + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in k5["stage_ms_per_call"].items())
+        + f"), {call_ms:.3f} ms per call with the host (plain {plain_step_ms:.3f} ms, bound "
+        f"{b5[0]:.3f} ms by {b5[1]}, library {s_lib:.3f} ms, at the padded shapes "
+        f"{s_lib_pad:.3f} ms)")
 
     x = torch.ones(probe.SMEM_SHAPE, device=dev)
     ops_in = probe.ops_inputs(dev)
@@ -1468,12 +1565,18 @@ def main(argv=None) -> int:
     paths = runtime.build()
     report["build_s"] = time.perf_counter() - t0
     log(f"build: {report['build_s']:.2f} s -> {[str(p) for p in paths.values()]}")
-    for p in paths.values():
+    report["ptxas"] = {}
+    for name, p in paths.items():
         log_path = p.with_suffix(".log")
-        ptxas = [ln for ln in (log_path.read_text().splitlines() if log_path.exists() else [])
-                 if "registers" in ln or "spill" in ln]
-        for ln in ptxas:
-            log(f"  ptxas: {ln.strip()}")
+        rows = ptxas_report(log_path.read_text() if log_path.exists() else "")
+        report["ptxas"][name] = rows
+        for k in rows:
+            log(f"  ptxas {name}: {k['kernel']}: {k.get('registers')} registers, "
+                f"{k.get('spill_stores')} / {k.get('spill_loads')} bytes spill stores / loads, "
+                f"{k.get('static_smem')} bytes static smem")
+    from tacotron_tpu_torch.dsp.fused_gl import tensor_core_smem_bytes
+    report["gl_wgmma_dynamic_smem"] = tensor_core_smem_bytes()
+    log(f"  gl_wgmma dynamic shared memory per block, bytes: {report['gl_wgmma_dynamic_smem']}")
 
     cfg, vocab = phase_kernels(report)
     phase_energy(report)

@@ -9,7 +9,11 @@ package) and the f32 mode.
 
 For CUDA tensors the wrappers run ``csrc/griffin_lim.cu``: three launches
 per iteration (synthesis product, overlap-add + normalise, analysis product
-with the magnitude projection and momentum in its epilogue). For CPU
+with the magnitude projection and momentum in its epilogue), and in the
+bf16 mode of the streaming kernel a fourth that packs the planar input into
+the interleaved carrier. The bf16 mode runs both products on the tensor
+cores, with every operand K-major and zero-padded to ``PAD`` columns
+(``padded_bases``; the carriers and the analysis operand likewise). For CPU
 tensors they run the plain versions below, ``gl_step_reference`` and
 ``gl_spectrum_reference``, which keep the kernel's rounding points. The
 zero-phase start and the final iSTFT (``istft_mm``, f32) are plain in both
@@ -116,6 +120,29 @@ def live_bases(n_fft: int, win_length: int):
     return np.ascontiguousarray(bwd_il), np.ascontiguousarray(fwd_il)
 
 
+# column padding of the bf16 mode's operands: kPad in csrc/griffin_lim.cu
+PAD = 64
+
+
+def padded(n: int) -> int:
+    """``n`` rounded up to a multiple of ``PAD``."""
+    return -(-n // PAD) * PAD
+
+
+@functools.lru_cache(maxsize=4)
+def padded_bases(n_fft: int, win_length: int):
+    """The bf16 mode's product operands, K-major and zero-padded to PAD:
+    (bwd_t (win_pad, S_pad) = bwd^T, fwd_t (S_pad, win_pad) = fwd^T) of
+    ``live_bases``, S = 2*n_bins."""
+    bwd, fwd = live_bases(n_fft, win_length)
+    s, win = bwd.shape
+    bwd_t = np.zeros((padded(win), padded(s)), np.float32)
+    bwd_t[:win, :s] = bwd.T
+    fwd_t = np.zeros((padded(s), padded(win)), np.float32)
+    fwd_t[:s, :win] = fwd.T
+    return bwd_t, fwd_t
+
+
 # ------------------------------------------------------------ plain versions
 
 def gl_step_reference(re, im, magnitude, *, n_fft: int, hop_length: int,
@@ -136,9 +163,21 @@ def gl_spectrum_reference(magnitude, *, n_fft: int, hop_length: int,
 
 # ------------------------------------------------------------------ kernels
 
+def tensor_core_smem_bytes() -> dict:
+    """Dynamic shared memory of one block of each of the bf16 mode's two
+    product kernels, bytes."""
+    lib = runtime.load("griffin_lim")
+    lib.tt_griffin_lim_smem.argtypes = [ctypes.c_int]
+    lib.tt_griffin_lim_smem.restype = ctypes.c_int
+    return {"synthesis": lib.tt_griffin_lim_smem(0), "analysis": lib.tt_griffin_lim_smem(1)}
+
+
 class _Plan:
     """Device-side constants and scratch of one kernel call (or of one run
-    of streaming calls on the same magnitude)."""
+    of streaming calls on the same magnitude). ``e`` is the interleaved
+    carrier (B*F, ld): in the bf16 mode ld = padded(2*n_bins), pad columns
+    zero, and ``work`` is the analysis operand (B*F, padded(win)) bf16; in
+    the f32 mode ld = 2*n_bins and ``work`` is the signal (B, L) f32."""
 
     def __init__(self, magnitude, n_fft, hop_length, win_length, lowp):
         dev = magnitude.device
@@ -156,12 +195,19 @@ class _Plan:
         self.b = math.prod(batch)
         self.m = self.b * f
         self.mag = magnitude.float().reshape(self.m, nb).contiguous()
-        bwd_np, fwd_np = live_bases(n_fft, win_length)
+        if lowp:
+            bwd_np, fwd_np = padded_bases(n_fft, win_length)
+            self.ld, win = padded(2 * nb), padded(win_length)
+            self.work = torch.zeros(self.m, win, device=dev, dtype=sd)
+        else:
+            bwd_np, fwd_np = live_bases(n_fft, win_length)
+            self.ld, win = 2 * nb, win_length
+            self.work = torch.empty(self.b, hop_length * (f - 1), device=dev)
         self.bwd = torch.from_numpy(bwd_np).to(dev).to(sd)
         self.fwd = torch.from_numpy(fwd_np).to(dev).to(sd)
+        self.e = torch.zeros(self.m, self.ld, device=dev, dtype=sd)
         self.invwss = inv_window_sumsquare(win_length, n_fft, hop_length, f, dev)
-        self.frames = torch.empty(self.m, win_length, device=dev)
-        self.sig = torch.empty(self.b, hop_length * (f - 1), device=dev)
+        self.frames = torch.empty(self.m, win, device=dev)
         self.dims = (self.b, f, nb, n_fft, hop_length, win_length)
         self.lowp = int(lowp)
 
@@ -172,9 +218,10 @@ def _gl_cuda(magnitude, *, n_fft, hop_length, win_length, n_iter, momentum, lowp
     # interleaved (re, im) per bin: e is the synthesis input (the start and,
     # with beta, each extrapolated iterate); s0/s1 hold the projected
     # iterates in turn
-    e = torch.stack([p.mag, torch.zeros_like(p.mag)], dim=-1).reshape(p.m, 2 * p.nb).to(p.sd)
+    e = p.e
+    e[:, 0:2 * p.nb:2] = p.mag
     s0 = e.clone() if beta else None
-    s1 = torch.empty_like(e) if beta else None
+    s1 = torch.zeros_like(e) if beta else None
 
     lib = runtime.load("griffin_lim")
     vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -185,13 +232,13 @@ def _gl_cuda(magnitude, *, n_fft, hop_length, win_length, n_iter, momentum, lowp
             p.mag.data_ptr(), e.data_ptr(),
             s0.data_ptr() if beta else None, s1.data_ptr() if beta else None,
             p.bwd.data_ptr(), p.fwd.data_ptr(), p.invwss.data_ptr(),
-            p.frames.data_ptr(), p.sig.data_ptr(),
+            p.frames.data_ptr(), p.work.data_ptr(),
             *p.dims, n_iter, p.lowp, beta, runtime.stream_ptr(p.dev))
     runtime.check(err, "griffin_lim kernel launch")
     runtime.LAUNCHES["griffin_lim"] += 3 * n_iter
     spec = (s1 if n_iter % 2 else s0) if beta else e
-    re = spec[:, 0::2].reshape(*p.batch, p.f, p.nb)
-    im = spec[:, 1::2].reshape(*p.batch, p.f, p.nb)
+    re = spec[:, 0:2 * p.nb:2].reshape(*p.batch, p.f, p.nb)
+    im = spec[:, 1:2 * p.nb:2].reshape(*p.batch, p.f, p.nb)
     return re, im
 
 
@@ -203,15 +250,16 @@ def _gl_step_cuda(re, im, p):
 
     lib = runtime.load("griffin_lim")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.tt_griffin_lim_step.argtypes = [vp] * 10 + [ci] * 7 + [vp]
+    lib.tt_griffin_lim_step.argtypes = [vp] * 11 + [ci] * 7 + [vp]
     lib.tt_griffin_lim_step.restype = ci
     with torch.cuda.device(p.dev):
         err = lib.tt_griffin_lim_step(
             p.mag.data_ptr(), re.data_ptr(), im.data_ptr(),
             out_re.data_ptr(), out_im.data_ptr(),
             p.bwd.data_ptr(), p.fwd.data_ptr(), p.invwss.data_ptr(),
-            p.frames.data_ptr(), p.sig.data_ptr(),
+            p.frames.data_ptr(), p.work.data_ptr(), p.e.data_ptr(),
             *p.dims, p.lowp, runtime.stream_ptr(p.dev))
     runtime.check(err, "griffin_lim_step kernel launch")
-    runtime.LAUNCHES["griffin_lim_step"] += 3
+    # bf16: the pack, then the iteration's three
+    runtime.LAUNCHES["griffin_lim_step"] += 3 + p.lowp
     return out_re, out_im

@@ -11,7 +11,9 @@ plain version share every rounding point, so only sums that differ in their
 last bit flip a bf16 rounding, which Griffin-Lim then carries along), the
 bf16 kernel also held to converging as well as its plain version (magnitude
 error <= plain's * 1.05 + 1e-3); the streaming kernel (K5) the same per
-mode, and in f32 within 1e-3 of the whole-loop kernel; the probes: shared
+mode, and in f32 within 1e-3 of the whole-loop kernel; at 2048/275/1102
+one bf16 iteration of either kernel within one bf16 ulp (2^-7) of the
+magnitude's peak, and K5 bit-equal to K4 at beta 0; the probes: shared
 memory exact, ops 1e-4 of its peak; attention energy (K1) and its
 three gradients (K2) 1e-5 of each one's peak (f32, summation order only);
 in bf16 (keys and q bf16) against ``energy_bwd_reference`` with the same
@@ -32,6 +34,7 @@ import torch
 
 from tacotron_tpu_torch import runtime
 from tacotron_tpu_torch.config import get_config
+from tacotron_tpu_torch.dsp.audio import spectrogram_magnitude
 from tacotron_tpu_torch.dsp.dft import gl_spectrum_mm, istft_mm, stft_mm
 from tacotron_tpu_torch import probe
 from tacotron_tpu_torch.dsp.fused_gl import (gl_spectrum_reference, gl_step_reference,
@@ -153,16 +156,85 @@ def test_streaming_kernel_matches_plain_and_whole_loop(dev, lowp, tol):
     re, im = zero_phase(mag, lowp)
     before = runtime.LAUNCHES["griffin_lim_step"]
     k_re, k_im = griffin_lim_step(re, im, mag, **GL_KW, lowp=lowp)
-    assert runtime.LAUNCHES["griffin_lim_step"] == before + 3
+    n = 4 if lowp else 3                            # bf16: the pack launch first
+    assert runtime.LAUNCHES["griffin_lim_step"] == before + n
     p_re, p_im = gl_step_reference(re, im, mag, **GL_KW, lowp=lowp)
     assert k_re.dtype == re.dtype and k_re.shape == mag.shape
     assert _wav_err((k_re, k_im), (p_re, p_im)) <= tol
     got = griffin_lim_spectrum(mag, **GL_KW, n_iter=6, inner=1, lowp=lowp)
-    assert runtime.LAUNCHES["griffin_lim_step"] == before + 3 + 3 * 6
+    assert runtime.LAUNCHES["griffin_lim_step"] == before + n + n * 6
     assert _wav_err(got, gl_spectrum_reference(mag, **GL_KW, n_iter=6, lowp=lowp)) <= tol
     assert _wav_err(got, griffin_lim_spectrum(mag, **GL_KW, n_iter=6, lowp=lowp)) <= tol
     with pytest.raises(TypeError):
         griffin_lim_step(re.double(), im.double(), mag, **GL_KW, lowp=lowp)
+
+
+GL_REAL = dict(n_fft=2048, hop_length=275, win_length=1102)
+
+
+def _gl_mag_real(dev, f, b=3):
+    y = torch.cumsum(torch.randn(b, 275 * (f - 1), generator=torch.Generator().manual_seed(f)), -1)
+    re, im = stft_mm((0.1 * (y - y.mean(-1, keepdim=True))).to(dev), **GL_REAL)
+    return torch.sqrt(re * re + im * im + 1e-12)
+
+
+def _within_ulp(got, want, mag):
+    """Each component within one bf16 ulp (2^-7) of the magnitude's peak."""
+    tol = 2.0 ** -7 * float(mag.max())
+    return all(float((g.float() - w.float()).abs().max()) <= tol for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [37, 5])
+def test_griffin_lim_bf16_steps_at_real_widths(dev, f):
+    """The tensor-core products at 2048/275/1102: B 3 x F 37 rows (a ragged
+    M), and F 5, the fewest frames the reflect pad allows. One K4 iteration
+    from the zero-phase start, with and without momentum, and one K5 call
+    from the plain loop's state after two steps, against the plain version."""
+    mag = _gl_mag_real(dev, f)
+    assert mag.shape == (3, f, 1025)
+    for momentum in (0.0, 0.99):
+        before = runtime.LAUNCHES["griffin_lim"]
+        got = griffin_lim_spectrum(mag, **GL_REAL, n_iter=1, momentum=momentum)
+        assert runtime.LAUNCHES["griffin_lim"] == before + 3
+        want = gl_spectrum_reference(mag, **GL_REAL, n_iter=1, momentum=momentum)
+        assert _within_ulp(got, want, mag)
+    re, im = zero_phase(mag, True)
+    for _ in range(2):
+        re, im = gl_step_reference(re, im, mag, **GL_REAL)
+    before = runtime.LAUNCHES["griffin_lim_step"]
+    got = griffin_lim_step(re, im, mag, **GL_REAL)
+    assert runtime.LAUNCHES["griffin_lim_step"] == before + 4
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == mag.shape
+    assert _within_ulp(got, gl_step_reference(re, im, mag, **GL_REAL), mag)
+
+
+@pytest.mark.cuda
+def test_griffin_lim_bf16_steps_at_the_spectrogram_floor(dev):
+    """The magnitudes a model with random weights gives (B 8 x F 64, the
+    trimmed shape of synth_fast's early exit): every bin near the floor,
+    1e-6 to 7e-6, nearly flat. There the synthesis frames cancel most of
+    their terms, and one K5 step from the plain loop's state at depths 0-9
+    stays within one bf16 ulp of the peak only if the synthesis sums are no
+    less exact than the plain f32 loop's."""
+    s = 0.11 * torch.rand(8, 64, 1025, generator=torch.Generator().manual_seed(3))
+    mag = spectrogram_magnitude(s.to(dev), get_config("synth_fast").audio)
+    re, im = zero_phase(mag, True)
+    for _ in range(10):
+        want = gl_step_reference(re, im, mag, **GL_REAL)
+        assert _within_ulp(griffin_lim_step(re, im, mag, **GL_REAL), want, mag)
+        re, im = want
+
+
+@pytest.mark.cuda
+def test_streaming_bf16_equals_whole_loop_at_beta0(dev):
+    """K5 packs its planar input and then runs K4's three launches: at beta
+    0 the two are bit-equal."""
+    mag = _gl_mag_real(dev, 37)
+    for n_iter in (1, 3):
+        k5 = griffin_lim_spectrum(mag, **GL_REAL, n_iter=n_iter, inner=1)
+        k4 = griffin_lim_spectrum(mag, **GL_REAL, n_iter=n_iter)
+        assert all(torch.equal(a, b) for a, b in zip(k5, k4))
 
 
 @pytest.mark.cuda
