@@ -35,11 +35,10 @@ import chip_smoke as cs  # noqa: E402
 from tacotron_tpu_torch import runtime  # noqa: E402
 from tacotron_tpu_torch.config import get_config  # noqa: E402
 from tacotron_tpu_torch.data.vocab import Vocab  # noqa: E402
-from tacotron_tpu_torch.dsp import dft  # noqa: E402
 from tacotron_tpu_torch.dsp.audio import spectrogram_magnitude  # noqa: E402
-from tacotron_tpu_torch.dsp.fused_gl import (gl_step_reference, griffin_lim_spectrum,  # noqa: E402
-                                             griffin_lim_step, zero_phase)
-from tacotron_tpu_torch.dsp.stft import frame_signal, overlap_add  # noqa: E402
+from tacotron_tpu_torch.dsp.fused_gl import (f64_matmul, gl_step_reference,  # noqa: E402
+                                             griffin_lim_spectrum, griffin_lim_step,
+                                             zero_phase)
 from tacotron_tpu_torch.infer.synthesize import Synthesizer  # noqa: E402
 from tacotron_tpu_torch.weights import split_state  # noqa: E402
 
@@ -81,22 +80,7 @@ def build_variants():
 
 def step_f64(re, im, mag, kw):
     """``gl_iteration(lowp=True)``'s step with both products summed in f64."""
-    n_fft, hop, win = kw["n_fft"], kw["hop_length"], kw["win_length"]
-    dev, sd = mag.device, torch.bfloat16
-    f, nb = mag.shape[-2:]
-    lpad, pad = (n_fft - win) // 2, n_fft // 2
-    fwd_np, bwd_np = dft.dft_matrices(n_fft, win)
-    bwd = torch.from_numpy(bwd_np[:, lpad:lpad + win]).to(dev).to(sd).double()
-    fwd = torch.from_numpy(fwd_np[lpad:lpad + win]).to(dev).to(sd).double()
-    inv_wss = dft.inv_window_sumsquare(win, n_fft, hop, f, dev).double()
-    frames = torch.nn.functional.pad(torch.cat([re, im], -1).double() @ bwd,
-                                     (lpad, n_fft - win - lpad))
-    y = (overlap_add(frames, hop) * inv_wss).float()
-    seg = frame_signal(y[..., pad:-pad], n_fft, hop)[..., lpad:lpad + win]
-    out = seg.to(sd).double() @ fwd
-    o_re, o_im = out[..., :nb], out[..., nb:]
-    scale = mag.double() / torch.clamp(torch.sqrt(o_re * o_re + o_im * o_im), min=1e-8)
-    return (o_re * scale).to(sd), (o_im * scale).to(sd)
+    return gl_step_reference(re, im, mag, product=f64_matmul, **kw)
 
 
 def magnitudes(dev):

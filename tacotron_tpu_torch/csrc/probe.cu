@@ -14,20 +14,28 @@
 // allocation; a refusal comes back as the CUDA error, never as a pass.
 //
 // Both are a single block and a few microseconds of work: launch latency
-// bounds them, not bytes or operations.
+// bounds them, not bytes or operations. The shared-memory probe moves its
+// 16 KiB in one round trip: 1024 threads, each one 16-byte load, one store
+// into the scratch, one barrier, one 16-byte store of another warp's slot;
+// the scratch sits at the top of the allocation, so its last byte is used.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kProbeRows = 8, kProbeCols = 512;
+constexpr int kProbeThreads = kProbeRows * kProbeCols / 4;   // one float4 each
 
-// scratch[0:8, :] = x * 2; out = scratch[0:8, :]
-__global__ void probe_smem_kernel(const float* __restrict__ x, float* __restrict__ out) {
-  extern __shared__ float scratch[];
-  const int n = kProbeRows * kProbeCols;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) scratch[i] = x[i] * 2.0f;
+// scratch[base:base + 1024] = x * 2 (as float4); out = that scratch, each
+// thread storing the slot of the thread 32 away (the next or previous warp)
+__global__ void __launch_bounds__(kProbeThreads)
+probe_smem_kernel(const float4* __restrict__ x, float4* __restrict__ out, int base) {
+  extern __shared__ float4 scratch[];
+  const int t = threadIdx.x;
+  const float4 v = x[t];
+  scratch[base + t] = make_float4(v.x * 2.0f, v.y * 2.0f, v.z * 2.0f, v.w * 2.0f);
   __syncthreads();
-  for (int i = threadIdx.x; i < n; i += blockDim.x) out[i] = scratch[i];
+  const int u = t ^ 32;
+  out[u] = scratch[base + u];
 }
 
 constexpr int PF = 64, PS = 256, PH = 275, PK = 32, PT = 512;
@@ -112,7 +120,9 @@ extern "C" int tt_probe_smem(const float* x, float* out, int kib, int* max_optin
     cudaGetLastError();   // reported to the caller; leave no error behind for the next call
     return (int)err;
   }
-  probe_smem_kernel<<<1, 256, bytes, static_cast<cudaStream_t>(stream)>>>(x, out);
+  probe_smem_kernel<<<1, kProbeThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(out),
+      bytes / 16 - kProbeThreads);
   return (int)cudaGetLastError();
 }
 

@@ -129,7 +129,8 @@ def zero_phase(mag, lowp: bool):
     return re, torch.zeros_like(re)
 
 
-def gl_iteration(magnitude, n_fft: int, hop_length: int, win_length: int, lowp: bool):
+def gl_iteration(magnitude, n_fft: int, hop_length: int, win_length: int, lowp: bool,
+                 product=torch.matmul):
     """``step(re, im, prev=None, momentum=0.0)``: one Griffin-Lim iteration
     on ``magnitude`` (..., F, n_bins) over the window's nonzero span:
     synthesis product, overlap-add, window-sum-square normalise, centre
@@ -139,7 +140,11 @@ def gl_iteration(magnitude, n_fft: int, hop_length: int, win_length: int, lowp: 
     Griffin-Lim kernel's (``dsp/fused_gl.py``), not those of
     ``gl_spectrum_mm(lowp=True)``: (re, im) and ``prev`` are bf16 carriers,
     the extrapolation is formed in f32, both operands of both products are
-    rounded to bf16, and everything between the products stays f32."""
+    rounded to bf16, and everything between the products stays f32.
+
+    ``product(x, w)`` takes both products (f32 operands, f32 result):
+    ``torch.matmul`` here; the precision studies of ``dsp/fused_gl.py``
+    pass an f64 sum or the split-TF32 emulation."""
     sd = carrier_dtype(lowp)
     mag = magnitude.float()
     dev = mag.device
@@ -154,11 +159,11 @@ def gl_iteration(magnitude, n_fft: int, hop_length: int, win_length: int, lowp: 
         x = torch.cat([re, im], dim=-1).float()
         if momentum:
             x = x + momentum * (x - torch.cat(prev, dim=-1).float())
-        frames_t = x.to(sd).float() @ bwd
+        frames_t = product(x.to(sd).float(), bwd)
         frames_t = torch.nn.functional.pad(frames_t, (lpad, n_fft - win_length - lpad))
         y = overlap_add(frames_t, hop_length) * inv_wss
         seg = frame_signal(y[..., pad:-pad], n_fft, hop_length)[..., lpad:lpad + win_length]
-        out = seg.to(sd).float() @ fwd
+        out = product(seg.to(sd).float(), fwd)
         o_re, o_im = out[..., :nb], out[..., nb:]
         scale = mag / torch.clamp(torch.sqrt(o_re * o_re + o_im * o_im), min=1e-8)
         return (o_re * scale).to(sd), (o_im * scale).to(sd)
@@ -167,10 +172,10 @@ def gl_iteration(magnitude, n_fft: int, hop_length: int, win_length: int, lowp: 
 
 
 def gl_iterate(magnitude, *, n_fft: int, hop_length: int, win_length: int,
-               n_iter: int, momentum: float, lowp: bool):
+               n_iter: int, momentum: float, lowp: bool, product=torch.matmul):
     """``n_iter`` steps of ``gl_iteration`` from a zero-phase start ->
     (re, im) in the carrier dtype."""
-    step = gl_iteration(magnitude, n_fft, hop_length, win_length, lowp)
+    step = gl_iteration(magnitude, n_fft, hop_length, win_length, lowp, product)
     cur = prev = zero_phase(magnitude.float(), lowp)
     for _ in range(n_iter):
         cur, prev = step(*cur, prev, float(momentum)), cur

@@ -8,12 +8,16 @@ momentum), each in the bf16 mode (``lowp=True``, the default as in the JAX
 package) and the f32 mode.
 
 For CUDA tensors the wrappers run ``csrc/griffin_lim.cu``: three launches
-per iteration (synthesis product, overlap-add + normalise, analysis product
-with the magnitude projection and momentum in its epilogue), and in the
-bf16 mode of the streaming kernel a fourth that packs the planar input into
-the interleaved carrier. The bf16 mode runs both products on the tensor
-cores, with every operand K-major and zero-padded to ``PAD`` columns
-(``padded_bases``; the carriers and the analysis operand likewise). For CPU
+per iteration (synthesis product, overlap-add + normalise + frame, analysis
+product with the magnitude projection and momentum in its epilogue), and in
+the streaming kernel a fourth that packs the planar input into the
+interleaved carrier. Both modes run both products on the tensor cores,
+with every operand K-major and zero-padded to ``PAD`` columns
+(``padded_bases``; the carriers and the analysis operand likewise): the
+bf16 mode in one pass, the f32 mode as five TF32 products of operands
+split into TF32 pieces (three of the spectrum side, two of the basis;
+``split_tf32``; ``tf32_split_matmul`` is its plain version), as exact as
+an f32 product. For CPU
 tensors they run the plain versions below, ``gl_step_reference`` and
 ``gl_spectrum_reference``, which keep the kernel's rounding points. The
 zero-phase start and the final iSTFT (``istft_mm``, f32) are plain in both
@@ -131,7 +135,7 @@ def padded(n: int) -> int:
 
 @functools.lru_cache(maxsize=4)
 def padded_bases(n_fft: int, win_length: int):
-    """The bf16 mode's product operands, K-major and zero-padded to PAD:
+    """The kernels' basis operands, K-major and zero-padded to PAD, f32:
     (bwd_t (win_pad, S_pad) = bwd^T, fwd_t (S_pad, win_pad) = fwd^T) of
     ``live_bases``, S = 2*n_bins."""
     bwd, fwd = live_bases(n_fft, win_length)
@@ -146,38 +150,116 @@ def padded_bases(n_fft: int, win_length: int):
 # ------------------------------------------------------------ plain versions
 
 def gl_step_reference(re, im, magnitude, *, n_fft: int, hop_length: int,
-                      win_length: int, lowp: bool = True):
+                      win_length: int, lowp: bool = True, product=torch.matmul):
     """Plain PyTorch version of the streaming kernel: one iteration, no
-    momentum, (re, im) in and out in the carrier dtype."""
-    return gl_iteration(magnitude, n_fft, hop_length, win_length, lowp)(re, im)
+    momentum, (re, im) in and out in the carrier dtype. ``product`` takes
+    both DFT products (``f64_matmul``, ``tf32_split_matmul`` for precision
+    studies)."""
+    return gl_iteration(magnitude, n_fft, hop_length, win_length, lowp, product)(re, im)
 
 
 def gl_spectrum_reference(magnitude, *, n_fft: int, hop_length: int,
                           win_length: int, n_iter: int = 60,
-                          momentum: float = 0.0, lowp: bool = True):
+                          momentum: float = 0.0, lowp: bool = True, product=torch.matmul):
     """Plain PyTorch version of the whole-loop kernel -> (re, im) in the
-    carrier dtype."""
+    carrier dtype; ``product`` as ``gl_step_reference``'s."""
     return gl_iterate(magnitude, n_fft=n_fft, hop_length=hop_length,
-                      win_length=win_length, n_iter=n_iter, momentum=momentum, lowp=lowp)
+                      win_length=win_length, n_iter=n_iter, momentum=momentum, lowp=lowp,
+                      product=product)
+
+
+# ------------------------------------- the f32 mode's split TF32 products
+
+# depth of one k-tile of the f32 mode's products: 32 f32 values fill one
+# 128-byte swizzled row (BK of the f32 tile in csrc/griffin_lim.cu)
+TF32_K_TILE = 32
+# TF32 pieces of the spectrum-side operand and of the DFT basis: kPiecesA and
+# kPiecesB in csrc/griffin_lim.cu (tests/test_torch_split_tf32.py holds the
+# two equal). Three represent any normal f32 value exactly, two keep 22 of
+# its 24 significant bits
+TF32_PIECES = (3, 2)
+
+
+def tf32_round(x):
+    """f32 ``x`` rounded to TF32 (10 explicit mantissa bits) to nearest even:
+    the low 13 bits of the result are zero. Inf and NaN pass unchanged."""
+    u = x.float().contiguous().view(torch.int32)
+    # int32 arithmetic wraps; the carry out of the mantissa is the rounding up
+    r = (u + (0xFFF + ((u >> 13) & 1))) & -0x2000
+    return torch.where((u & 0x7F800000) == 0x7F800000, u, r).view(torch.float32)
+
+
+def split_tf32(x, pieces: int = 2):
+    """f32 ``x`` -> ``pieces`` TF32 values, each tf32_round of what the
+    earlier ones leave. Two (big, small) keep 22 of f32's 24 significant
+    bits (big + small is x within 2^-22 of |x|); three sum to x exactly."""
+    out, rest = [], x.float()
+    for _ in range(pieces):
+        out.append(tf32_round(rest))
+        rest = rest - out[-1]
+    return tuple(out)
+
+
+def tf32_split_matmul(x, w):
+    """Plain version of the f32 mode's products: ``x @ w`` (f32) as the
+    kernel takes it on the tensor cores. x is split into TF32_PIECES[0] TF32
+    pieces, the basis w into TF32_PIECES[1]; each TF32_K_TILE-deep k-tile
+    sums the products of pieces i of x and j of w with i + j <= 2 (each
+    product of two TF32 values is exact in f32), the smallest first, and is
+    added to the f32 result with one rounded add per k-tile, in k order."""
+    *lead, k = x.shape
+    t = -(-k // TF32_K_TILE)
+    pad = t * TF32_K_TILE - k
+    # (k-tile, rows, depth) and (k-tile, depth, cols): one batched product per
+    # pair of pieces gives every k-tile's sum
+    xt = torch.nn.functional.pad(x.reshape(-1, k).float(), (0, pad))
+    xt = xt.reshape(-1, t, TF32_K_TILE).transpose(0, 1)
+    wt = torch.nn.functional.pad(w.float(), (0, 0, 0, pad)).reshape(t, TF32_K_TILE, -1)
+    xp, wp = split_tf32(xt, TF32_PIECES[0]), split_tf32(wt, TF32_PIECES[1])
+    pairs = [(i, o - i) for o in (2, 1, 0) for i in range(len(xp)) if 0 <= o - i < len(wp)]
+    part = None
+    for i, j in pairs:
+        term = torch.bmm(xp[i], wp[j])
+        part = term if part is None else part + term
+    acc = part[0]
+    for p in part[1:]:
+        acc = acc + p
+    return acc.reshape(*lead, -1)
+
+
+def f64_matmul(x, w):
+    """``x @ w`` summed in f64 and rounded once to f32: the products'
+    exact answer for precision studies."""
+    return (x.double() @ w.double()).float()
 
 
 # ------------------------------------------------------------------ kernels
 
 def tensor_core_smem_bytes() -> dict:
-    """Dynamic shared memory of one block of each of the bf16 mode's two
-    product kernels, bytes."""
+    """Dynamic shared memory of one block of each product kernel, bytes,
+    by mode."""
     lib = runtime.load("griffin_lim")
-    lib.tt_griffin_lim_smem.argtypes = [ctypes.c_int]
+    lib.tt_griffin_lim_smem.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.tt_griffin_lim_smem.restype = ctypes.c_int
-    return {"synthesis": lib.tt_griffin_lim_smem(0), "analysis": lib.tt_griffin_lim_smem(1)}
+    return {mode: {"synthesis": lib.tt_griffin_lim_smem(0, lowp),
+                   "analysis": lib.tt_griffin_lim_smem(1, lowp)}
+            for mode, lowp in (("bf16", 1), ("f32", 0))}
+
+
+@functools.lru_cache(maxsize=4)
+def split_padded_bases(n_fft: int, win_length: int, pieces: int):
+    """The f32 mode's basis operands: each of ``padded_bases`` as its
+    ``pieces`` TF32 pieces, (pieces, rows, cols) f32."""
+    return tuple(torch.stack(split_tf32(torch.from_numpy(b), pieces)).numpy()
+                 for b in padded_bases(n_fft, win_length))
 
 
 class _Plan:
     """Device-side constants and scratch of one kernel call (or of one run
     of streaming calls on the same magnitude). ``e`` is the interleaved
-    carrier (B*F, ld): in the bf16 mode ld = padded(2*n_bins), pad columns
-    zero, and ``work`` is the analysis operand (B*F, padded(win)) bf16; in
-    the f32 mode ld = 2*n_bins and ``work`` is the signal (B, L) f32."""
+    carrier (B*F, padded(2*n_bins)) in the storage type, pad columns zero;
+    ``work`` the analysis operand (B*F, padded(win)), pad columns zero;
+    ``frames`` the synthesis frames (B*F, padded(win)) f32."""
 
     def __init__(self, magnitude, n_fft, hop_length, win_length, lowp):
         dev = magnitude.device
@@ -195,14 +277,10 @@ class _Plan:
         self.b = math.prod(batch)
         self.m = self.b * f
         self.mag = magnitude.float().reshape(self.m, nb).contiguous()
-        if lowp:
-            bwd_np, fwd_np = padded_bases(n_fft, win_length)
-            self.ld, win = padded(2 * nb), padded(win_length)
-            self.work = torch.zeros(self.m, win, device=dev, dtype=sd)
-        else:
-            bwd_np, fwd_np = live_bases(n_fft, win_length)
-            self.ld, win = 2 * nb, win_length
-            self.work = torch.empty(self.b, hop_length * (f - 1), device=dev)
+        bwd_np, fwd_np = (padded_bases(n_fft, win_length) if lowp else
+                          split_padded_bases(n_fft, win_length, TF32_PIECES[1]))
+        self.ld, win = padded(2 * nb), padded(win_length)
+        self.work = torch.zeros(self.m, win, device=dev, dtype=sd)
         self.bwd = torch.from_numpy(bwd_np).to(dev).to(sd)
         self.fwd = torch.from_numpy(fwd_np).to(dev).to(sd)
         self.e = torch.zeros(self.m, self.ld, device=dev, dtype=sd)
@@ -260,6 +338,6 @@ def _gl_step_cuda(re, im, p):
             p.frames.data_ptr(), p.work.data_ptr(), p.e.data_ptr(),
             *p.dims, p.lowp, runtime.stream_ptr(p.dev))
     runtime.check(err, "griffin_lim_step kernel launch")
-    # bf16: the pack, then the iteration's three
-    runtime.LAUNCHES["griffin_lim_step"] += 3 + p.lowp
+    # the pack, then the iteration's three
+    runtime.LAUNCHES["griffin_lim_step"] += 4
     return out_re, out_im

@@ -3,14 +3,16 @@ it; the bf16 mode is in tests/test_torch_gl_lowp.py.
 
 The port's plain f32 Griffin-Lim (reached through the kernel wrapper with
 ``lowp=False``, which takes it for CPU tensors) vs the JAX Pallas kernel interpreted in f32
-(``lowp=False``); ``istft_mm`` and ``inv_preemphasis`` vs JAX; an emulation
-of the CUDA kernel's three stages (interleaved live-span bases, gather OLA,
-reflect-by-index analysis, projection and momentum epilogue) vs the plain
-loop. The bf16 mode's tensor-core layout: the padded K-major bases against
+(``lowp=False``); ``istft_mm`` and ``inv_preemphasis`` vs JAX. The kernels'
+tensor-core layout, both modes: the padded K-major bases against
 ``live_bases``; a mirror of the overlap-add-and-frame launch against the
 reflect framing of ``frame_signal`` (bit-identical, every slot written
-once); and an emulation of the bf16 stages (padded carriers, f32 products
-of bf16 operands, the mirror, the epilogue's roundings) against
+once); an emulation of the f32 stages (padded f32 carriers, the split TF32
+products of ``tf32_split_matmul``, the mirror, the projection and momentum
+epilogue) vs the plain f32 loop, with ``torch.matmul`` products and with
+the same split products, over 5 iterations at 1e-5 of the peak; and an
+emulation of the bf16 stages
+(f32 products of bf16 operands, the epilogue's roundings) against
 ``gl_step_reference`` / ``gl_spectrum_reference`` from a common state,
 within one bf16 ulp (2^-7) of the magnitude's peak. The CUDA kernels
 themselves are held against the plain loop in
@@ -36,8 +38,8 @@ from tacotron_tpu_torch.dsp.dft import gl_spectrum_mm, istft_mm
 from tacotron_tpu_torch.dsp.dft import inv_window_sumsquare, zero_phase
 from tacotron_tpu_torch.dsp.fused_gl import (PAD, gl_spectrum_reference, gl_step_reference,
                                              griffin_lim, griffin_lim_spectrum, live_bases,
-                                             padded, padded_bases)
-from tacotron_tpu_torch.dsp.stft import frame_signal, overlap_add, window_sumsquare
+                                             padded, padded_bases, tf32_split_matmul)
+from tacotron_tpu_torch.dsp.stft import frame_signal, overlap_add
 
 KW = dict(n_fft=256, hop_length=48, win_length=190)
 
@@ -82,48 +84,36 @@ def test_inv_preemphasis_matches_jax(n):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=5e-5)
 
 
-def _kernel_emulation(mag, n_fft, hop_length, win_length, n_iter, momentum):
-    """The CUDA kernel's algorithm in torch, stage for stage."""
-    b, f, nb = mag.shape
-    m, lpad, pad = b * f, (n_fft - win_length) // 2, n_fft // 2
-    length = hop_length * (f - 1)
-    bwd, fwd = (torch.from_numpy(x) for x in live_bases(n_fft, win_length))
-    wss = window_sumsquare(win_length, n_fft, hop_length, f).astype(np.float32)
-    invwss = torch.from_numpy(1.0 / np.maximum(wss, np.float32(1e-11)))
-    mag2 = mag.reshape(m, nb)
-    e = torch.stack([mag2, torch.zeros_like(mag2)], -1).reshape(m, 2 * nb)
-    s0, s1 = e.clone(), torch.empty_like(e)
-    t = torch.arange(length) + pad                       # OLA: gather per sample
-    fr_idx = torch.arange(f)
-    col = t[:, None] - fr_idx[None, :] * hop_length - lpad
-    live = (col >= 0) & (col < win_length)
-    idx = (fr_idx[:, None] * hop_length + lpad + torch.arange(win_length)[None, :] - pad)
-    idx = idx.abs()                                      # reflect by index
-    idx = torch.where(idx >= length, 2 * (length - 1) - idx, idx)
-    for it in range(n_iter):
-        s_cur, s_new = (s0, s1) if it % 2 == 0 else (s1, s0)
-        frames = (e @ bwd).reshape(b, f, win_length)
-        g = frames[:, fr_idx[None, :].expand_as(col), col.clamp(0, win_length - 1)]
-        sig = (g * live).sum(-1) * invwss[t]
-        spec = (sig[:, idx].reshape(m, win_length) @ fwd).reshape(m, nb, 2)
-        scale = mag2 / torch.clamp(spec.norm(dim=-1), min=1e-8)
-        new = (spec * scale[..., None]).reshape(m, 2 * nb)
-        if momentum:
-            e = new + momentum * (new - s_cur)
-            s_new.copy_(new)
-        else:
-            e = new
-    spec = ((s1 if n_iter % 2 else s0) if momentum else e).reshape(b, f, nb, 2)
-    return spec[..., 0], spec[..., 1]
+def _kernel_emulation_wav(mag, momentum):
+    """The f32 kernels' stages (``_tc_iterations``), 5 iterations -> waveform."""
+    spec, _ = _tc_iterations(mag, _carrier(*zero_phase(mag, False)), **_geo(), n_iter=5,
+                             beta=momentum)
+    nb = mag.shape[-1]
+    re, im = (spec[:, k:2 * nb:2].reshape(mag.shape) for k in (0, 1))
+    return istft_mm(re, im, **KW).numpy()
 
 
 @pytest.mark.parametrize("momentum", [0.0, 0.9])
 def test_kernel_algorithm_matches_plain(momentum):
+    """The f32 kernel's algorithm, split TF32 products included, against the
+    plain f32 loop (``torch.matmul`` products): 3.6e-6 and 7.6e-6 of the
+    peak measured."""
     mag = torch.from_numpy(_mag(seed=5))
     kw = dict(n_fft=256, hop_length=48, win_length=190, n_iter=5, momentum=momentum)
     want = istft_mm(*gl_spectrum_mm(mag, lowp=False, **kw), **KW).numpy()
-    got = istft_mm(*_kernel_emulation(mag, **kw), **KW).numpy()
-    _close_to_peak(got, want, tol=1e-5)
+    _close_to_peak(_kernel_emulation_wav(mag, momentum), want, tol=1e-5)
+
+
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+def test_kernel_stages_match_plain_with_the_same_products(momentum):
+    """The f32 kernel's stages (padded carriers, the overlap-add-and-frame
+    mirror, the epilogue) against the plain f32 loop taking the same split
+    products: 1.0e-6 and 2.8e-6 of the peak measured."""
+    mag = torch.from_numpy(_mag(seed=5))
+    kw = dict(n_fft=256, hop_length=48, win_length=190, n_iter=5, momentum=momentum)
+    want = istft_mm(*gl_spectrum_reference(mag, lowp=False, product=tf32_split_matmul, **kw),
+                    **KW).numpy()
+    _close_to_peak(_kernel_emulation_wav(mag, momentum), want, tol=1e-5)
 
 
 def test_cpu_tensors_take_the_plain_path():
@@ -140,7 +130,7 @@ def test_cpu_tensors_take_the_plain_path():
 
 
 
-# ------------------------------------------------ the bf16 mode's tensor-core layout
+# ------------------------------------------------ the kernels' tensor-core layout
 
 @pytest.mark.parametrize("n_fft,win", [(256, 190), (2048, 1102)])
 def test_padded_bases_hold_live_bases(n_fft, win):
@@ -155,11 +145,11 @@ def test_padded_bases_hold_live_bases(n_fft, win):
         assert not x[r:].any() and not x[:, c:].any()
 
 
-def _ola_frame(frames, invwss, n_fft, hop, win, f):
+def _ola_frame(frames, invwss, n_fft, hop, win, f, dtype=torch.bfloat16):
     """The overlap-add-and-frame launch (``gl_ola_frame``), its index
     arithmetic as written there, vectorised over the samples: frames (B*F,
     padded(win)) f32 -> (signal (B, L) f32, analysis operand (B*F,
-    padded(win)) bf16, writes per slot)."""
+    padded(win)) in ``dtype``, writes per slot)."""
     b = frames.shape[0] // f
     length, lpad, pad = hop * (f - 1), (n_fft - win) // 2, n_fft // 2
     off = pad - lpad
@@ -180,8 +170,8 @@ def _ola_frame(frames, invwss, n_fft, hop, win, f):
         col = torch.where(live, c0 - fi * hop, 0)
         y = torch.where(live, y + fr[:, fi, col], y)
     y = y * invwss[s + pad]
-    v = y.bfloat16()
-    ana = torch.zeros(b, f, fr.shape[-1], dtype=torch.bfloat16)
+    v = y.to(dtype)
+    ana = torch.zeros(b, f, fr.shape[-1], dtype=dtype)
     writes = torch.zeros(b, f, fr.shape[-1], dtype=torch.int32)
     for c, keep in ((c0, s >= 0), (off - s, s > 0), (off + 2 * (length - 1) - s, s < length - 1)):
         f_lo, f_hi = frame_range(c)
@@ -214,27 +204,30 @@ def test_ola_frame_mirror_equals_reflect_framing(n_fft, hop, win, f):
 
 
 def _tc_iterations(mag, e, n_fft, hop, win, n_iter=1, beta=0.0):
-    """The bf16 mode's stages as the kernels run them, from the synthesis
-    operand ``e`` (B*F, padded(2*n_bins)) bf16: the products as f32 sums of
-    bf16 operands, ``_ola_frame`` between them, the epilogue's roundings.
-    -> (the last projected spectrum, the carrier e) both (B*F,
-    padded(2*n_bins)) bf16."""
+    """The kernels' stages as they run them, from the synthesis operand
+    ``e`` (B*F, padded(2*n_bins)) in the storage type (bf16: the products as
+    f32 sums of bf16 operands; f32: the split TF32 products of
+    ``tf32_split_matmul``), ``_ola_frame`` between them, the epilogue's
+    roundings. -> (the last projected spectrum, the carrier e) both (B*F,
+    padded(2*n_bins)) in the storage type."""
     b, f, nb = mag.shape
-    bwd_t, fwd_t = (torch.from_numpy(x).bfloat16().float() for x in padded_bases(n_fft, win))
+    sd = e.dtype
+    bwd_t, fwd_t = (torch.from_numpy(x).to(sd).float() for x in padded_bases(n_fft, win))
+    product = tf32_split_matmul if sd == torch.float32 else torch.matmul
     invwss = inv_window_sumsquare(win, n_fft, hop, f, "cpu")
     mag2 = mag.reshape(b * f, nb)
     cur = e
     for _ in range(n_iter):
-        frames = e.float() @ bwd_t.T
-        _, ana, _ = _ola_frame(frames, invwss, n_fft, hop, win, f)
-        spec = ana.float() @ fwd_t.T
+        frames = product(e.float(), bwd_t.T)
+        _, ana, _ = _ola_frame(frames, invwss, n_fft, hop, win, f, sd)
+        spec = product(ana.float(), fwd_t.T)
         re, im = spec[:, 0:2 * nb:2], spec[:, 1:2 * nb:2]
         scale = mag2 / torch.clamp(torch.sqrt(re * re + im * im), min=1e-8)
         new = torch.zeros_like(e)
-        new[:, 0:2 * nb:2], new[:, 1:2 * nb:2] = (re * scale).bfloat16(), (im * scale).bfloat16()
+        new[:, 0:2 * nb:2], new[:, 1:2 * nb:2] = (re * scale).to(sd), (im * scale).to(sd)
         if beta:
             x = new.float()
-            e, cur = (x + beta * (x - cur.float())).bfloat16(), new
+            e, cur = (x + beta * (x - cur.float())).to(sd), new
         else:
             e = cur = new
         assert not e[:, 2 * nb:].any()      # the pad columns stay zero
@@ -243,7 +236,7 @@ def _tc_iterations(mag, e, n_fft, hop, win, n_iter=1, beta=0.0):
 
 def _carrier(re, im):
     m, nb = re.shape[0] * re.shape[1], re.shape[-1]
-    e = torch.zeros(m, padded(2 * nb), dtype=torch.bfloat16)
+    e = torch.zeros(m, padded(2 * nb), dtype=re.dtype)
     e[:, 0:2 * nb:2], e[:, 1:2 * nb:2] = re.reshape(m, nb), im.reshape(m, nb)
     return e
 

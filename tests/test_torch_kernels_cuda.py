@@ -13,7 +13,9 @@ bf16 kernel also held to converging as well as its plain version (magnitude
 error <= plain's * 1.05 + 1e-3); the streaming kernel (K5) the same per
 mode, and in f32 within 1e-3 of the whole-loop kernel; at 2048/275/1102
 one bf16 iteration of either kernel within one bf16 ulp (2^-7) of the
-magnitude's peak, and K5 bit-equal to K4 at beta 0; the probes: shared
+magnitude's peak, one f32 iteration of either (split TF32 products) within
+2x the plain f32 step's own error against the same step summed in f64, and
+K5 bit-equal to K4 at beta 0 in both modes; the probes: shared
 memory exact, ops 1e-4 of its peak; attention energy (K1) and its
 three gradients (K2) 1e-5 of each one's peak (f32, summation order only);
 in bf16 (keys and q bf16) against ``energy_bwd_reference`` with the same
@@ -37,9 +39,9 @@ from tacotron_tpu_torch.config import get_config
 from tacotron_tpu_torch.dsp.audio import spectrogram_magnitude
 from tacotron_tpu_torch.dsp.dft import gl_spectrum_mm, istft_mm, stft_mm
 from tacotron_tpu_torch import probe
-from tacotron_tpu_torch.dsp.fused_gl import (gl_spectrum_reference, gl_step_reference,
-                                             griffin_lim_spectrum, griffin_lim_step,
-                                             zero_phase)
+from tacotron_tpu_torch.dsp.fused_gl import (f64_matmul, gl_spectrum_reference,
+                                             gl_step_reference, griffin_lim_spectrum,
+                                             griffin_lim_step, zero_phase)
 from tacotron_tpu_torch.models.tacotron import Tacotron, length_mask
 from tacotron_tpu_torch.ops.attn_energy import (attention_energy, attention_energy_reference,
                                                 energy_bwd, energy_bwd_reference, energy_fwd)
@@ -156,7 +158,7 @@ def test_streaming_kernel_matches_plain_and_whole_loop(dev, lowp, tol):
     re, im = zero_phase(mag, lowp)
     before = runtime.LAUNCHES["griffin_lim_step"]
     k_re, k_im = griffin_lim_step(re, im, mag, **GL_KW, lowp=lowp)
-    n = 4 if lowp else 3                            # bf16: the pack launch first
+    n = 4                                           # the pack launch, then three
     assert runtime.LAUNCHES["griffin_lim_step"] == before + n
     p_re, p_im = gl_step_reference(re, im, mag, **GL_KW, lowp=lowp)
     assert k_re.dtype == re.dtype and k_re.shape == mag.shape
@@ -217,13 +219,91 @@ def test_griffin_lim_bf16_steps_at_the_spectrogram_floor(dev):
     their terms, and one K5 step from the plain loop's state at depths 0-9
     stays within one bf16 ulp of the peak only if the synthesis sums are no
     less exact than the plain f32 loop's."""
-    s = 0.11 * torch.rand(8, 64, 1025, generator=torch.Generator().manual_seed(3))
-    mag = spectrogram_magnitude(s.to(dev), get_config("synth_fast").audio)
+    mag = _floor_magnitude(dev)
     re, im = zero_phase(mag, True)
     for _ in range(10):
         want = gl_step_reference(re, im, mag, **GL_REAL)
         assert _within_ulp(griffin_lim_step(re, im, mag, **GL_REAL), want, mag)
         re, im = want
+
+
+def _floor_magnitude(dev):
+    """A synthetic spectrogram at its floor (B 8 x F 64, synth_fast's trimmed
+    shape): every bin 1e-6 to 7e-6, nearly flat."""
+    s = 0.11 * torch.rand(8, 64, 1025, generator=torch.Generator().manual_seed(3))
+    return spectrogram_magnitude(s.to(dev), get_config("synth_fast").audio)
+
+
+def _model_magnitude(dev):
+    """synth_fast's spectrogram from a model with seeded random weights:
+    B 8 x F 1000 (500 decoder steps) at the floor."""
+    cfg = get_config("synth_fast")
+    model = init_params(Tacotron(cfg.model, device=dev), seed=0).eval()
+    g = torch.Generator().manual_seed(1)
+    lengths = torch.tensor([115, 99, 104, 110, 112, 113, 102, 108])
+    text = torch.randint(1, cfg.model.vocab_size, (8, 115), generator=g)
+    text = torch.where(length_mask(115, lengths), text, 0)
+    with torch.no_grad():
+        out = model(text.to(dev), lengths.to(dev), n_steps=cfg.model.max_decode_steps,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    return spectrogram_magnitude(out.linear.float(), cfg.audio)
+
+
+def _speech_magnitude(dev, b, f, seed):
+    """A speech-like spectrogram (a random walk's), as chip_smoke.py's
+    sample_magnitude makes it."""
+    g = torch.Generator().manual_seed(seed)
+    y = torch.cumsum(torch.randn(b, 275 * (f - 1), generator=g), -1) * 0.1
+    re, im = stft_mm((y - y.mean(-1, keepdim=True)).to(dev), **GL_REAL)
+    return torch.sqrt(re * re + im * im + 1e-12)
+
+
+F32_MAGNITUDES = {"floor_b8_f64": _floor_magnitude, "model_b8_f1000": _model_magnitude,
+                  "speech_b8_f1000": lambda dev: _speech_magnitude(dev, 8, 1000, seed=6),
+                  "speech_b3_f37": lambda dev: _gl_mag_real(dev, 37),
+                  "speech_b3_f5": lambda dev: _gl_mag_real(dev, 5)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(F32_MAGNITUDES))
+def test_griffin_lim_f32_steps_as_exact_as_plain(dev, name):
+    """The f32 mode's split TF32 products on the magnitudes of
+    scripts/gl_accumulation.py (a model's floor, a synthetic floor, a
+    speech-like one) and at a ragged M (B 3 x F 37) and the fewest frames
+    (F 5): one K4 iteration from the zero-phase start and one K5 call from
+    the plain f32 loop's state at depths 0-9, each one's largest component
+    error against the same step summed in f64 (over the magnitude's peak)
+    within 2x the plain f32 step's largest."""
+    mag = F32_MAGNITUDES[name](dev)
+    peak = float(mag.max())
+    err = lambda a, b: max(float((x - y).abs().max()) for x, y in zip(a, b)) / peak
+    re, im = zero_phase(mag, False)
+    before = runtime.LAUNCHES["griffin_lim"]
+    k4 = griffin_lim_spectrum(mag, **GL_REAL, n_iter=1, lowp=False)
+    assert runtime.LAUNCHES["griffin_lim"] == before + 3
+    worst = {"k4": err(k4, gl_step_reference(re, im, mag, **GL_REAL, lowp=False,
+                                             product=f64_matmul)),
+             "k5": 0.0, "plain": 0.0}
+    for _ in range(10):
+        exact = gl_step_reference(re, im, mag, **GL_REAL, lowp=False, product=f64_matmul)
+        plain = gl_step_reference(re, im, mag, **GL_REAL, lowp=False)
+        got = griffin_lim_step(re, im, mag, **GL_REAL, lowp=False)
+        assert got[0].dtype == torch.float32 and got[0].shape == mag.shape
+        worst["k5"] = max(worst["k5"], err(got, exact))
+        worst["plain"] = max(worst["plain"], err(plain, exact))
+        re, im = plain
+    assert worst["k4"] <= 2 * worst["plain"] and worst["k5"] <= 2 * worst["plain"], worst
+
+
+@pytest.mark.cuda
+def test_streaming_f32_equals_whole_loop_at_beta0(dev):
+    """The f32 K5 packs its planar input and runs K4's three f32 launches:
+    at beta 0 the two are bit-equal."""
+    mag = _gl_mag_real(dev, 37)
+    for n_iter in (1, 3):
+        k5 = griffin_lim_spectrum(mag, **GL_REAL, n_iter=n_iter, inner=1, lowp=False)
+        k4 = griffin_lim_spectrum(mag, **GL_REAL, n_iter=n_iter, lowp=False)
+        assert all(torch.equal(a, b) for a, b in zip(k5, k4))
 
 
 @pytest.mark.cuda
