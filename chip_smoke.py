@@ -9,10 +9,13 @@ Phases, in order; any failure raises and exits non-zero:
 1. the card's name and power limit (nvidia-smi); no GPU -> exit 2;
 2. build every kernel from the sources in the checkout (one nvcc each,
    started together), time the build, and print each kernel's registers,
-   spills and shared memory from the ``-Xptxas -v`` log;
+   spills and shared memory from the ``-Xptxas -v`` log (both instantiations
+   of the fused decode held to no spills);
 3. each kernel against its plain PyTorch version on the card, TF32 off:
    the fused decode (full synth_gl1000 widths, B 8, T_in ~120, 50 steps)
-   in f32 and bf16 storage, its dropout keep rate and seed dependence; the
+   in f32 and bf16 storage, at the cluster size it chooses (held > 1, every
+   cluster resident) and at 1, its dropout keep rate, keep counts equal at
+   both sizes, and seed dependence; the
    Griffin-Lim kernel (K4) at 2048/275/1102, B 4, F 400, 10 iterations,
    momentum 0 and 0.99, in its f32 (split TF32 products) and its bf16
    mode; the streaming Griffin-Lim kernel (K5) over 10 calls in both modes,
@@ -50,14 +53,18 @@ Phases, in order; any failure raises and exits non-zero:
    point;
 7. K3's, K4's, K5's and the probes' time at their paths' shapes beside
    the plain version, a library yardstick and the bound (P1 at 48 and 227
-   KiB); for the Griffin-Lim kernels in both modes each launch's device
+   KiB); K3 at every cluster size (1, 2, 4, 8, 16) with the card's count of
+   resident clusters of each, microseconds per step and one cluster
+   barrier's cost, the chosen size held at least 2x faster than 1; for
+   the Griffin-Lim kernels in both modes each launch's device
    time per iteration (synthesis, overlap-add + frame, analysis, K5's
    pack), the achieved TFLOP/s and
    share of the bound, the device launches per iteration against
    ``runtime.LAUNCHES``, and a second yardstick at the padded shapes; K4's
    f32 mode against the plain f32 loop as [main] runs it (converging as
-   well; the waveform distance printed beside the loop with f64 sums, as
-   MAIN_TOL says); K4's
+   well; its waveform held at least as close to the loop with f64 sums as
+   the plain f32 loop's, the distance between the two f32 loops printed,
+   as MAIN_TOL says); K4's
    bf16 mode against its plain version as [main] runs it (1000 iterations,
    momentum 0) and on a speech-like magnitude of that shape (9 and 10
    iterations); the magnitude error that the bf16 mode of Griffin-Lim
@@ -118,15 +125,19 @@ TF32_PRODUCTS_BOUND = 3
 # iterations carry rounding differences into the phase, which GL does not
 # pin down, so GL is also held to converge as well as the plain loop, as
 # tests/unit/test_pallas_gl.py holds its kernels: magnitude error <= plain's
-# * 1.05 + 1e-3. The f32 kernel's waveform is not held there, only printed:
-# it ends 5.23e-2 of the peak from the plain f32 loop, and the plain f32
-# loop itself 5.225e-2 from the same loop with f64 sums, while the kernel is
-# 2.6-3.0e-2 from that one (scripts/gl_tf32_precision.py, NVIDIA H100 80GB
-# HBM3, 700.00 W), so after 1000 iterations on these magnitudes the distance
-# measures GL's drift, not the kernel (the CUDA-core kernel before the split
-# TF32 one: 2.0e-2). The f32 kernels' precision gate is the step check,
-# GL_F32_STEP_FACTOR; convergence is held as for every kernel
-MAIN_TOL = {"decode": 2e-2, "griffin_lim": 5e-2}
+# * 1.05 + 1e-3. The f32 kernel's waveform is held against the same loop
+# summed in f64 (gl_spectrum_reference with f64_matmul), the exact answer
+# of the f32 loop's arithmetic: its distance from it, over the peak, at
+# most "griffin_lim_f32_vs_f64" x the plain f32 loop's own distance from
+# it (2.578e-2 against 5.225e-2 on an NVIDIA H100 80GB HBM3, 700.00 W). That
+# guards against gross drift only: a build with one TF32 pass per product
+# ends 0.490 from it and fails, but the two-piece split that the step rule
+# rejects passes at 3.03e-2 (scripts/gl_tf32_precision.py, same card). Its
+# distance from the plain f32 loop is printed beside MAIN_TOL's 5e-2, not
+# held: two f32 loops 5e-2 apart after 1000 iterations on these
+# random-weight magnitudes (5.23e-2 measured) says how far GL drifts, not
+# which one errs. The f32 kernels' precision gate is GL_F32_STEP_FACTOR
+MAIN_TOL = {"decode": 2e-2, "griffin_lim": 5e-2, "griffin_lim_f32_vs_f64": 1.0}
 # bf16 Griffin-Lim, kernel vs its plain version (same rounding points; an
 # f32 sum that differs in its last bit flips a bf16 rounding, and GL carries
 # the flip on): waveform max abs error over its peak after 10 iterations on
@@ -502,7 +513,8 @@ def phase_kernels(report):
     from tacotron_tpu_torch.config import get_config
     from tacotron_tpu_torch.data.vocab import Vocab
     from tacotron_tpu_torch.dsp.fused_gl import gl_spectrum_reference, griffin_lim_spectrum
-    from tacotron_tpu_torch.ops.decode_loop import (decode_loop, decode_loop_reference,
+    from tacotron_tpu_torch.ops.decode_loop import (_decode_loop_cuda, cluster_plan,
+                                                    decode_loop, decode_loop_reference,
                                                     pack_decoder_weights)
 
     dev = torch.device("cuda")
@@ -521,37 +533,54 @@ def phase_kernels(report):
     n = 50
     checks = report.setdefault("checks", {})
 
-    log("[K3] fused decode vs plain, B 8, T_in 120, 50 steps")
+    chosen, resident = cluster_plan(memory, keys, w)
+    log(f"[K3] fused decode vs plain, B 8, T_in 120, 50 steps, at the chosen cluster size "
+        f"{chosen} and at 1 (resident clusters by size {resident})")
+    require(chosen > 1 and resident[chosen] >= memory.shape[0],
+            f"a cluster of {chosen} > 1 blocks per row, all {memory.shape[0]} resident at once")
     # (frames, alignments) max abs error; f32: summation order only; bf16:
     # rounding to bf16 flips where the two sums differ in the last bit
     tol = {False: (1e-4, 1e-5), True: (0.02, 1e-3)}
     for lowp in (False, True):
-        with torch.no_grad():
-            kf, ka = decode_loop(memory, keys, mask, w, n_steps=n, dropout=False, lowp=lowp)
-            pf, pa = decode_loop_reference(memory, keys, mask, w, n_steps=n,
-                                           dropout=False, lowp=lowp)
-        torch.cuda.synchronize()
-        ef, ea = max_err(kf, pf), max_err(ka, pa)
-        scale = float(pf.abs().max())
-        name = "decode_f32" if not lowp else "decode_bf16"
-        checks[name] = {"frames_max_abs_err": ef, "aligns_max_abs_err": ea,
-                        "frames_peak": scale, "tol": tol[lowp]}
-        log(f"  {name}: frames err {ef:.3e} (peak {scale:.3f}), aligns err {ea:.3e}")
-        require(bool(torch.isfinite(kf).all()), f"{name} frames finite")
-        require(ef <= tol[lowp][0] and ea <= tol[lowp][1],
-                f"{name} within tolerance frames {tol[lowp][0]}, alignments {tol[lowp][1]}")
-        require(bool((ka[1, :, 96:] < 1e-6).all()), f"{name} mask respected")
+        for cluster in (chosen, 1):
+            with torch.no_grad():
+                if cluster == chosen:
+                    kf, ka = decode_loop(memory, keys, mask, w, n_steps=n, dropout=False,
+                                         lowp=lowp)
+                else:
+                    kf, ka = _decode_loop_cuda(memory, keys, mask, w, n_steps=n, seed=0,
+                                               dropout=False, dropout_rate=0.5, lowp=lowp,
+                                               return_keep_counts=False, _cluster=cluster)
+                pf, pa = decode_loop_reference(memory, keys, mask, w, n_steps=n,
+                                               dropout=False, lowp=lowp)
+            torch.cuda.synchronize()
+            ef, ea = max_err(kf, pf), max_err(ka, pa)
+            scale = float(pf.abs().max())
+            name = ("decode_f32" if not lowp else "decode_bf16") + (
+                "" if cluster == chosen else "_cluster1")
+            checks[name] = {"frames_max_abs_err": ef, "aligns_max_abs_err": ea,
+                            "frames_peak": scale, "tol": tol[lowp], "cluster": cluster}
+            log(f"  {name} (cluster {cluster}): frames err {ef:.3e} (peak {scale:.3f}), "
+                f"aligns err {ea:.3e}")
+            require(bool(torch.isfinite(kf).all()), f"{name} frames finite")
+            require(ef <= tol[lowp][0] and ea <= tol[lowp][1],
+                    f"{name} within tolerance frames {tol[lowp][0]}, alignments {tol[lowp][1]}")
+            require(bool((ka[1, :, 96:] < 1e-6).all()), f"{name} mask respected")
 
     with torch.no_grad():
         f1, _, kc = decode_loop(memory, keys, mask, w, n_steps=n, seed=1,
                                 dropout_rate=0.5, return_keep_counts=True)
         f2, _ = decode_loop(memory, keys, mask, w, n_steps=n, seed=2, dropout_rate=0.5)
         f1b, _ = decode_loop(memory, keys, mask, w, n_steps=n, seed=1, dropout_rate=0.5)
+        _, _, kc1 = _decode_loop_cuda(memory, keys, mask, w, n_steps=n, seed=1, dropout=True,
+                                      dropout_rate=0.5, lowp=True, return_keep_counts=True,
+                                      _cluster=1)
     units = memory.shape[0] * n * (w.p_w0.shape[0] + w.p_w1.shape[0])
     keep_rate = float(kc.sum()) / units
-    checks["decode_dropout"] = {"keep_rate": keep_rate, "units": units}
+    checks["decode_dropout"] = {"keep_rate": keep_rate, "units": units, "cluster": chosen}
     log(f"  dropout keep rate {keep_rate:.5f} over {units} units")
     require(abs(keep_rate - 0.5) <= 0.01, "dropout keep rate within 0.5 +- 0.01")
+    require(torch.equal(kc, kc1), f"keep counts equal at cluster sizes {chosen} and 1")
     require(not torch.allclose(f1, f2), "different seeds give different frames")
     require(torch.equal(f1, f1b), "the same seed gives the same frames")
 
@@ -1066,8 +1095,10 @@ def phase_timing(report, synth, launches, mag, f32_spec, f32_time):
     (device ms, gl_stages) are the f32 kernel's result and time from
     [main]'s Griffin-Lim run."""
     from tacotron_tpu_torch.dsp.fused_gl import f64_matmul, gl_spectrum_reference
-    from tacotron_tpu_torch.ops.decode_loop import (decode_loop, decode_loop_reference,
-                                                    pack_decoder_weights)
+    from tacotron_tpu_torch.ops.decode_loop import (CLUSTER_SIZES, _decode_loop_cuda,
+                                                    cluster_plan, decode_loop,
+                                                    decode_loop_reference, pack_decoder_weights)
+    from tacotron_tpu_torch.probe import probe_cluster_barrier
 
     dev = torch.device("cuda")
     cfg, m = synth.cfg, synth.model
@@ -1095,6 +1126,29 @@ def phase_timing(report, synth, launches, mag, f32_spec, f32_time):
     log(f"  decode at main shapes: frames err {d_err:.3e}, aligns err {max_err(ka, pa):.3e}")
     require(d_err <= MAIN_TOL["decode"], f"decode at main shapes within {MAIN_TOL['decode']}")
     dbound = decode_bound(w, memory, keys, n)
+    b = memory.shape[0]
+    chosen, resident = cluster_plan(memory, keys, w)
+    sweep, barrier_us, barrier_clusters = {}, {}, {}
+    with torch.no_grad():
+        for c in CLUSTER_SIZES:
+            def run():
+                _decode_loop_cuda(memory, keys, mask, w, seed=5, dropout=True, lowp=True,
+                                  return_keep_counts=False, _cluster=c, **dkw)
+            run()
+            sweep[c] = cuda_ms(run, reps=3)
+            # the cluster barrier alone: N barriers less none, over N, in as
+            # many clusters of c as the card holds at once, up to B
+            nb, k = 20000, min(b, resident[c])
+            t0 = cuda_ms(lambda: probe_cluster_barrier(k, c, 0), reps=3)
+            t1 = cuda_ms(lambda: probe_cluster_barrier(k, c, nb), reps=3)
+            barrier_us[c], barrier_clusters[c] = (t1 - t0) / nb * 1e3, k
+            log(f"  K3 cluster {c:2d}: {resident[c]:3d} clusters resident, {sweep[c]:.3f} ms, "
+                f"{sweep[c] / n * 1e3:.2f} us per step; cluster barrier {barrier_us[c]:.3f} us "
+                f"({k} clusters)")
+    log(f"  K3 at the chosen cluster size {chosen}: {k_ms:.3f} ms, {sweep[1] / sweep[chosen]:.2f}x "
+        f"faster than at 1 ({sweep[1]:.3f} ms)")
+    require(sweep[1] >= 2 * sweep[chosen],
+            f"K3 at cluster size {chosen} at least 2x faster than at 1")
     dec = {"name": "decode_loop", "route": "cuda",
            "source": "tacotron_tpu_torch/csrc/decode_loop.cu",
            "replaces": "tacotron_tpu/ops/pallas/decode_loop.py:103",
@@ -1102,7 +1156,11 @@ def phase_timing(report, synth, launches, mag, f32_spec, f32_time):
            "max_abs_err": d_err,
            "ms": k_ms, "plain_ms": p_ms,
            "bound_ms": dbound[0], "bound_by": dbound[1], "library_ms": None,
-           "shape": f"B {memory.shape[0]} T_in {memory.shape[1]} steps {n} bf16"}
+           "shape": f"B {b} T_in {memory.shape[1]} steps {n} bf16",
+           "cluster": chosen, "us_per_step": k_ms / n * 1e3,
+           "resident_clusters": resident, "ms_by_cluster": sweep,
+           "us_per_step_by_cluster": {c: v / n * 1e3 for c, v in sweep.items()},
+           "cluster_barrier_us": barrier_us, "cluster_barrier_clusters": barrier_clusters}
 
     acfg = cfg.audio
     n_it = acfg.griffin_lim_iters
@@ -1118,11 +1176,16 @@ def phase_timing(report, synth, launches, mag, f32_spec, f32_time):
     tol = MAIN_TOL["griffin_lim"]
     chk["kernel_vs_f64_sums"] = gl_errors(f32_spec, exact, mag, acfg)[0]
     chk["plain_f32_vs_f64_sums"] = gl_errors(res["plain"], exact, mag, acfg)[0]
+    factor = MAIN_TOL["griffin_lim_f32_vs_f64"]
     log(f"  its waveform {chk['wav_max_abs_err_over_peak']:.3e} of the peak from the plain f32 "
         f"loop is " + ("within" if chk["wav_max_abs_err_over_peak"] <= tol else "PAST")
-        + f" MAIN_TOL {tol}, printed, not held: the loop with f64 sums ends "
+        + f" MAIN_TOL {tol} (printed); the loop with f64 sums ends "
         f"{chk['kernel_vs_f64_sums']:.3e} from the kernel and {chk['plain_f32_vs_f64_sums']:.3e} "
-        f"from the plain f32 loop; the precision gate is the f32 step check")
+        f"from the plain f32 loop")
+    chk["f64_factor"] = factor
+    require(chk["kernel_vs_f64_sums"] <= factor * chk["plain_f32_vs_f64_sums"],
+            f"griffin_lim f32 at main shapes: the kernel's waveform within {factor} x the plain "
+            f"f32 loop's distance from the loop with f64 sums")
     report["checks"]["griffin_lim_main_shapes"] = chk
     gl_err = chk["wav_max_abs_err_over_peak"]
     rows, nb, win = mag.shape[0] * mag.shape[1], mag.shape[2], acfg.win_length
@@ -1137,7 +1200,10 @@ def phase_timing(report, synth, launches, mag, f32_spec, f32_time):
                   "selects the f32 kernel",
           "max_abs_err": gl_err,
           "max_abs_err_of": "the waveform against the plain f32 loop's after the 1000 iterations, "
-                            "over its peak: printed, not held (MAIN_TOL)",
+                            "over its peak (printed; held: the distance from the loop with f64 "
+                            "sums, kernel_vs_f64_sums, within the plain f32 loop's)",
+          "kernel_vs_f64_sums": chk["kernel_vs_f64_sums"],
+          "plain_f32_vs_f64_sums": chk["plain_f32_vs_f64_sums"],
           "ms": gk_ms, "plain_ms": gp_ms,
           "bound_ms": gbound[0], "bound_by": gbound[1], "library_ms": gl_lib_ms,
           "library_padded_ms": gl_lib_pad_ms, "bound_cuda_cores_ms": cores_ms,
@@ -1751,6 +1817,9 @@ def main(argv=None) -> int:
             log(f"  ptxas {name}: {k['kernel']}: {k.get('registers')} registers, "
                 f"{k.get('spill_stores')} / {k.get('spill_loads')} bytes spill stores / loads, "
                 f"{k.get('static_smem')} bytes static smem")
+    k3 = [k for k in report["ptxas"]["decode_loop"] if k["kernel"].startswith("decode_loop_kernel")]
+    require(len(k3) == 2 and all(k.get("spill_stores") == k.get("spill_loads") == 0 for k in k3),
+            "both K3 instantiations (bf16, f32) built without spills")
     from tacotron_tpu_torch.dsp.fused_gl import tensor_core_smem_bytes
     report["gl_wgmma_dynamic_smem"] = tensor_core_smem_bytes()
     log(f"  gl_wgmma dynamic shared memory per block, bytes, by mode: "

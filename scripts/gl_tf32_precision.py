@@ -11,7 +11,8 @@ products: ``committed`` (3 and 2, i + j <= 2: five products),
 ``a3_b2_four`` (3 and 2 without small.small (1, 1): four), ``a2_b2_four``
 (2 and 2, i + j <= 2, small.small included: four), ``a2_b2_three`` (the
 classic big/small split, big.big + big.small + small.big: three) and
-``a3_b3_six`` (3 and 3, i + j <= 2: six). Each variant's pieces are passed
+``a3_b3_six`` (3 and 3, i + j <= 2: six) and ``a1_b1_one`` (one TF32 pass of
+each operand, the control that is no f32 product). Each variant's pieces are passed
 to the host side, which splits the bases (``fused_gl.TF32_PIECES``, set
 here for each variant's calls). For each, on three magnitudes
 (synth_gl1000's spectrogram from a
@@ -61,6 +62,8 @@ VARIANTS = {
     "a2_b2_four": ((2, 2), 4, [(PIECES_A, "constexpr int kPiecesA = 2;")]),
     "a2_b2_three": ((2, 2), 3, [(PIECES_A, "constexpr int kPiecesA = 2;"), NO_SMALL_SMALL]),
     "a3_b3_six": ((3, 3), 6, [(PIECES_B, "constexpr int kPiecesB = 3;")]),
+    "a1_b1_one": ((1, 1), 1, [(PIECES_A, "constexpr int kPiecesA = 1;"),
+                              (PIECES_B, "constexpr int kPiecesB = 1;")]),
 }
 DEPTHS = (0, 1, 2, 4, 9)
 ITERS = 1000

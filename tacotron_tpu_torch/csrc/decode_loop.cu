@@ -10,33 +10,72 @@
 // is a chain of dependent matrix-vector products over ~1.57 M decoder
 // weights (3.1 MB in bf16). That is too big for one SM's 227 KB of shared
 // memory, so the weights are read from global memory every step; after the
-// first step they are served by the 50 MB L2. The step is latency-bound:
+// first step they are served by the 50 MB L2. The step is bound by the L2's
+// latency and by the share of L2 bandwidth that the SMs reading it get:
 // FLOPs and HBM bytes are far below the card's rates.
 //
-// Design: one persistent thread block walks all steps for its batch row
-// (kRows rows; the code is written for ROWS rows per block).
-// Recurrent state (h_att, h0, h1, context, previous frame) and the step's
-// activations live in shared memory in f32. Products are warp-per-output
-// dot products over the weight row (PyTorch (out, in) layout, 16-byte
-// vector loads, f32 accumulation, shuffle reduction). The softmax over T_in
-// is one warp per row; the context is a weighted sum over the row's memory.
-// Storage T is bf16 (lowp) or f32; the TPU kernel's rounding points are
-// kept: dot inputs are rounded to T, the energy is tanh(keys + q) in T,
-// the v-contraction is f32, the context product is formed in T and summed
-// in f32. Dropout uses a counter-based hash keyed by (seed, row, step,
-// layer, unit): keep iff bits < keep * 2^32, scaled by 1/keep.
+// Design: each batch row runs on one thread-block cluster of C blocks (C =
+// 1, 2, 4, 8 or 16; the wrapper picks the largest C for which all B
+// clusters are resident at once), one block per SM, walking all steps.
+// The TPU kernel steps a tile of rows in one core; this one spreads one row
+// over C SMs, because SMs are what the H100 has in excess at small B.
+// Every block keeps its own full copy of the row's state and the step's
+// vectors in f32 shared memory. Each phase of a step is split over the
+// cluster: the block of rank r computes its slice of the phase's outputs
+// (output units of a product, encoder positions of the energy, memory
+// columns of the context) and pushes each output into every block's copy
+// through distributed shared memory; one cluster barrier follows, then
+// every block stages its own rounded product inputs from its copy. The
+// softmax and the GRU state updates are not split: every block computes
+// them whole, from bit-equal inputs in the same order, so the copies stay
+// bit-equal. 13 cluster barriers per step. A cluster of 1 is one block per
+// row, the same work in the same order.
+//
+// Products are warp-per-output dot products over the weight row (PyTorch
+// (out, in) layout, 16-byte vector loads, f32 accumulation, shuffle
+// reduction), the same in every block whatever C is. Storage T is bf16
+// (lowp) or f32; the TPU kernel's rounding points are kept: dot inputs are
+// rounded to T, the energy is tanh(keys + q) in T, the v-contraction is
+// f32, the context product is formed in T and summed in f32. Dropout uses
+// a counter-based hash keyed by (seed, row, step, layer, unit), evaluated
+// by the unit's owner: keep iff bits < keep * 2^32, scaled by 1/keep; so
+// the masks do not depend on C.
 #include <algorithm>
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 512;
-// Batch rows per block. One row per block spreads a batch of up to 132 rows
-// over the SMs; the step's latency, not its arithmetic, sets the time.
-// Rows > 1 would let one weight read serve several rows (the lever for
-// batches beyond the SM count); only 1 is built and tested.
-constexpr int kRows = 1;
+constexpr int kMaxCluster = 16;  // non-portable above 8; one GPC at most
+// The context's partial sums: at most 32 parts of the positions per column
+// (one warp adds them), each thread's of up to 8 columns (a bf16 vector)
+constexpr int kMaxParts = 32;
+constexpr int kPartVec = 8;
+
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+
+// Built with -DTT_DECODE_PHASE_CLOCK (scripts/k3_study.py), thread 0
+// of block 0 (row 0, rank 0) adds up the SM clock spent in each phase of
+// every step, waits at the phase's barrier included, into kPhases
+// counters that tt_decode_loop_phase_cycles reads back. Otherwise the
+// marks compile to nothing.
+constexpr int kPhases = 14;
+#ifdef TT_DECODE_PHASE_CLOCK
+__device__ unsigned long long g_phase_cycles[kPhases];
+#define PHASE_MARK(k)                                            \
+  if (blockIdx.x == 0 && threadIdx.x == 0) {                     \
+    const long long now = clock64();                             \
+    phase_cycles[k] += (unsigned long long)(now - phase_last);   \
+    phase_last = now;                                            \
+  }
+#else
+#define PHASE_MARK(k)
+#endif
 enum Act { kNone = 0, kRelu = 1, kSigmoid = 2, kTanh = 3 };
 
 template <typename T> struct DecW {
@@ -76,32 +115,50 @@ __device__ __forceinline__ float activate(float x, int act) {
   }
 }
 
-// y[r][o] = act(sum_i x[r][i] * W[o][i] + b[o]) for ROWS rows; x is already
-// rounded to the storage type. One warp per output column; each warp works
-// on U columns at once so that U weight loads are in flight together (the
-// product is bound by L2 latency, not by arithmetic).
-template <int ROWS, typename T>
-__device__ void matvec(const T* __restrict__ W, const T* __restrict__ bias,
-                       int K, int N, const float* x, int ldx, float* y,
-                       int ldy, int act) {
+// The items [lo, hi) of n that cluster rank r of c owns: floor(r n / c) to
+// floor((r + 1) n / c), so slices differ by at most one item.
+// ops/decode_loop.py::cluster_slice is the same rule.
+struct Slice {
+  int lo, hi;
+  __device__ Slice(int n, int c, int r) : lo(r * n / c), hi((r + 1) * n / c) {}
+};
+
+// Pushes into every block's copy of a shared buffer. Warp-level: every lane
+// holds the value (after a butterfly warp_sum), and lane p < C stores it
+// into block p's copy (the block's own copy included).
+struct Peers {
+  float* smem;  // this block's dynamic shared memory
+  float* peer;  // lane p < C: block p's, mapped into the cluster's window
+  int C;
+  __device__ __forceinline__ void push(float* buf, int i, float v, int lane) const {
+    if (lane < C) peer[(buf - smem) + i] = v;
+  }
+};
+
+// act(sum_i x[i] * W[o][i] + b[o]) for the outputs o in [lo, hi); x is
+// already rounded to the storage type. One warp per output; each warp works
+// on U outputs at once so that U weight loads are in flight together (the
+// product is bound by L2 latency, not by arithmetic). epi(o, y, lane) is
+// called by all 32 lanes of the output's warp.
+template <typename T, typename Epi>
+__device__ __forceinline__ void matvec(const T* __restrict__ W, const T* __restrict__ bias,
+                                       int K, Slice s, const float* x, int act, Epi epi) {
   constexpr int V = tt::Vec<T>::V;
   constexpr int U = 4;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   const bool vec = (K % V) == 0;
-  for (int o0 = warp; o0 < N; o0 += nwarps * U) {
-    float acc[U][ROWS];
+  for (int o0 = s.lo + warp; o0 < s.hi; o0 += nwarps * U) {
+    float acc[U];
 #pragma unroll
-    for (int u = 0; u < U; ++u)
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) acc[u][r] = 0.f;
+    for (int u = 0; u < U; ++u) acc[u] = 0.f;
     if (vec) {
       for (int i = lane * V; i < K; i += 32 * V) {
         float wv[U][V];
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           const int o = o0 + u * nwarps;
-          if (o < N) {
+          if (o < s.hi) {
             tt::Vec<T>::load(W + (size_t)o * K + i, wv[u]);
           } else {
 #pragma unroll
@@ -109,331 +166,467 @@ __device__ void matvec(const T* __restrict__ W, const T* __restrict__ bias,
           }
         }
 #pragma unroll
-        for (int j = 0; j < V; ++j)
+        for (int j = 0; j < V; ++j) {
+          const float xv = x[i + j];
 #pragma unroll
-          for (int r = 0; r < ROWS; ++r) {
-            const float xv = x[r * ldx + i + j];
-#pragma unroll
-            for (int u = 0; u < U; ++u) acc[u][r] = fmaf(wv[u][j], xv, acc[u][r]);
-          }
+          for (int u = 0; u < U; ++u) acc[u] = fmaf(wv[u][j], xv, acc[u]);
+        }
       }
     } else {
       for (int i = lane; i < K; i += 32) {
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           const int o = o0 + u * nwarps;
-          const float wv = o < N ? tt::to_f32(W[(size_t)o * K + i]) : 0.f;
-#pragma unroll
-          for (int r = 0; r < ROWS; ++r) acc[u][r] = fmaf(wv, x[r * ldx + i], acc[u][r]);
+          const float wv = o < s.hi ? tt::to_f32(W[(size_t)o * K + i]) : 0.f;
+          acc[u] = fmaf(wv, x[i], acc[u]);
         }
       }
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int o = o0 + u * nwarps;
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) acc[u][r] = tt::warp_sum(acc[u][r]);
-      if (lane == 0 && o < N) {
-        const float b = bias ? tt::to_f32(bias[o]) : 0.f;
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) y[r * ldy + o] = activate(acc[u][r] + b, act);
-      }
+      const float v = tt::warp_sum(acc[u]);
+      if (o < s.hi) epi(o, activate(v + (bias ? tt::to_f32(bias[o]) : 0.f), act), lane);
     }
   }
 }
 
-// dst[r][off + i] = round_to<T>(src[r][i]) for i < n
-template <int ROWS, typename T>
-__device__ void stage(float* dst, int ldd, int off, const float* src, int lds,
-                      int n) {
-  for (int idx = threadIdx.x; idx < ROWS * n; idx += blockDim.x) {
-    int r = idx / n, i = idx % n;
-    dst[r * ldd + off + i] = tt::round_to<T>(src[r * lds + i]);
+// dst[i] = round_to<T>(src[i]) for i < n
+template <typename T>
+__device__ __forceinline__ void stage(float* dst, const float* src, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = tt::round_to<T>(src[i]);
+}
+
+// The context columns [VV g.lo, VV g.hi) (g: groups of VV columns; VV is
+// the vector width, or 1 where M is not a multiple of it): sum_t
+// round(round(al[t]) * mem[t][m]) in f32. Threads take (group, part of the
+// positions); the parts' sums go through part, and one warp adds a
+// column's parts in a fixed shuffle order and pushes the column.
+template <typename T, int VV>
+__device__ __forceinline__ void context(const T* __restrict__ mem, const float* al, int Tn,
+                                        int M, Slice g, float* part, float* ctx,
+                                        const Peers& pe) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int nvec = g.hi - g.lo, width = nvec * VV;
+  const int ntp = nvec > 0 ? max(1, min(kMaxParts, (int)blockDim.x / nvec)) : 0;
+  for (int it = threadIdx.x; it < nvec * ntp; it += blockDim.x) {
+    const int vi = it % nvec, tp = it / nvec;
+    const int m0 = (g.lo + vi) * VV;
+    float acc[VV];
+#pragma unroll
+    for (int j = 0; j < VV; ++j) acc[j] = 0.f;
+#pragma unroll 4
+    for (int t = tp; t < Tn; t += ntp) {
+      float mv[VV];
+      if constexpr (VV == 1) {
+        mv[0] = tt::to_f32(mem[(size_t)t * M + m0]);
+      } else {
+        tt::Vec<T>::load(mem + (size_t)t * M + m0, mv);
+      }
+      const float a = tt::round_to<T>(al[t]);
+#pragma unroll
+      for (int j = 0; j < VV; ++j) acc[j] += tt::round_to<T>(a * mv[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < VV; ++j) part[tp * width + vi * VV + j] = acc[j];
+  }
+  __syncthreads();
+  for (int e = warp; e < width; e += nwarps) {
+    float s = 0.f;
+    for (int tp = lane; tp < ntp; tp += 32) s += part[tp * width + e];
+    pe.push(ctx, g.lo * VV + e, tt::warp_sum(s), lane);
   }
 }
 
-// TF1 GRU step on shared-memory state h (ROWS x d) with input x (ROWS x kx),
-// staged in inb: ru = sigmoid(Wg [x, h] + bg); c = tanh(Wc [x, r*h] + bc);
-// h = u*h + (1-u)*c. The caller has staged rounded x in inb[:, 0:kx].
-template <int ROWS, typename T>
-__device__ void gru_step(const T* wg, const T* bg, const T* wc, const T* bc,
-                         int kx, int d, float* h, float* inb, int ldi,
-                         float* ru, float* cand) {
-  stage<ROWS, T>(inb, ldi, kx, h, d, d);
-  __syncthreads();
-  matvec<ROWS, T>(wg, bg, kx + d, 2 * d, inb, ldi, ru, 2 * d, kSigmoid);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < ROWS * d; idx += blockDim.x) {
-    int r = idx / d, i = idx % d;
-    inb[r * ldi + kx + i] = tt::round_to<T>(ru[r * 2 * d + i] * h[r * d + i]);
+// Shared memory, in floats, in this order. The state (prev .. hs) comes
+// first, zeroed at the start.
+struct Layout {
+  int NM, P0, P1, AG, M, D, KI, HD, A, T, part;
+  __host__ __device__ explicit Layout(const Dims& d)
+      : NM(d.NM), P0(d.P0), P1(d.P1), AG(d.AG), M(d.M), D(d.D),
+        KI(imax(imax(d.NM, d.P0), imax(d.P1 + d.M + d.AG, imax(d.AG + d.M, 2 * d.D)))),
+        HD(imax(d.AG, d.D)), A(d.A), T(d.T),
+        // parts x columns: at most one thread's vector each, or all M
+        // columns in one part where there are more than threads
+        part(imax(kThreads * kPartVec, d.M)) {}
+  __host__ __device__ int state() const { return NM + P0 + P1 + AG + M + 3 * D; }
+  __host__ __device__ int floats() const {
+    return state() + KI + 2 * HD + 2 * D + HD + A + T + A + part;
   }
-  __syncthreads();
-  matvec<ROWS, T>(wc, bc, kx + d, d, inb, ldi, cand, d, kTanh);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < ROWS * d; idx += blockDim.x) {
-    int r = idx / d, i = idx % d;
-    float u = ru[r * 2 * d + d + i];
-    h[idx] = u * h[idx] + (1.f - u) * cand[idx];
+  // floats, then the keep counters: one of this block's, one per rank
+  __host__ __device__ size_t bytes() const {
+    return sizeof(float) * floats() + sizeof(int) * (1 + kMaxCluster);
   }
-  __syncthreads();
-}
+};
 
-template <int ROWS, typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
 decode_loop_kernel(const T* __restrict__ memory, const T* __restrict__ keys,
                    const float* __restrict__ maskbias, DecW<T> w, Dims dm,
                    uint32_t seed, uint32_t keep_threshold, float keep_scale,
                    int dropout, float* __restrict__ frames,
                    float* __restrict__ aligns, int* __restrict__ keep_counts) {
   constexpr int V = tt::Vec<T>::V;
-  const int B = dm.B, Tn = dm.T, M = dm.M, A = dm.A, NM = dm.NM;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int row = blockIdx.x / C;
+  const int Tn = dm.T, M = dm.M, A = dm.A, NM = dm.NM;
   const int P0 = dm.P0, P1 = dm.P1, AG = dm.AG, D = dm.D;
   const int RN = dm.R * NM;
-  const int KI = max(max(NM, P0), max(P1 + M + AG, max(AG + M, 2 * D)));
-  const int HD = max(AG, D);
-  const int row0 = blockIdx.x * ROWS;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
+  const Layout L(dm);
 
+  // Buffers and their writers. "pushed": every block's copy is written by
+  // the owners of its slices in one phase, and read by every block after
+  // that phase's cluster barrier; "local": each block writes its own copy.
+  // A pushed buffer's next push comes at least one cluster barrier after
+  // its last read (checked phase by phase below), so one barrier per phase
+  // is enough. The two GRU gate buffers alternate (ruA: attention GRU and
+  // decoder GRU 1; ruB: decoder GRU 0) because decoder GRU 1's gates are
+  // pushed in the phase whose staging still reads decoder GRU 0's update
+  // gate.
   extern __shared__ float smem[];
-  float* prev = smem;                  // ROWS x NM
-  float* x0 = prev + ROWS * NM;        // ROWS x P0
-  float* x1 = x0 + ROWS * P0;          // ROWS x P1
-  float* h_att = x1 + ROWS * P1;       // ROWS x AG
-  float* ctx = h_att + ROWS * AG;      // ROWS x M
-  float* h0 = ctx + ROWS * M;          // ROWS x D
-  float* h1 = h0 + ROWS * D;           // ROWS x D
-  float* hs = h1 + ROWS * D;           // ROWS x D: residual stream
-  float* inb = hs + ROWS * D;          // ROWS x KI: rounded product inputs
-  float* ru = inb + ROWS * KI;         // ROWS x 2*HD
-  float* cand = ru + ROWS * 2 * HD;    // ROWS x HD
-  float* q = cand + ROWS * HD;         // ROWS x A
-  float* fr = q + ROWS * A;            // ROWS x RN
-  float* sc = fr + ROWS * RN;          // ROWS x T: scores, then alignment
-  float* vv = sc + ROWS * Tn;          // A: energy vector in f32
-  float* part = vv + A;                // nwarps x M: context partial sums
-  int* kc = reinterpret_cast<int*>(part + nwarps * M);  // ROWS keep counters
+  float* prev = smem;                // NM  pushed, phase 14; read phase 1
+  float* x0 = prev + NM;             // P0  pushed, phase 1; read phase 2
+  float* x1 = x0 + P0;               // P1  pushed, phase 2; read phase 3
+  float* h_att = x1 + P1;            // AG  local, phase 5; read 3, 4, 5, 9
+  float* ctx = h_att + AG;           // M   pushed, phase 8; read 9, 3 (next step)
+  float* h0 = ctx + M;               // D   local, phase 12; read 10, 11, 12
+  float* h1 = h0 + D;                // D   local, phase 14; read 12, 13, 14
+  float* hs = h1 + D;                // D   pushed, phase 9; local 12, 14; read 10, 12, 14
+  float* inb = hs + D;               // KI  local: each phase's rounded product inputs
+  float* ruA = inb + L.KI;           // 2HD pushed, phases 3, 12; read 4, 5, 13, 14
+  float* ruB = ruA + 2 * L.HD;       // 2D  pushed, phase 10; read 11, 12
+  float* cand = ruB + 2 * D;         // HD  pushed, phases 4, 11, 13; read 5, 12, 14
+  float* q = cand + L.HD;            // A   pushed, phase 5; read 6
+  float* sc = q + A;                 // T   pushed, phase 6; softmax in place (local) 7; read 8
+  float* vv = sc + Tn;               // A   the energy vector in f32, constant
+  float* part = vv + A;              // context partial sums, local, phase 8
+  int* kc = reinterpret_cast<int*>(part + L.part);  // this block's keep count
+  int* kc_rank = kc + 1;             // rank 0's: pushed phase 3, read phase 14
 
-  int rows[ROWS];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) rows[r] = min(row0 + r, B - 1);
+  Peers pe{smem, cluster.map_shared_rank(smem, lane < C ? lane : 0), C};
+  auto push_to = [&](float* buf) {
+    return [&pe, buf](int o, float y, int ln) { pe.push(buf, o, y, ln); };
+  };
+  auto drop = [&](int step, int layer, float* buf) {
+    return [=, &pe](int o, float y, int ln) {
+      if (dropout) {
+        const bool keep = dropout_bits(seed, row, step, layer, o) < keep_threshold;
+        y = keep ? y * keep_scale : 0.f;
+        if (keep_counts && keep && ln == 0) atomicAdd(kc, 1);
+      }
+      pe.push(buf, o, y, ln);
+    };
+  };
 
-  for (int i = threadIdx.x; i < ROWS * (NM + P0 + P1 + AG + M + 3 * D); i += blockDim.x)
-    smem[i] = 0.f;
+  for (int i = threadIdx.x; i < L.state(); i += blockDim.x) smem[i] = 0.f;
   for (int i = threadIdx.x; i < A; i += blockDim.x) vv[i] = tt::to_f32(w.at_v[i]);
-  __syncthreads();
+#ifdef TT_DECODE_PHASE_CLOCK
+  __shared__ unsigned long long phase_cycles[kPhases];
+  long long phase_last = 0;
+  if (threadIdx.x < kPhases) phase_cycles[threadIdx.x] = 0;
+#endif
+  // every block of the cluster has started and zeroed its state before any
+  // block pushes into it
+  cluster.sync();
+#ifdef TT_DECODE_PHASE_CLOCK
+  phase_last = clock64();
+#endif
 
   for (int step = 0; step < dm.n_steps; ++step) {
-    if (threadIdx.x < ROWS) kc[threadIdx.x] = 0;
-    // ---- prenet: two Dense+ReLU layers, each followed by dropout
-    stage<ROWS, T>(inb, KI, 0, prev, NM, NM);
+    // 1. prenet layer 0: Dense + ReLU + dropout, split by output unit
+    if (threadIdx.x == 0) *kc = 0;
+    stage<T>(inb, prev, NM);
     __syncthreads();
-    matvec<ROWS, T>(w.p_w0, w.p_b0, NM, P0, inb, KI, x0, P0, kRelu);
+    matvec<T>(w.p_w0, w.p_b0, NM, Slice(P0, C, rank), inb, kRelu, drop(step, 0, x0));
+    cluster.sync();
+    PHASE_MARK(0);
+    // 2. prenet layer 1
+    stage<T>(inb, x0, P0);
     __syncthreads();
-    for (int layer = 0; layer < 2; ++layer) {
-      float* xl = layer == 0 ? x0 : x1;
-      const int n = layer == 0 ? P0 : P1;
-      if (dropout) {
-        for (int idx = threadIdx.x; idx < ROWS * n; idx += blockDim.x) {
-          int r = idx / n, u = idx % n;
-          bool keep = dropout_bits(seed, rows[r], step, layer, u) < keep_threshold;
-          xl[idx] = keep ? xl[idx] * keep_scale : 0.f;
-          if (keep_counts && keep) atomicAdd(&kc[r], 1);
-        }
-        __syncthreads();
-      }
-      if (layer == 0) {
-        stage<ROWS, T>(inb, KI, 0, x0, P0, P0);
-        __syncthreads();
-        matvec<ROWS, T>(w.p_w1, w.p_b1, P0, P1, inb, KI, x1, P1, kRelu);
-        __syncthreads();
-      }
+    matvec<T>(w.p_w1, w.p_b1, P0, Slice(P1, C, rank), inb, kRelu, drop(step, 1, x1));
+    cluster.sync();
+    PHASE_MARK(1);
+
+    // 3. attention GRU gates on [prenet out, previous context, h_att]; this
+    // block's keep count goes to rank 0
+    if (keep_counts && threadIdx.x == 0) *cluster.map_shared_rank(kc_rank + rank, 0) = *kc;
+    const int KA = P1 + M;
+    stage<T>(inb, x1, P1);
+    stage<T>(inb + P1, ctx, M);
+    stage<T>(inb + KA, h_att, AG);
+    __syncthreads();
+    matvec<T>(w.ag_wg, w.ag_bg, KA + AG, Slice(2 * AG, C, rank), inb, kSigmoid, push_to(ruA));
+    cluster.sync();
+    PHASE_MARK(2);
+    // 4. attention GRU candidate on [x, r * h_att]
+    for (int i = threadIdx.x; i < AG; i += blockDim.x)
+      inb[KA + i] = tt::round_to<T>(ruA[i] * h_att[i]);
+    __syncthreads();
+    matvec<T>(w.ag_wc, w.ag_bc, KA + AG, Slice(AG, C, rank), inb, kTanh, push_to(cand));
+    cluster.sync();
+    PHASE_MARK(3);
+    // 5. h_att = u * h_att + (1 - u) * cand in every block; the query
+    for (int i = threadIdx.x; i < AG; i += blockDim.x) {
+      const float u = ruA[AG + i];
+      h_att[i] = u * h_att[i] + (1.f - u) * cand[i];
+      inb[i] = tt::round_to<T>(h_att[i]);
     }
-
-    // ---- attention GRU on [prenet out, previous context]
-    stage<ROWS, T>(inb, KI, 0, x1, P1, P1);
-    stage<ROWS, T>(inb, KI, P1, ctx, M, M);
-    gru_step<ROWS, T>(w.ag_wg, w.ag_bg, w.ag_wc, w.ag_bc, P1 + M, AG, h_att,
-                      inb, KI, ru, cand);
-
-    // ---- Bahdanau energy, masked softmax, context
-    stage<ROWS, T>(inb, KI, 0, h_att, AG, AG);
     __syncthreads();
-    matvec<ROWS, T>(w.at_wq, nullptr, AG, A, inb, KI, q, A, kNone);
-    __syncthreads();
-    for (int p = warp; p < ROWS * Tn; p += nwarps) {
-      const int r = p / Tn, t = p % Tn;
-      const T* k = keys + ((size_t)rows[r] * Tn + t) * A;
-      const float* qr = q + r * A;
-      float acc = 0.f;
-      if (A % V == 0) {
-        for (int i = lane * V; i < A; i += 32 * V) {
-          float kv[V];
-          tt::Vec<T>::load(k + i, kv);
+    matvec<T>(w.at_wq, (const T*)nullptr, AG, Slice(A, C, rank), inb, kNone, push_to(q));
+    cluster.sync();
+    PHASE_MARK(4);
+
+    // 6. Bahdanau energy, split by encoder position: one warp per position
+    {
+      const Slice s(Tn, C, rank);
+      for (int t = s.lo + warp; t < s.hi; t += nwarps) {
+        const T* k = keys + ((size_t)row * Tn + t) * A;
+        float acc = 0.f;
+        if (A % V == 0) {
+          for (int i = lane * V; i < A; i += 32 * V) {
+            float kv[V];
+            tt::Vec<T>::load(k + i, kv);
 #pragma unroll
-          for (int j = 0; j < V; ++j) {
-            float s = tt::round_to<T>(kv[j] + tt::round_to<T>(qr[i + j]));
-            acc = fmaf(tt::round_to<T>(tanhf(s)), vv[i + j], acc);
+            for (int j = 0; j < V; ++j) {
+              float e = tt::round_to<T>(kv[j] + tt::round_to<T>(q[i + j]));
+              acc = fmaf(tt::round_to<T>(tanhf(e)), vv[i + j], acc);
+            }
+          }
+        } else {
+          for (int i = lane; i < A; i += 32) {
+            float e = tt::round_to<T>(tt::to_f32(k[i]) + tt::round_to<T>(q[i]));
+            acc = fmaf(tt::round_to<T>(tanhf(e)), vv[i], acc);
           }
         }
-      } else {
-        for (int i = lane; i < A; i += 32) {
-          float s = tt::round_to<T>(tt::to_f32(k[i]) + tt::round_to<T>(qr[i]));
-          acc = fmaf(tt::round_to<T>(tanhf(s)), vv[i], acc);
-        }
+        acc = tt::warp_sum(acc);
+        pe.push(sc, t, acc + maskbias[(size_t)row * Tn + t], lane);
       }
-      acc = tt::warp_sum(acc);
-      if (lane == 0) sc[r * Tn + t] = acc + maskbias[(size_t)rows[r] * Tn + t];
     }
-    __syncthreads();
-    if (warp < ROWS) {
-      float* s = sc + warp * Tn;
+    cluster.sync();
+    PHASE_MARK(5);
+    // 7. masked softmax over all positions, whole in every block; rank 0
+    // writes the alignment row
+    if (warp == 0) {
       float mx = __int_as_float(0xff800000);  // -inf
-      for (int t = lane; t < Tn; t += 32) mx = fmaxf(mx, s[t]);
+      for (int t = lane; t < Tn; t += 32) mx = fmaxf(mx, sc[t]);
       mx = tt::warp_max(mx);
       float sum = 0.f;
       for (int t = lane; t < Tn; t += 32) {
-        float e = expf(s[t] - mx);
-        s[t] = e;
+        float e = expf(sc[t] - mx);
+        sc[t] = e;
         sum += e;
       }
       sum = tt::warp_sum(sum);
-      const bool out = row0 + warp < B;
-      float* ao = out ? aligns + ((size_t)(row0 + warp) * dm.n_steps + step) * Tn : nullptr;
+      float* ao = aligns + ((size_t)row * dm.n_steps + step) * Tn;
       for (int t = lane; t < Tn; t += 32) {
-        float a = s[t] / sum;
-        s[t] = a;
-        if (out) ao[t] = a;
+        float a = sc[t] / sum;
+        sc[t] = a;
+        if (rank == 0) ao[t] = a;
       }
     }
     __syncthreads();
-    // context: each warp sums a strided subset of encoder steps into part,
-    // then the warps' partial sums are added in a fixed order
-    for (int r = 0; r < ROWS; ++r) {
-      const T* mem = memory + (size_t)rows[r] * Tn * M;
-      const float* al = sc + r * Tn;
-      if (M % V == 0) {
-        for (int m0 = lane * V; m0 < M; m0 += 32 * V) {
-          float acc[V];
-#pragma unroll
-          for (int j = 0; j < V; ++j) acc[j] = 0.f;
-          for (int t = warp; t < Tn; t += nwarps) {
-            float mv[V];
-            tt::Vec<T>::load(mem + (size_t)t * M + m0, mv);
-            const float a = tt::round_to<T>(al[t]);
-#pragma unroll
-            for (int j = 0; j < V; ++j) acc[j] += tt::round_to<T>(a * mv[j]);
-          }
-#pragma unroll
-          for (int j = 0; j < V; ++j) part[warp * M + m0 + j] = acc[j];
-        }
-      } else {
-        for (int m = lane; m < M; m += 32) {
-          float acc = 0.f;
-          for (int t = warp; t < Tn; t += nwarps)
-            acc += tt::round_to<T>(tt::round_to<T>(al[t]) * tt::to_f32(mem[(size_t)t * M + m]));
-          part[warp * M + m] = acc;
-        }
-      }
-      __syncthreads();
-      for (int m = threadIdx.x; m < M; m += blockDim.x) {
-        float s = 0.f;
-        for (int wi = 0; wi < nwarps; ++wi) s += part[wi * M + m];
-        ctx[r * M + m] = s;
-      }
-      __syncthreads();
-    }
-
-    // ---- input projection and two residual GRUs
-    stage<ROWS, T>(inb, KI, 0, h_att, AG, AG);
-    stage<ROWS, T>(inb, KI, AG, ctx, M, M);
-    __syncthreads();
-    matvec<ROWS, T>(w.ip_w, w.ip_b, AG + M, D, inb, KI, hs, D, kNone);
-    __syncthreads();
-    for (int layer = 0; layer < 2; ++layer) {
-      float* hl = layer == 0 ? h0 : h1;
-      stage<ROWS, T>(inb, KI, 0, hs, D, D);
-      if (layer == 0)
-        gru_step<ROWS, T>(w.d0_wg, w.d0_bg, w.d0_wc, w.d0_bc, D, D, hl, inb, KI, ru, cand);
+    PHASE_MARK(6);
+    // 8. context, split by memory column
+    {
+      const T* mem = memory + (size_t)row * Tn * M;
+      if (M % V == 0)
+        context<T, V>(mem, sc, Tn, M, Slice(M / V, C, rank), part, ctx, pe);
       else
-        gru_step<ROWS, T>(w.d1_wg, w.d1_bg, w.d1_wc, w.d1_bc, D, D, hl, inb, KI, ru, cand);
-      for (int idx = threadIdx.x; idx < ROWS * D; idx += blockDim.x) hs[idx] += hl[idx];
-      __syncthreads();
+        context<T, 1>(mem, sc, Tn, M, Slice(M, C, rank), part, ctx, pe);
     }
+    cluster.sync();
+    PHASE_MARK(7);
 
-    // ---- r-frame projection; the last frame feeds the next step
-    stage<ROWS, T>(inb, KI, 0, hs, D, D);
+    // 9. input projection of [h_att, context]: the residual stream
+    stage<T>(inb, h_att, AG);
+    stage<T>(inb + AG, ctx, M);
     __syncthreads();
-    matvec<ROWS, T>(w.f_w, w.f_b, D, RN, inb, KI, fr, RN, kNone);
+    matvec<T>(w.ip_w, w.ip_b, AG + M, Slice(D, C, rank), inb, kNone, push_to(hs));
+    cluster.sync();
+    PHASE_MARK(8);
+    // 10. decoder GRU 0 gates on [hs, h0]
+    stage<T>(inb, hs, D);
+    stage<T>(inb + D, h0, D);
     __syncthreads();
-    for (int idx = threadIdx.x; idx < ROWS * RN; idx += blockDim.x) {
-      const int r = idx / RN, i = idx % RN;
-      if (row0 + r < B) frames[((size_t)(row0 + r) * dm.n_steps + step) * RN + i] = fr[idx];
-      if (i >= RN - NM) prev[r * NM + i - (RN - NM)] = fr[idx];
+    matvec<T>(w.d0_wg, w.d0_bg, 2 * D, Slice(2 * D, C, rank), inb, kSigmoid, push_to(ruB));
+    cluster.sync();
+    PHASE_MARK(9);
+    // 11. decoder GRU 0 candidate
+    for (int i = threadIdx.x; i < D; i += blockDim.x)
+      inb[D + i] = tt::round_to<T>(ruB[i] * h0[i]);
+    __syncthreads();
+    matvec<T>(w.d0_wc, w.d0_bc, 2 * D, Slice(D, C, rank), inb, kTanh, push_to(cand));
+    cluster.sync();
+    PHASE_MARK(10);
+    // 12. h0 update, hs += h0; decoder GRU 1 gates on [hs, h1]
+    for (int i = threadIdx.x; i < D; i += blockDim.x) {
+      const float u = ruB[D + i];
+      h0[i] = u * h0[i] + (1.f - u) * cand[i];
+      hs[i] += h0[i];
+      inb[i] = tt::round_to<T>(hs[i]);
+      inb[D + i] = tt::round_to<T>(h1[i]);
     }
-    if (keep_counts && threadIdx.x < ROWS && row0 + threadIdx.x < B)
-      keep_counts[(size_t)(row0 + threadIdx.x) * dm.n_steps + step] = kc[threadIdx.x];
     __syncthreads();
+    matvec<T>(w.d1_wg, w.d1_bg, 2 * D, Slice(2 * D, C, rank), inb, kSigmoid, push_to(ruA));
+    cluster.sync();
+    PHASE_MARK(11);
+    // 13. decoder GRU 1 candidate
+    for (int i = threadIdx.x; i < D; i += blockDim.x)
+      inb[D + i] = tt::round_to<T>(ruA[i] * h1[i]);
+    __syncthreads();
+    matvec<T>(w.d1_wc, w.d1_bc, 2 * D, Slice(D, C, rank), inb, kTanh, push_to(cand));
+    cluster.sync();
+    PHASE_MARK(12);
+    // 14. h1 update, hs += h1; the r-frame projection: the owner writes the
+    // frame, and the last frame feeds the next step
+    for (int i = threadIdx.x; i < D; i += blockDim.x) {
+      const float u = ruA[D + i];
+      h1[i] = u * h1[i] + (1.f - u) * cand[i];
+      hs[i] += h1[i];
+      inb[i] = tt::round_to<T>(hs[i]);
+    }
+    __syncthreads();
+    float* fo = frames + ((size_t)row * dm.n_steps + step) * RN;
+    matvec<T>(w.f_w, w.f_b, D, Slice(RN, C, rank), inb, kNone,
+              [&](int o, float y, int ln) {
+                if (ln == 0) fo[o] = y;
+                if (o >= RN - NM) pe.push(prev, o - (RN - NM), y, ln);
+              });
+    if (keep_counts && rank == 0 && threadIdx.x == 0) {
+      int n = 0;
+      for (int r = 0; r < C; ++r) n += kc_rank[r];
+      keep_counts[(size_t)row * dm.n_steps + step] = n;
+    }
+    // also the last: no block leaves while a peer may still push into it
+    cluster.sync();
+    PHASE_MARK(13);
   }
+#ifdef TT_DECODE_PHASE_CLOCK
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    for (int k = 0; k < kPhases; ++k) g_phase_cycles[k] = phase_cycles[k];
+#endif
 }
 
-size_t smem_bytes(const Dims& d, int rows) {
-  const int KI = std::max(std::max(d.NM, d.P0),
-                          std::max(d.P1 + d.M + d.AG, std::max(d.AG + d.M, 2 * d.D)));
-  const int HD = std::max(d.AG, d.D);
-  size_t per_row = d.NM + d.P0 + d.P1 + d.AG + d.M + 3 * d.D + KI + 3 * HD + d.A +
-                   d.R * d.NM + d.T;
-  return sizeof(float) * (rows * per_row + d.A + (kThreads / 32) * d.M) +
-         sizeof(int) * rows;
+template <typename T>
+cudaError_t configure(size_t smem) {
+  auto kern = decode_loop_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
 }
 
-template <int ROWS, typename T>
+cudaLaunchConfig_t launch_config(int blocks, int cluster, size_t smem, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename T>
 cudaError_t launch(const void* memory, const void* keys, const float* maskbias,
-                   const void* const* wp, const Dims& d, uint32_t seed,
+                   const void* const* wp, const Dims& d, int cluster, uint32_t seed,
                    uint32_t keep_threshold, float keep_scale, int dropout,
                    float* frames, float* aligns, int* keep_counts,
                    cudaStream_t stream) {
   DecW<T> w;
   const T** f = reinterpret_cast<const T**>(&w);
   for (int i = 0; i < 22; ++i) f[i] = static_cast<const T*>(wp[i]);
-  const size_t smem = smem_bytes(d, ROWS);
-  auto kern = decode_loop_kernel<ROWS, T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = Layout(d).bytes();
+  cudaError_t err = configure<T>(smem);
   if (err != cudaSuccess) return err;
-  const int grid = (d.B + ROWS - 1) / ROWS;
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(memory), static_cast<const T*>(keys), maskbias, w,
-      d, seed, keep_threshold, keep_scale, dropout, frames, aligns, keep_counts);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = launch_config(d.B * cluster, cluster, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, decode_loop_kernel<T>, static_cast<const T*>(memory),
+                           static_cast<const T*>(keys), maskbias, w, d, seed,
+                           keep_threshold, keep_scale, dropout, frames, aligns,
+                           keep_counts);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t resident(const Dims& d, int cluster, int* out) {
+  const size_t smem = Layout(d).bytes();
+  cudaError_t err = configure<T>(smem);
+  if (err != cudaSuccess) return err;
+  if (cluster == 1) {
+    int dev = 0, sms = 0, per_sm = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_loop_kernel<T>,
+                                                          kThreads, smem);
+    *out = sms * per_sm;
+    return err;
+  }
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = launch_config(cluster, cluster, smem, nullptr, &attr);
+  return cudaOccupancyMaxActiveClusters(out, decode_loop_kernel<T>, &cfg);
+}
+
+Dims dims_of(const int* dims) {
+  return Dims{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5],
+              dims[6], dims[7], dims[8], dims[9], dims[10]};
 }
 
 }  // namespace
 
 // dims: B, T_in, mem_dim, att_dim, n_mels, r, prenet0, prenet1,
 // att_gru_dim, dec_gru_dim, n_steps. weights: the 22 DecoderWeights device
-// pointers in field order. keep_counts may be null.
+// pointers in field order. cluster: blocks per batch row, 1..16 (B x
+// cluster blocks). keep_counts may be null. Returns the CUDA error; a
+// cluster size the card cannot place is refused by the launch.
 extern "C" int tt_decode_loop(const void* memory, const void* keys,
                               const float* maskbias, const void* const* weights,
-                              const int* dims, int lowp,
+                              const int* dims, int lowp, int cluster,
                               unsigned int seed, unsigned int keep_threshold,
                               float keep_scale, int dropout, float* frames,
                               float* aligns, int* keep_counts, void* stream) {
-  Dims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5],
-         dims[6], dims[7], dims[8], dims[9], dims[10]};
+  if (cluster < 1 || cluster > kMaxCluster) return (int)cudaErrorInvalidValue;
+  const Dims d = dims_of(dims);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = lowp
-      ? launch<kRows, __nv_bfloat16>(memory, keys, maskbias, weights, d, seed, keep_threshold,
-                                     keep_scale, dropout, frames, aligns, keep_counts, s)
-      : launch<kRows, float>(memory, keys, maskbias, weights, d, seed, keep_threshold,
-                             keep_scale, dropout, frames, aligns, keep_counts, s);
+      ? launch<__nv_bfloat16>(memory, keys, maskbias, weights, d, cluster, seed,
+                              keep_threshold, keep_scale, dropout, frames, aligns,
+                              keep_counts, s)
+      : launch<float>(memory, keys, maskbias, weights, d, cluster, seed, keep_threshold,
+                      keep_scale, dropout, frames, aligns, keep_counts, s);
   return (int)err;
 }
 
-// Upper bound on the dynamic shared memory one launch needs, for the
-// wrapper's check against the device limit.
+// The dynamic shared memory one block of a launch needs, for the wrapper's
+// check against the device limit (the same whatever the cluster size).
 extern "C" long long tt_decode_loop_smem(const int* dims) {
-  Dims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5],
-         dims[6], dims[7], dims[8], dims[9], dims[10]};
-  return (long long)smem_bytes(d, kRows);
+  return (long long)Layout(dims_of(dims)).bytes();
 }
+
+// How many clusters of `cluster` blocks of this kernel the current device
+// can hold at once (cudaOccupancyMaxActiveClusters; for 1, blocks per SM x
+// SMs), written to *out. Returns the CUDA error.
+extern "C" int tt_decode_loop_resident(const int* dims, int lowp, int cluster, int* out) {
+  if (cluster < 1 || cluster > kMaxCluster) return (int)cudaErrorInvalidValue;
+  const Dims d = dims_of(dims);
+  return (int)(lowp ? resident<__nv_bfloat16>(d, cluster, out)
+                    : resident<float>(d, cluster, out));
+}
+
+#ifdef TT_DECODE_PHASE_CLOCK
+// The phase clock of the last launch, kPhases counters of SM cycles.
+extern "C" int tt_decode_loop_phase_cycles(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_phase_cycles, sizeof(g_phase_cycles));
+}
+#endif

@@ -18,7 +18,16 @@
 // 16 KiB in one round trip: 1024 threads, each one 16-byte load, one store
 // into the scratch, one barrier, one 16-byte store of another warp's slot;
 // the scratch sits at the top of the allocation, so its last byte is used.
+//
+// tt_probe_cluster_barrier answers a question of the fused decode's design
+// (csrc/decode_loop.cu), which ends each phase of a step with one cluster
+// barrier: what one barrier costs. It launches clusters whose blocks do
+// nothing but n barriers; the time over n is the cost.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -100,6 +109,17 @@ probe_ops_kernel(const float* __restrict__ spec, const float* __restrict__ d,
   for (int i = tid; i < (PF + 8) * PH; i += PT) out[i] = y[i] + s;
 }
 
+// n cluster barriers and nothing else, in blocks of the decode's 512
+// threads that each hold enough shared memory to have an SM to themselves
+constexpr int kBarrierThreads = 512, kBarrierSmem = 120 * 1024, kMaxCluster = 16;
+
+__global__ void __launch_bounds__(kBarrierThreads, 1) probe_cluster_barrier_kernel(int n) {
+  extern __shared__ float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  if (threadIdx.x == 0) smem[0] = 0.f;
+  for (int i = 0; i < n; ++i) cluster.sync();
+}
+
 }  // namespace
 
 // x, out: (8, 512) f32 on the device. Launches one block with `kib` KiB of
@@ -136,6 +156,40 @@ extern "C" int tt_probe_ops(const float* spec, const float* d, const float* p, f
     return (int)err;
   }
   probe_ops_kernel<<<1, PT, kOpsSmem, static_cast<cudaStream_t>(stream)>>>(spec, d, p, out);
+  return (int)cudaGetLastError();
+}
+
+// `clusters` clusters of `cluster` blocks (1..16; 16 non-portable), each
+// block running n cluster barriers. Returns the CUDA error of the
+// attributes or of the launch, 0 on success.
+extern "C" int tt_probe_cluster_barrier(int clusters, int cluster, int n, void* stream) {
+  if (clusters < 1 || cluster < 1 || cluster > kMaxCluster) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      probe_cluster_barrier_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBarrierSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(probe_cluster_barrier_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * cluster);
+  cfg.blockDim = dim3(kBarrierThreads);
+  cfg.dynamicSmemBytes = kBarrierSmem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, probe_cluster_barrier_kernel, n);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
   return (int)cudaGetLastError();
 }
 

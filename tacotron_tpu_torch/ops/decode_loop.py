@@ -11,6 +11,10 @@ the TPU kernel's rounding points in the storage dtype (bf16 when
 accumulation, the energy is ``tanh(keys + q)`` in it, the v-contraction is
 f32, and the context product is formed in it and summed in f32.
 
+The kernel runs each batch row on a thread-block cluster of C blocks, one
+per SM, each phase of a step split over the cluster (``cluster_slice``);
+``cluster_size`` picks C from the card's count of resident clusters.
+
 Dropout cannot reproduce the TPU's hardware PRNG. The kernel uses a
 counter-based hash keyed by (seed, row, step, layer, unit) and keeps a unit
 iff its 32 bits are below ``keep * 2^32``; the plain version draws from a
@@ -28,6 +32,24 @@ import torch.nn.functional as F
 from tacotron_tpu_torch import runtime
 from tacotron_tpu_torch.ops import modules
 from tacotron_tpu_torch.ops.attention import NEG_INF
+
+# the kernel's cluster sizes (blocks per batch row); 16 is non-portable
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+
+
+def cluster_slice(n: int, c: int, r: int) -> tuple[int, int]:
+    """The items [lo, hi) of ``n`` that rank ``r`` of a cluster of ``c``
+    computes: ``csrc/decode_loop.cu``'s ``Slice``."""
+    return r * n // c, (r + 1) * n // c
+
+
+def cluster_size(b: int, resident: dict[int, int]) -> int:
+    """The kernel's cluster size for a batch of ``b`` rows: the largest C of
+    ``CLUSTER_SIZES`` with every one of the ``b`` clusters resident at once
+    (``resident[C] >= b``, the card's count of clusters of C blocks it holds
+    at once; a block takes an SM, so the clusters also fit on the SMs); 1
+    when none is."""
+    return max((c for c in CLUSTER_SIZES if resident.get(c, 0) >= b), default=1)
 
 
 class DecoderWeights(NamedTuple):
@@ -179,15 +201,9 @@ def decode_loop(memory, keys, mask, weights: DecoderWeights, *, n_steps: int,
                              lowp=lowp, return_keep_counts=return_keep_counts)
 
 
-def _decode_loop_cuda(memory, keys, mask, weights, *, n_steps, seed, dropout,
-                      dropout_rate, lowp,
-                      return_keep_counts):
-    dev = memory.device
-    if dev.type != "cuda":
-        raise ValueError(f"decode_loop: unsupported device {dev}")
-    if n_steps < 1:
-        raise ValueError("n_steps must be >= 1")
-    sd = torch.bfloat16 if lowp else torch.float32
+def _check_geometry(memory, keys, mask, weights: DecoderWeights):
+    """The kernel's shape checks -> (b, t_in, m_dim, att, n_mels, r, p0, p1,
+    ag, dd)."""
     b, t_in, m_dim, n_mels, r = _geometry(memory, keys, weights)
     att = weights.at_wq.shape[0]
     ag = weights.ag_wc.shape[0]
@@ -210,6 +226,68 @@ def _decode_loop_cuda(memory, keys, mask, weights, *, n_steps, seed, dropout,
             raise ValueError(f"decode_loop: {name} has shape {tuple(got)}, expected {want}")
     if mask is not None and tuple(mask.shape) != (b, t_in):
         raise ValueError(f"decode_loop: mask shape {tuple(mask.shape)} != {(b, t_in)}")
+    return b, t_in, m_dim, att, n_mels, r, p0, p1, ag, dd
+
+
+def _library():
+    lib = runtime.load("decode_loop")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.tt_decode_loop_smem.argtypes = [vp]
+    lib.tt_decode_loop_smem.restype = ctypes.c_longlong
+    lib.tt_decode_loop_resident.argtypes = [vp, ci, ci, vp]
+    lib.tt_decode_loop_resident.restype = ci
+    lib.tt_decode_loop.argtypes = [vp, vp, vp, vp, vp, ci, ci,
+                                   ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
+                                   ci, vp, vp, vp, vp]
+    lib.tt_decode_loop.restype = ci
+    return lib
+
+
+_RESIDENT: dict = {}
+
+
+def _resident(lib, dims, lowp: bool, dev: torch.device) -> dict[int, int]:
+    """{C: clusters of C blocks the card holds at once} for this launch's
+    shared memory, by the CUDA occupancy calculator; cached."""
+    key = (dev.index, lowp, lib.tt_decode_loop_smem(ctypes.cast(dims, ctypes.c_void_p)))
+    if key not in _RESIDENT:
+        counts = {}
+        with torch.cuda.device(dev):
+            for c in CLUSTER_SIZES:
+                n = ctypes.c_int(0)
+                runtime.check(lib.tt_decode_loop_resident(ctypes.cast(dims, ctypes.c_void_p),
+                                                          int(lowp), c, ctypes.byref(n)),
+                              f"decode_loop residency query, cluster {c}")
+                counts[c] = n.value
+        _RESIDENT[key] = counts
+    return _RESIDENT[key]
+
+
+def _plan(lib, dims, lowp: bool, dev: torch.device):
+    resident = _resident(lib, dims, lowp, dev)
+    return cluster_size(dims[0], resident), resident
+
+
+def cluster_plan(memory, keys, weights: DecoderWeights, *, lowp: bool = True):
+    """(C, {C: resident clusters}) of the kernel's launch on these CUDA
+    inputs: the cluster size ``decode_loop`` takes and the counts it took it
+    from."""
+    dims = (ctypes.c_int * 11)(*_check_geometry(memory, keys, None, weights)[:10], 1)
+    return _plan(_library(), dims, bool(lowp), memory.device)
+
+
+def _decode_loop_cuda(memory, keys, mask, weights, *, n_steps, seed, dropout,
+                      dropout_rate, lowp, return_keep_counts, _cluster=None):
+    """The kernel's launch. ``_cluster`` pins the cluster size (tests and
+    the timing sweep); None takes ``cluster_size``'s."""
+    dev = memory.device
+    if dev.type != "cuda":
+        raise ValueError(f"decode_loop: unsupported device {dev}")
+    if n_steps < 1:
+        raise ValueError("n_steps must be >= 1")
+    sd = torch.bfloat16 if lowp else torch.float32
+    geometry = _check_geometry(memory, keys, mask, weights)
+    b, t_in, m_dim, _, n_mels, r = geometry[:6]
     tensors = [memory, keys, *weights] + ([mask] if mask is not None else [])
     if any(t.device != dev for t in tensors):
         raise ValueError("decode_loop: all inputs must be on one CUDA device")
@@ -221,16 +299,21 @@ def _decode_loop_cuda(memory, keys, mask, weights, *, n_steps, seed, dropout,
     mem_s, keys_s = storage(memory), storage(keys)
     w_s = [storage(t) for t in weights]
     maskbias = _maskbias(mask, b, t_in, dev)
-    dims = (ctypes.c_int * 11)(b, t_in, m_dim, att, n_mels, r, p0, p1, ag, dd, n_steps)
-    lib = runtime.load("decode_loop")
-    lib.tt_decode_loop_smem.argtypes = [ctypes.c_void_p]
-    lib.tt_decode_loop_smem.restype = ctypes.c_longlong
-    smem = lib.tt_decode_loop_smem(ctypes.cast(dims, ctypes.c_void_p))
+    dims = (ctypes.c_int * 11)(*geometry, n_steps)
+    vp = ctypes.c_void_p
+    lib = _library()
+    smem = lib.tt_decode_loop_smem(ctypes.cast(dims, vp))
     limit = getattr(torch.cuda.get_device_properties(dev),
                     "shared_memory_per_block_optin", 232448)
     if smem > limit:
         raise ValueError(f"decode_loop: needs {smem} B of shared memory per "
                          f"block (T_in {t_in}); the device allows {limit}")
+    if _cluster is None:
+        cluster = _plan(lib, dims, bool(lowp), dev)[0]
+    elif 1 <= int(_cluster) <= CLUSTER_SIZES[-1]:
+        cluster = int(_cluster)
+    else:
+        raise ValueError(f"decode_loop: cluster size {_cluster} not in 1..{CLUSTER_SIZES[-1]}")
 
     frames = torch.empty(b, n_steps, r * n_mels, device=dev)
     aligns = torch.empty(b, n_steps, t_in, device=dev)
@@ -242,20 +325,15 @@ def _decode_loop_cuda(memory, keys, mask, weights, *, n_steps, seed, dropout,
     keep_scale = 1.0 / keep if keep > 0 else 0.0
     ptrs = (ctypes.c_void_p * 22)(*[t.data_ptr() for t in w_s])
 
-    vp = ctypes.c_void_p
-    lib.tt_decode_loop.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int,
-                                   ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
-                                   ctypes.c_int, vp, vp, vp, vp]
-    lib.tt_decode_loop.restype = ctypes.c_int
     with torch.cuda.device(dev):
         err = lib.tt_decode_loop(
             mem_s.data_ptr(), keys_s.data_ptr(), maskbias.data_ptr(),
-            ctypes.cast(ptrs, vp), ctypes.cast(dims, vp), int(lowp),
+            ctypes.cast(ptrs, vp), ctypes.cast(dims, vp), int(lowp), cluster,
             seed & 0xFFFFFFFF, threshold, keep_scale, int(use_dropout),
             frames.data_ptr(), aligns.data_ptr(),
             counts.data_ptr() if counts is not None else None,
             runtime.stream_ptr(dev))
-    runtime.check(err, "decode_loop kernel launch")
+    runtime.check(err, f"decode_loop kernel launch (cluster {cluster})")
     runtime.LAUNCHES["decode_loop"] += 1
     if return_keep_counts:
         return frames, aligns, counts

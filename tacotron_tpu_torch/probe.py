@@ -14,6 +14,11 @@ shared-memory tiles, two overlapping row-offset accumulations, an unaligned
 row reversed by a permutation product, a loop inside the kernel.
 
 Each probe has a plain PyTorch version, which CPU tensors take.
+``probe_cluster_barrier`` asks what the fused decode's design needs
+(``csrc/decode_loop.cu`` ends each phase of a step with a cluster barrier):
+it launches clusters that run n cluster barriers and nothing else, for the
+barrier's cost. It computes nothing, so it has no plain version and runs on
+the card only.
 """
 
 from __future__ import annotations
@@ -73,6 +78,8 @@ def _lib():
     lib.tt_probe_smem.restype = ci
     lib.tt_probe_ops.argtypes = [vp, vp, vp, vp, vp]
     lib.tt_probe_ops.restype = ci
+    lib.tt_probe_cluster_barrier.argtypes = [ci, ci, ci, vp]
+    lib.tt_probe_cluster_barrier.restype = ci
     for fn in (lib.tt_probe_error_name, lib.tt_probe_error_string):
         fn.argtypes = [ci]
         fn.restype = ctypes.c_char_p
@@ -131,6 +138,20 @@ def probe_ops(spec, d, p):
     _check(lib, err, "probe_ops")
     runtime.LAUNCHES["probe_ops"] += 1
     return out
+
+
+def probe_cluster_barrier(clusters: int, cluster: int, n: int, device=None) -> None:
+    """Launch ``clusters`` clusters of ``cluster`` blocks (512 threads, one
+    per SM) that each run ``n`` cluster barriers; asynchronous on the
+    current stream. Time it at two ``n`` for one barrier's cost."""
+    dev = runtime.resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"probe_cluster_barrier runs on a CUDA device, not {dev}")
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.tt_probe_cluster_barrier(clusters, cluster, n, runtime.stream_ptr(dev))
+    _check(lib, err, f"probe_cluster_barrier({clusters} clusters of {cluster})")
+    runtime.LAUNCHES["probe_cluster_barrier"] += 1
 
 
 def main(argv=None, device=None) -> int:

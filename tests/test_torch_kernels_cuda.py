@@ -4,8 +4,10 @@ no CPU mode). This file imports no JAX, so it also runs where only PyTorch
 is installed: ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``.
 
 Tolerances (max abs error): decode frames and alignments in f32 storage
-1e-4 (summation order only); in bf16 storage 2e-2 on frames and 1e-3 on
-alignments (a last-bit difference in an f32 sum can flip a bf16 rounding);
+1e-4 (summation order only; alignments 1e-5 at every cluster size); in
+bf16 storage 2e-2 on frames and 1e-3 on alignments (a last-bit difference
+in an f32 sum can flip a bf16 rounding); the decode's keep counts equal at
+every cluster size;
 Griffin-Lim waveform 1e-3 of its peak in f32 and 2e-2 in bf16 (kernel and
 plain version share every rounding point, so only sums that differ in their
 last bit flip a bf16 rounding, which Griffin-Lim then carries along), the
@@ -16,7 +18,8 @@ one bf16 iteration of either kernel within one bf16 ulp (2^-7) of the
 magnitude's peak, one f32 iteration of either (split TF32 products) within
 2x the plain f32 step's own error against the same step summed in f64, and
 K5 bit-equal to K4 at beta 0 in both modes; the probes: shared
-memory exact, ops 1e-4 of its peak; attention energy (K1) and its
+memory exact, ops 1e-4 of its peak, the cluster barrier launched at every
+cluster size; attention energy (K1) and its
 three gradients (K2) 1e-5 of each one's peak (f32, summation order only);
 in bf16 (keys and q bf16) against ``energy_bwd_reference`` with the same
 rounding points: e and dv (f32) 1e-5 of the peak, dkeys and dq each entry
@@ -45,8 +48,9 @@ from tacotron_tpu_torch.dsp.fused_gl import (f64_matmul, gl_spectrum_reference,
 from tacotron_tpu_torch.models.tacotron import Tacotron, length_mask
 from tacotron_tpu_torch.ops.attn_energy import (attention_energy, attention_energy_reference,
                                                 energy_bwd, energy_bwd_reference, energy_fwd)
-from tacotron_tpu_torch.ops.decode_loop import (decode_loop, decode_loop_reference,
-                                                pack_decoder_weights)
+from tacotron_tpu_torch.ops.decode_loop import (CLUSTER_SIZES, _decode_loop_cuda,
+                                                cluster_plan, decode_loop,
+                                                decode_loop_reference, pack_decoder_weights)
 from tacotron_tpu_torch.train.loss import tacotron_loss
 from tacotron_tpu_torch.weights import init_params
 
@@ -103,6 +107,74 @@ def test_decode_kernel_dropout(decoder_inputs):
     assert abs(float(counts.sum()) / units - 0.5) < 0.01
     assert torch.equal(a, b) and not torch.allclose(a, c)
     assert torch.equal(off, r0)
+
+
+@pytest.fixture(scope="module")
+def full_decoder_inputs(dev):
+    """synth_gl1000 widths (the [main] path's), B 8, T_in 120, rows of
+    120 down to 64 positions."""
+    cfg = dataclasses.replace(get_config("synth_gl1000").model, vocab_size=40)
+    model = init_params(Tacotron(cfg, device=dev), seed=0).eval()
+    lengths = torch.tensor([120, 96, 111, 80, 120, 64, 101, 90], device=dev)
+    text = torch.randint(1, 40, (8, 120), generator=torch.Generator().manual_seed(1)).to(dev)
+    mask = length_mask(120, lengths)
+    with torch.no_grad():
+        memory = model.encoder(torch.where(mask, text, 0), lengths,
+                               torch.Generator(device=dev).manual_seed(2))
+        keys = model.memory_proj(memory)
+    return memory, keys, mask, pack_decoder_weights(model.decoder.cell)
+
+
+def _cluster_decode(inputs, cluster, **kw):
+    memory, keys, mask, w = inputs
+    kw = dict(dict(seed=0, dropout=False, dropout_rate=0.5, lowp=True,
+                   return_keep_counts=False), **kw)
+    return _decode_loop_cuda(memory, keys, mask, w, _cluster=cluster, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lowp,atol_f,atol_a", [(False, 1e-4, 1e-5), (True, 2e-2, 1e-3)])
+@pytest.mark.parametrize("cluster", CLUSTER_SIZES)
+@pytest.mark.parametrize("width", ["tiny", "full"])
+def test_decode_kernel_at_every_cluster_size(request, width, cluster, lowp, atol_f, atol_a):
+    """Every cluster size against the plain version: B 3, T_in 9 on the
+    tiny widths (slices of uneven size, empty ones at C 16), and the [main]
+    path's widths at B 8, T_in 120; one launch per call."""
+    inputs = request.getfixturevalue("decoder_inputs" if width == "tiny"
+                                     else "full_decoder_inputs")
+    n = 6 if width == "tiny" else 50
+    before = runtime.LAUNCHES["decode_loop"]
+    with torch.no_grad():
+        kf, ka = _cluster_decode(inputs, cluster, n_steps=n, lowp=lowp)
+        pf, pa = decode_loop_reference(*inputs, n_steps=n, dropout=False, lowp=lowp)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["decode_loop"] == before + 1
+    assert bool(torch.isfinite(kf).all())
+    assert float((kf - pf).abs().max()) <= atol_f
+    assert float((ka - pa).abs().max()) <= atol_a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", ["tiny", "full"])
+def test_decode_kernel_dropout_does_not_depend_on_the_cluster(request, width):
+    """The keep masks are the units' owners' hash of (seed, row, step,
+    layer, unit): the keep counts are equal at every cluster size, and the
+    frames at C = 1 and at the chosen C agree within the f32 tolerance."""
+    inputs = request.getfixturevalue("decoder_inputs" if width == "tiny"
+                                     else "full_decoder_inputs")
+    memory, keys, _, w = inputs
+    chosen, resident = cluster_plan(memory, keys, w, lowp=False)
+    assert resident[chosen] >= memory.shape[0]
+    if width == "full":
+        assert chosen > 1
+    with torch.no_grad():
+        runs = {c: _cluster_decode(inputs, c, n_steps=40, seed=3, dropout=True, lowp=False,
+                                   return_keep_counts=True) for c in CLUSTER_SIZES}
+        default = decode_loop(*inputs, n_steps=40, seed=3, dropout_rate=0.5, lowp=False)
+    for c in CLUSTER_SIZES:
+        assert torch.equal(runs[c][2], runs[1][2])
+    assert float((runs[chosen][0] - runs[1][0]).abs().max()) <= 1e-4
+    assert torch.equal(default[0], runs[chosen][0])
 
 
 GL_KW = dict(n_fft=256, hop_length=48, win_length=190)
@@ -340,6 +412,18 @@ def test_probe_smem_refusal_is_raised(dev):
     out, _ = probe.probe_smem(x, 48)                 # the device is still usable
     torch.cuda.synchronize()
     assert torch.equal(out, x * 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", CLUSTER_SIZES)
+def test_probe_cluster_barrier_runs(dev, cluster):
+    before = runtime.LAUNCHES["probe_cluster_barrier"]
+    probe.probe_cluster_barrier(2, cluster, 1000, device=dev)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["probe_cluster_barrier"] == before + 1
+    with pytest.raises(probe.ProbeError, match="CUDA error"):
+        probe.probe_cluster_barrier(1, 32, 10, device=dev)
+    assert runtime.LAUNCHES["probe_cluster_barrier"] == before + 1
 
 
 @pytest.mark.cuda

@@ -84,3 +84,10 @@ def test_entry_point_runs_on_the_card_by_default():
 def test_probe_source_is_built_with_the_other_kernels():
     assert "probe" in runtime.KERNEL_SOURCES
     assert (runtime.CSRC_DIR / "probe.cu").exists()
+
+
+def test_cluster_barrier_probe_needs_the_card():
+    before = dict(runtime.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA device"):
+        probe.probe_cluster_barrier(1, 2, 10, device="cpu")
+    assert dict(runtime.LAUNCHES) == before
