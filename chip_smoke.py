@@ -76,12 +76,14 @@ Phases, in order; any failure raises and exits non-zero:
    train frames per second, peak memory and a forward / backward /
    optimizer split; the device's busy share of one profiled step; the
    same steps through the plain energy, interleaved with the fused ones;
-9. K1's and K2's time at that path's shapes beside the plain version and
-   the bound;
+9. K1's and K2's time at that path's shapes beside the plain version, the
+   bound, the floor (an empty kernel launched on the same grid and
+   clusters, ``probe.probe_empty``) and each one's device time per launch
+   inside the profiled step;
 10. [train-bf16] bench.py's training recipe (compute_dtype="bfloat16",
    hoisted, remat, fused energy) at the same widths and batch, as 8: one
    warm and 5 timed steps, the profiled step (400 bf16 K1 and 200 bf16 K2
-   launches), the plain energy interleaved, f32 parameters and Adam
+   kernels, one per call), the plain energy interleaved, f32 parameters and Adam
    moments; on one set of weights and dropout masks the loss through the
    plain energy beside the fused one and the mel against the f32 model's
    (JAX's drift rule); then bf16 K1's and K2's time at that path's shapes;
@@ -235,6 +237,14 @@ def device_kernels(fn, reps: int = 1):
     return {e.key: (e.self_device_time_total / 1e3 / reps, e.count / reps)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+def launch_ms(kern) -> float:
+    """Device ms of one call that launches each kernel of ``device_kernels``'
+    result once: the sum of each kernel's time per profiled launch (the
+    profiler can miss a launch of a short kernel; a mean over the launches
+    it recorded does not count the missed ones as zero)."""
+    return sum(ms / n for ms, n in kern.values())
 
 
 def require(ok: bool, what: str):
@@ -1588,11 +1598,10 @@ def phase_train(report, compute_dtype="float32"):
     kinds = prof["energy_kernels"]
     mode = "__nv_bfloat16" if bf16 else "float"
     log(f"  attention energy kernels in the profiled step: {kinds}")
-    require(kinds.get(f"energy_fwd<{mode}>") == 2 * n_dec
-            and kinds.get(f"energy_bwd_partial<{mode}>") == n_dec
-            and kinds.get(f"energy_bwd_reduce<{mode}>") == n_dec and len(kinds) == 3,
-            f"the profiled step ran K1 <{mode}> {2 * n_dec} times and K2 <{mode}> {n_dec} times "
-            f"(partial + reduce), no other mode")
+    want = {f"energy_fwd<{mode}, true>": 2 * n_dec, f"energy_bwd<{mode}, true>": n_dec}
+    require(kinds == want, f"the profiled step ran K1 {2 * n_dec} times and K2 {n_dec} times "
+            f"(one kernel per call), both <{mode}> on 16-byte vectors, and no other energy "
+            f"kernel: {want}")
     if bf16:
         params = [p_ for p_ in state.model.parameters()]
         moments = [v_ for st in state.opt.state.values() for k_, v_ in st.items()
@@ -1681,26 +1690,30 @@ def profile_step(state, batch, cfg, step_ms):
                   key=lambda r: -r[1][0])
     busy = sum(ms for _, (ms, _) in rows)
     launches = sum(n for _, (_, n) in rows)
-    energy = {}
-    for k, (_, n) in rows:
-        for kern in ("energy_fwd<", "energy_bwd_partial<", "energy_bwd_reduce<"):
+    energy, energy_ms = {}, {}
+    for k, (ms, n) in rows:
+        for kern in ("energy_fwd", "energy_bwd"):
             if kern in k:
                 name = k[k.index(kern):k.index(">", k.index(kern)) + 1]
                 energy[name] = energy.get(name, 0) + n
+                energy_ms[name] = energy_ms.get(name, 0.0) + ms
     log(f"  profile: device busy {busy:.3f} ms in {launches:.0f} kernel launches = "
         f"{100 * busy / step_ms:.1f}% of the median step ({step_ms:.3f} ms)")
     for k, (ms, n) in rows[:15]:
         log(f"    {ms:9.3f} ms  {n:6.0f}x  {k[:100]}")
     return {"device_busy_ms": busy, "kernel_launches": launches,
             "busy_share_of_median_step": busy / step_ms, "energy_kernels": energy,
+            "energy_kernels_ms": energy_ms,
             "top": [{"name": k, "ms": ms, "count": n} for k, (ms, n) in rows[:30]]}
 
 
 def phase_train_timing(report, state, batch, launches):
     """K1/K2 at the training path's shapes, in the mode of the state's
     model: keys and q are that model's (bf16 under bf16 compute)."""
-    from tacotron_tpu_torch.ops.attn_energy import (attention_energy_reference, energy_bwd,
-                                                    energy_bwd_reference, energy_fwd)
+    from tacotron_tpu_torch.ops.attn_energy import (WARPS, attention_energy_reference,
+                                                    energy_bwd, energy_bwd_reference, energy_fwd,
+                                                    fwd_grid, plan_of)
+    from tacotron_tpu_torch.probe import probe_empty
 
     dev = torch.device("cuda")
     m = state.model
@@ -1746,12 +1759,34 @@ def phase_train_timing(report, state, batch, launches):
             fn()
             call_ms[name] = cuda_ms(fn, reps)
             kern = device_kernels(fn, reps)
-        dev_ms[name] = sum(ms for ms, _ in kern.values())
+        # the kernels: one launch each a call; the plain versions: all of a call's launches
+        plain = name.endswith("_plain")
+        if not plain:
+            require(len(kern) == 1, f"{name}: one device kernel per call ({sorted(kern)})")
+        dev_ms[name] = sum(ms for ms, _ in kern.values()) if plain else launch_ms(kern)
         log(f"  {name}: device {dev_ms[name] * 1e3:.2f} us per call in "
-            f"{sum(n for _, n in kern.values()):.0f} kernels; {call_ms[name] * 1e3:.2f} us "
-            f"per call with the host")
+            f"{sum(n for _, n in kern.values()):.2f} kernels recorded per call; "
+            f"{call_ms[name] * 1e3:.2f} us per call with the host")
     f_ms, fp_ms, b_ms, bp_ms = (dev_ms[k] for k in ("fwd", "fwd_plain", "bwd", "bwd_plain"))
     b, t, a = keys.shape
+    # the floor: an empty kernel on each kernel's grid (K2's in its clusters)
+    plan = plan_of(keys)
+    grids = {"fwd": (*fwd_grid(b, t, keys.dtype), 1), "bwd": (b * plan.cluster, WARPS * 32, plan.cluster)}
+    floor = {}
+    for name, grid in grids.items():
+        probe_empty(*grid)
+        kern = [(ms, n) for k, (ms, n) in device_kernels(lambda: probe_empty(*grid), reps).items()
+                if "probe_empty" in k]
+        require(len(kern) == 1 and kern[0][1] > 0, f"the empty kernel on {grid} was profiled")
+        floor[name] = kern[0][0] / kern[0][1]
+    log(f"  floor (an empty kernel on the same grid): K1 {floor['fwd'] * 1e3:.2f} us on "
+        f"{grids['fwd']}, K2 {floor['bwd'] * 1e3:.2f} us on {grids['bwd']} (blocks, threads, "
+        f"cluster)")
+    # each kernel's device time per launch inside the profiled training step
+    prof = report["train_bf16" if bf16 else "train"]["profile"]
+    mode = "__nv_bfloat16" if bf16 else "float"
+    in_step = {d: prof["energy_kernels_ms"][f"energy_{d}<{mode}, true>"]
+               / prof["energy_kernels"][f"energy_{d}<{mode}, true>"] for d in ("fwd", "bwd")}
     el, es = b * t * a, keys.element_size()
     # K1: keys, q (in their dtype), v read, e written; add, tanh, multiply,
     # accumulate per element (f32 arithmetic in both modes).
@@ -1770,7 +1805,8 @@ def phase_train_timing(report, state, batch, launches):
           "ms": f_ms, "plain_ms": fp_ms, "bound_ms": fb[0], "bound_by": fb[1],
           "library_ms": None, "shape": shape, "call_ms": call_ms["fwd"],
           "plain_call_ms": call_ms["fwd_plain"],
-          "ms_per_step": f_ms * per_step["attn_energy_fwd"]}
+          "ms_per_step": f_ms * per_step["attn_energy_fwd"],
+          "ms_in_step": in_step["fwd"], "floor_ms": floor["fwd"]}
     k2 = {"name": "attn_energy_bwd" + sfx, "route": "cuda",
           "source": "tacotron_tpu_torch/csrc/attn_energy.cu",
           "replaces": "tacotron_tpu/ops/pallas/attn_energy.py:69",
@@ -1780,11 +1816,13 @@ def phase_train_timing(report, state, batch, launches):
           "library_ms": None, "shape": shape, "call_ms": call_ms["bwd"],
           "plain_call_ms": call_ms["bwd_plain"],
           "plain_is": "energy_bwd_reference" if bf16 else "autograd through the formula",
-          "ms_per_step": b_ms * per_step["attn_energy_bwd"]}
+          "ms_per_step": b_ms * per_step["attn_energy_bwd"],
+          "ms_in_step": in_step["bwd"], "floor_ms": floor["bwd"], "cluster": plan.cluster}
     for k in (k1, k2):
         log(f"  {k['name']}: {k['ms'] * 1e3:.2f} us per launch, {k['ms_per_step']:.3f} ms per "
-            f"step on the device (plain {k['plain_ms'] * 1e3:.2f} us, bound "
-            f"{k['bound_ms'] * 1e3:.2f} us by {k['bound_by']}, library none)")
+            f"step on the device; {k['ms_in_step'] * 1e3:.2f} us per launch in the profiled "
+            f"step (plain {k['plain_ms'] * 1e3:.2f} us, bound {k['bound_ms'] * 1e3:.2f} us by "
+            f"{k['bound_by']}, floor {k['floor_ms'] * 1e3:.2f} us, library none)")
     return [k1, k2]
 
 

@@ -3,7 +3,7 @@ port, to compare two checkouts on one card, in turns in one run. Needs
 one NVIDIA GPU:
 
     python3 scripts/synth_ab.py --tree PATH [--calls 3] [--out FILE]
-                                [--decode-rows 8 72]
+                                [--decode-rows 8 72] [--energy]
 
 Imports ``tacotron_tpu_torch`` and ``chip_smoke`` from ``--tree`` (a
 checkout's root; this one by default), builds its kernels, and runs
@@ -20,6 +20,14 @@ repeated to each given number of rows: ``decode_loop`` as a user calls it
 and, where the tree's launch takes a ``_cluster`` pin, pinned to a cluster
 of one block per row; device milliseconds by CUDA events over ``--calls``
 calls after a warm one.
+
+With ``--energy``, it times the attention-energy kernels alone instead: K1
+(``energy_fwd``) and K2 (``energy_bwd``) at the training path's shapes (B
+32, T_in 128, A 256; chip_smoke.py's seeded random inputs), keys and q in
+f32 and in bf16; each one's device microseconds per call by torch.profiler
+over 200 calls, ``--calls`` times, and the device kernels per call; where
+the tree's ``energy_bwd`` takes a ``_cluster`` pin, K2 at each cluster size
+too.
 """
 import argparse
 import dataclasses
@@ -36,6 +44,8 @@ def main(argv=None):
     ap.add_argument("--out", help="also append the JSON line to this file")
     ap.add_argument("--decode-rows", type=int, nargs="+",
                     help="time the fused decode alone at these batch sizes")
+    ap.add_argument("--energy", action="store_true",
+                    help="time the attention-energy kernels alone")
     args = ap.parse_args(argv)
     tree = str(Path(args.tree).resolve())
     sys.path.insert(0, tree)
@@ -63,7 +73,9 @@ def main(argv=None):
     result = {"tree": tree, "card": cs.smi(), "paths": {}}
     if args.decode_rows:
         result["decode"] = time_decode(cs, base, vocab, args.decode_rows, args.calls)
-    for name, dtype, gl_iters in (() if args.decode_rows else
+    if args.energy:
+        result["energy"] = time_energy(cs, args.calls)
+    for name, dtype, gl_iters in (() if args.decode_rows or args.energy else
                                   (("main", "float32", None), ("main-bf16", "bfloat16", 100))):
         cfg = base.replace(model=dataclasses.replace(base.model, compute_dtype=dtype))
         p, bs = split_state(cs.full_model(cfg, torch.device("cuda")))
@@ -122,6 +134,41 @@ def time_decode(cs, cfg, vocab, rows, calls):
                 row["cluster_1_ms"] = cs.cuda_ms(one, reps=calls)
                 row["cluster"] = dl.cluster_plan(memory, keys, w)[0]
         out[b] = row
+    return out
+
+
+def time_energy(cs, calls, reps=200):
+    """{dtype: {"fwd_us": [...], "bwd_us": [...], "fwd_kernels": n,
+    "bwd_kernels": n, "bwd_C_us": [...] for each pinned cluster size C}}:
+    device microseconds per call, ``calls`` times: the sum over the call's
+    kernels (each launched once a call) of each one's time per launch that
+    the profiler recorded; n, the launches it recorded per call."""
+    import functools
+    import inspect
+
+    import torch
+    from tacotron_tpu_torch.ops.attn_energy import energy_bwd, energy_fwd
+
+    keys, q, v, de = cs.energy_inputs(torch.device("cuda"), 32, 128, 256)
+    pinned = "_cluster" in inspect.signature(energy_bwd).parameters
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        k, qq = keys.to(dtype), q.to(dtype)
+        row = {}
+        fns = [("fwd", functools.partial(energy_fwd, k, qq, v)),
+               ("bwd", functools.partial(energy_bwd, k, qq, v, de))]
+        fns += [(f"bwd_{c}", functools.partial(energy_bwd, k, qq, v, de, _cluster=c))
+                for c in ((1, 2, 4, 8) if pinned else ())]
+        for name, fn in fns:
+            fn()
+            us = []
+            for _ in range(calls):
+                kern = cs.device_kernels(fn, reps)
+                # each kernel launches once a call: its time per recorded launch
+                us.append(sum(ms / n for ms, n in kern.values()) * 1e3)
+            row[f"{name}_us"] = us
+            row[f"{name}_kernels"] = sum(n for _, n in kern.values())
+        out[str(dtype).split(".")[-1]] = row
     return out
 
 

@@ -25,13 +25,17 @@ template <> __device__ __forceinline__ __nv_bfloat16 to_storage<__nv_bfloat16>(f
   return __float2bfloat16_rn(x);
 }
 
-// 16-byte vector load of V = 16 / sizeof(T) consecutive values as f32.
+// 16-byte vector load of V = 16 / sizeof(T) consecutive values as f32, and
+// store of V f32 values rounded to T (round to nearest even).
 template <typename T> struct Vec;
 template <> struct Vec<float> {
   static constexpr int V = 4;
   __device__ __forceinline__ static void load(const float* p, float* out) {
     float4 v = __ldg(reinterpret_cast<const float4*>(p));
     out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  }
+  __device__ __forceinline__ static void store(float* p, const float* in) {
+    *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
   }
 };
 template <> struct Vec<__nv_bfloat16> {
@@ -44,6 +48,13 @@ template <> struct Vec<__nv_bfloat16> {
       float2 f = __bfloat1622float2(h[i]);
       out[2 * i] = f.x; out[2 * i + 1] = f.y;
     }
+  }
+  __device__ __forceinline__ static void store(__nv_bfloat16* p, const float* in) {
+    uint4 v;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __float22bfloat162_rn(make_float2(in[2 * i], in[2 * i + 1]));
+    *reinterpret_cast<uint4*>(p) = v;
   }
 };
 

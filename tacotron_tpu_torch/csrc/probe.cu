@@ -23,6 +23,11 @@
 // (csrc/decode_loop.cu), which ends each phase of a step with one cluster
 // barrier: what one barrier costs. It launches clusters whose blocks do
 // nothing but n barriers; the time over n is the cost.
+//
+// tt_probe_empty gives the floor of a small kernel's device time: a kernel
+// that does nothing, launched with a given grid, block and cluster size
+// (those of the attention-energy kernels in csrc/attn_energy.cu). No
+// redesign of a kernel that small can take less.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -120,6 +125,8 @@ __global__ void __launch_bounds__(kBarrierThreads, 1) probe_cluster_barrier_kern
   for (int i = 0; i < n; ++i) cluster.sync();
 }
 
+__global__ void probe_empty_kernel() {}
+
 }  // namespace
 
 // x, out: (8, 512) f32 on the device. Launches one block with `kib` KiB of
@@ -186,6 +193,30 @@ extern "C" int tt_probe_cluster_barrier(int clusters, int cluster, int n, void* 
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, probe_cluster_barrier_kernel, n);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+// An empty kernel on `blocks` blocks of `threads` threads, in clusters of
+// `cluster` (1..8; blocks a multiple of it). Returns the CUDA error of the
+// launch, 0 on success.
+extern "C" int tt_probe_empty(int blocks, int threads, int cluster, void* stream) {
+  if (blocks < 1 || cluster < 1 || cluster > 8 || blocks % cluster) return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, probe_empty_kernel);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return (int)err;

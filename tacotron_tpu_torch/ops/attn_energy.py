@@ -14,18 +14,52 @@ autograd, as JAX's ``"auto"`` backend does off the TPU.
 then rounded to bf16, ``dkeys`` and ``dq`` come out in bf16, while ``v``,
 the energies, ``de`` and ``dv`` are f32, as in the TPU kernels.
 ``energy_bwd_reference`` is K2's plain version with K2's rounding points.
+
+Launch geometry (``csrc/attn_energy.cu``): blocks of ``WARPS`` warps, a
+warp spanning ``CHUNK`` columns of A. K1 takes ``WARPS`` x
+``FWD_ROWS[dtype]`` rows of one batch row per block (``fwd_grid``). K2 is
+one launch of one thread-block cluster per batch row, its blocks taking
+consecutive chunks of the rows (``bwd_plan``); dv is summed by the last
+cluster to finish, behind a counter (one per device, ``_ticket``).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from tacotron_tpu_torch import runtime
 
-# rows of one batch row per K2 block; the partial sums are (B, ceil(T/16), A)
-_BWD_ROWS = 16
+WARPS = 8                    # warps per block, both kernels
+CHUNK = 256                  # columns a warp spans: 8 a lane
+FWD_ROWS = {torch.float32: 1, torch.bfloat16: 2}   # K1 rows per warp
+BWD_CLUSTERS = (8, 4, 2)     # K2 cluster sizes, largest first (portable)
+
+
+def fwd_grid(b: int, t: int, dtype=torch.float32) -> tuple[int, int]:
+    """K1's (blocks, threads per block) for keys of ``dtype``: ceil(T /
+    (WARPS FWD_ROWS[dtype])) blocks per batch row, none spanning two."""
+    return b * -(-t // (WARPS * FWD_ROWS[dtype])), WARPS * 32
+
+
+class BwdPlan(NamedTuple):
+    cluster: int             # blocks per batch row (one cluster)
+    rows: int                # rows of the batch row per block, the last may take fewer
+
+
+def bwd_plan(b: int, t: int, resident: dict[int, int]) -> BwdPlan:
+    """K2's launch geometry for keys (b, t, A) on a card that holds
+    ``resident[C]`` clusters of C K2 blocks at once: the largest cluster of
+    ``BWD_CLUSTERS`` with all b clusters resident at once (2 when none is:
+    any b runs, in waves, since no cluster waits on another), no larger than
+    the largest power of 2 that is at most t (1 for t 1); each block takes
+    ceil(t / C) consecutive rows. A does not enter: every block walks all
+    of it."""
+    c = next((c for c in BWD_CLUSTERS if resident.get(c, 0) >= b), BWD_CLUSTERS[-1])
+    c = min(c, 1 << (t.bit_length() - 1))
+    return BwdPlan(c, -(-t // c))
 
 
 def attention_energy_reference(keys, q, v):
@@ -74,9 +108,11 @@ def _lib():
         lib = runtime.load("attn_energy")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.tt_attn_energy_fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
-        lib.tt_attn_energy_bwd.argtypes = [vp] * 8 + [ci, ci, ci, ci, ci, vp]
+        lib.tt_attn_energy_bwd.argtypes = [vp] * 9 + [ci] * 7 + [vp]
+        lib.tt_attn_energy_bwd_resident.argtypes = [ci, ci, ctypes.POINTER(ci)]
         lib.tt_attn_energy_fwd.restype = ci
         lib.tt_attn_energy_bwd.restype = ci
+        lib.tt_attn_energy_bwd_resident.restype = ci
         _LIB = lib
     return _LIB
 
@@ -111,11 +147,57 @@ def _inputs(keys, q, v, *extra):
     return out, (b, t, a)
 
 
+def _vec(a, *tensors):
+    """1 when the kernels may move 16-byte vectors: A a multiple of one
+    vector of the storage dtype and every tensor 16-byte aligned."""
+    per_16_bytes = 16 // tensors[0].element_size()
+    return int(a % per_16_bytes == 0 and all(x.data_ptr() % 16 == 0 for x in tensors))
+
+
+_RESIDENT: dict = {}
+_TICKETS: dict = {}
+
+
+def _index(dev) -> int:
+    return torch.cuda.current_device() if dev.index is None else dev.index
+
+
+def _resident(dev, bf16: bool) -> dict[int, int]:
+    """{C: clusters of C K2 blocks the card holds at once}, by the CUDA
+    occupancy calculator; cached."""
+    key = (_index(dev), bf16)
+    if key not in _RESIDENT:
+        counts = {}
+        with torch.cuda.device(dev):
+            for c in BWD_CLUSTERS:
+                n = ctypes.c_int(0)
+                runtime.check(_lib().tt_attn_energy_bwd_resident(int(bf16), c, ctypes.byref(n)),
+                              f"attn_energy_bwd residency query, cluster {c}")
+                counts[c] = n.value
+        _RESIDENT[key] = counts
+    return _RESIDENT[key]
+
+
+def plan_of(keys) -> BwdPlan:
+    """``bwd_plan`` for K2 on these CUDA keys."""
+    b, t, _ = keys.shape
+    return bwd_plan(b, t, _resident(keys.device, keys.dtype == torch.bfloat16))
+
+
+def _ticket(dev) -> torch.Tensor:
+    """K2's counter of finished clusters on ``dev``: one int, zeroed once
+    here and left at 0 by every call. The port launches on one stream, so
+    no two calls share it at once."""
+    i = _index(dev)
+    if i not in _TICKETS:
+        _TICKETS[i] = torch.zeros(1, dtype=torch.int32, device=f"cuda:{i}")
+    return _TICKETS[i]
+
+
 def energy_fwd(keys, q, v):
     """K1: launch the forward kernel -> e (B, T_in) f32."""
     (keys, q, v), (b, t, a) = _inputs(keys, q, v)
-    per_16_bytes = 16 // keys.element_size()
-    vec = int(a % per_16_bytes == 0 and all(x.data_ptr() % 16 == 0 for x in (keys, q, v)))
+    vec = _vec(a, keys, q, v)
     e = torch.empty(b, t, device=keys.device)
     with torch.cuda.device(keys.device):
         err = _lib().tt_attn_energy_fwd(keys.data_ptr(), q.data_ptr(), v.data_ptr(),
@@ -127,22 +209,27 @@ def energy_fwd(keys, q, v):
     return e
 
 
-def energy_bwd(keys, q, v, de):
-    """K2: launch the backward kernel (partial sums, then their fixed-order
-    reduction: two CUDA launches, counted as one) -> (dkeys, dq, dv) shaped
-    like (keys, q, v): dkeys and dq in the dtype of keys/q, dv in v's."""
+def energy_bwd(keys, q, v, de, *, _cluster=None):
+    """K2: launch the backward kernel (one launch) -> (dkeys, dq, dv) shaped
+    like (keys, q, v): dkeys and dq in the dtype of keys/q, dv in v's.
+    ``_cluster`` pins the cluster size (tests, timing); None takes
+    ``bwd_plan``'s."""
     v_dtype = v.dtype
     (keys, q, v, de), (b, t, a) = _inputs(keys, q, v, de)
     dev = keys.device
+    plan = plan_of(keys)
+    if _cluster is not None:
+        plan = plan._replace(cluster=_cluster, rows=-(-t // _cluster))
     dkeys, dq = torch.empty_like(keys), torch.empty_like(q)
     dv = torch.empty_like(v)
-    chunks = -(-t // _BWD_ROWS)
-    scratch = torch.empty(2 * b * chunks * a, device=dev)
+    dv_part = torch.empty(b, a, device=dev)
     with torch.cuda.device(dev):
         err = _lib().tt_attn_energy_bwd(
             keys.data_ptr(), q.data_ptr(), v.data_ptr(), de.data_ptr(),
-            dkeys.data_ptr(), dq.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
-            b, t, a, _BWD_ROWS, int(keys.dtype == torch.bfloat16), runtime.stream_ptr(dev))
+            dkeys.data_ptr(), dq.data_ptr(), dv.data_ptr(), dv_part.data_ptr(),
+            _ticket(dev).data_ptr(), b, t, a, plan.cluster, plan.rows,
+            _vec(a, keys, q, v, dkeys), int(keys.dtype == torch.bfloat16),
+            runtime.stream_ptr(dev))
     runtime.check(err, "attn_energy_bwd kernel launch")
     runtime.LAUNCHES["attn_energy_bwd"] += 1
     return dkeys, dq, dv.to(v_dtype)

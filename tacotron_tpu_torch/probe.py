@@ -17,8 +17,10 @@ Each probe has a plain PyTorch version, which CPU tensors take.
 ``probe_cluster_barrier`` asks what the fused decode's design needs
 (``csrc/decode_loop.cu`` ends each phase of a step with a cluster barrier):
 it launches clusters that run n cluster barriers and nothing else, for the
-barrier's cost. It computes nothing, so it has no plain version and runs on
-the card only.
+barrier's cost. ``probe_empty`` launches a kernel that does nothing on a
+given grid (the attention-energy kernels' grids): the floor of a small
+kernel's device time. Neither computes anything, so they have no plain
+version and run on the card only.
 """
 
 from __future__ import annotations
@@ -80,6 +82,8 @@ def _lib():
     lib.tt_probe_ops.restype = ci
     lib.tt_probe_cluster_barrier.argtypes = [ci, ci, ci, vp]
     lib.tt_probe_cluster_barrier.restype = ci
+    lib.tt_probe_empty.argtypes = [ci, ci, ci, vp]
+    lib.tt_probe_empty.restype = ci
     for fn in (lib.tt_probe_error_name, lib.tt_probe_error_string):
         fn.argtypes = [ci]
         fn.restype = ctypes.c_char_p
@@ -152,6 +156,20 @@ def probe_cluster_barrier(clusters: int, cluster: int, n: int, device=None) -> N
         err = lib.tt_probe_cluster_barrier(clusters, cluster, n, runtime.stream_ptr(dev))
     _check(lib, err, f"probe_cluster_barrier({clusters} clusters of {cluster})")
     runtime.LAUNCHES["probe_cluster_barrier"] += 1
+
+
+def probe_empty(blocks: int, threads: int, cluster: int = 1, device=None) -> None:
+    """Launch an empty kernel on ``blocks`` blocks of ``threads`` threads in
+    clusters of ``cluster`` (1..8); asynchronous on the current stream. Its
+    device time is the floor of any kernel launched on that grid."""
+    dev = runtime.resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"probe_empty runs on a CUDA device, not {dev}")
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.tt_probe_empty(blocks, threads, cluster, runtime.stream_ptr(dev))
+    _check(lib, err, f"probe_empty({blocks} blocks of {threads} in clusters of {cluster})")
+    runtime.LAUNCHES["probe_empty"] += 1
 
 
 def main(argv=None, device=None) -> int:

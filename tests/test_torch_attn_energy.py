@@ -24,7 +24,20 @@ interpreted ``_bwd_kernel`` tighter: dkeys and dq each entry within one
 bf16 ulp (2^-7 of its magnitude) plus 1e-5 of the peak, dv (f32) 1e-5 of
 the peak [dkeys bit-identical; one dq entry of 1024 off, by 7.1e-7 of the
 peak; dv 4.2e-7].
+
+The kernels' geometry and summation order, emulated on the CPU
+(``emulate_energy_fwd``, ``emulate_energy_bwd``: the same per-element values
+as the plain version, summed in the kernels' order in numpy f32, an fma as
+one f64 multiply-add rounded to f32): K1's per-lane partials over a lane's
+columns and its warp butterfly, K2's dq and dv per warp over its rows,
+then over the 8 warps, then over the cluster's blocks in rank order, and dv
+over the batch rows in order. Held against the plain version and against
+JAX's interpreted kernels, f32 at 1e-5 of each one's peak; bf16 e and dv
+at 1e-5 of the peak, dkeys and dq each entry within one bf16 ulp (2^-7 of
+its magnitude) plus 1e-5 of the peak (``chip_smoke.py``'s ENERGY_BF16).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -37,8 +50,9 @@ import jax.numpy as jnp
 from tacotron_tpu.ops.pallas.attn_energy import attention_energy as jax_energy
 from tacotron_tpu_torch import runtime
 from tacotron_tpu_torch.ops.attention import BahdanauAttention, energy_scores
-from tacotron_tpu_torch.ops.attn_energy import (attention_energy, attention_energy_reference,
-                                                energy_bwd_reference)
+from tacotron_tpu_torch.ops.attn_energy import (BWD_CLUSTERS, CHUNK, FWD_ROWS, WARPS, BwdPlan,
+                                                attention_energy, attention_energy_reference,
+                                                bwd_plan, energy_bwd_reference, fwd_grid)
 
 
 def _inputs(b, t, a, seed=0):
@@ -173,3 +187,166 @@ def test_energy_switch():
         energy_scores(keys, q, v, "pallas")
     with pytest.raises(ValueError, match="attention_energy"):
         BahdanauAttention(8, 16, energy="pallas")
+
+
+# clusters of C K2 blocks an H100 80GB HBM3 holds at once, f32 and bf16 alike
+# (cudaOccupancyMaxActiveClusters; scripts/energy_study.py prints them)
+H100_RESIDENT = {8: 45, 4: 92, 2: 198}
+
+
+@pytest.mark.parametrize("b,t,resident,want", [
+    (32, 128, H100_RESIDENT, BwdPlan(8, 16)),     # the training path: 256 blocks
+    (45, 128, H100_RESIDENT, BwdPlan(8, 16)),     # every cluster of 8 that fits
+    (46, 128, H100_RESIDENT, BwdPlan(4, 32)),
+    (93, 128, H100_RESIDENT, BwdPlan(2, 64)),
+    (32, 128, {8: 30, 4: 62, 2: 132}, BwdPlan(4, 32)),   # 32 clusters of 8 do not fit
+    (32, 1, H100_RESIDENT, BwdPlan(1, 1)),        # no more blocks than rows
+    (32, 37, H100_RESIDENT, BwdPlan(8, 5)),       # ragged: the last block takes 2
+    (6, 37, H100_RESIDENT, BwdPlan(8, 5)),
+    (1, 128, H100_RESIDENT, BwdPlan(8, 16)),
+    (3, 11, H100_RESIDENT, BwdPlan(8, 2)),        # ranks 6 and 7 take no row
+    (256, 128, H100_RESIDENT, BwdPlan(2, 64)),    # more clusters than fit at once
+    (4096, 128, H100_RESIDENT, BwdPlan(2, 64)),
+])
+def test_bwd_plan(b, t, resident, want):
+    """A does not enter the plan (every block walks all of A): A 100 and
+    A 600 are held in the emulation below and on the card."""
+    plan = bwd_plan(b, t, resident)
+    assert plan == want
+    assert plan.cluster in (1, *BWD_CLUSTERS) and plan.cluster <= t
+    assert plan.cluster * plan.rows >= t
+
+
+@pytest.mark.parametrize("b,t,dtype,want", [
+    (32, 128, torch.float32, (512, 256)), (32, 128, torch.bfloat16, (256, 256)),
+    (6, 37, torch.float32, (30, 256)), (6, 37, torch.bfloat16, (18, 256)),
+    (3, 11, torch.bfloat16, (3, 256)), (1, 1, torch.float32, (1, 256))])
+def test_fwd_grid(b, t, dtype, want):
+    """8 warps a block, each taking FWD_ROWS[dtype] rows of one batch row."""
+    assert fwd_grid(b, t, dtype) == want and WARPS * FWD_ROWS[dtype] in (8, 16)
+
+
+def _fma(a, b, c):
+    """fmaf in numpy: the product of two f32 values is exact in f64."""
+    return (a.astype(np.float64) * b.astype(np.float64) + c.astype(np.float64)).astype(np.float32)
+
+
+def _lane_columns(a, elem_size):
+    """(chunks, 8, 32): the column of lane l's j-th value in each chunk, -1
+    past A. Groups of V = 16 bytes of the storage dtype, group g at g * 32 V
+    + l V, as ``col_of`` in csrc/attn_energy.cu."""
+    v = 16 // elem_size
+    lane, j = np.arange(32)[None, :], np.arange(8)[:, None]
+    cols = (j // v) * 32 * v + lane * v + j % v
+    out = np.stack([c0 + cols for c0 in range(0, a, CHUNK)])
+    return np.where(out < a, out, -1)
+
+
+def emulate_energy_fwd(keys, q, v):
+    """K1's sums in its order: each lane's partial over its columns, chunk by
+    chunk, by fma; then the warp's xor tree at offsets 16, 8, 4, 2, 1 (what
+    the multi-row butterfly computes for every row) -> e (B, T) f32."""
+    t = torch.tanh(keys + q[:, None, :]).float().numpy()
+    vv = v.float().reshape(-1).numpy()
+    p = np.zeros(t.shape[:2] + (32,), np.float32)
+    for chunk in _lane_columns(t.shape[2], keys.element_size()):
+        for cols in chunk:
+            ok = cols >= 0
+            p = _fma(np.where(ok, vv[cols], 0.0).astype(np.float32),
+                     np.where(ok, t[..., cols], 0.0).astype(np.float32), p)
+    lanes = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        p = p + p[..., lanes ^ o]
+    return torch.from_numpy(p[..., 0].copy())
+
+
+def emulate_energy_bwd(keys, q, v, de, cluster, rows):
+    """K2's sums in its order: block ``rank`` takes rows [rank rows, (rank +
+    1) rows), its warp w the rows rank rows + w + 8 i in order (dq by f32
+    adds, dv by fma); then the 8 warps in order, the blocks in rank order,
+    and dv over the batch rows in order -> (dkeys, dq, dv) as
+    ``energy_bwd_reference``."""
+    b, t_len, a = keys.shape
+    th = torch.tanh(keys + q[:, None, :]).float()
+    d = de.float()
+    w = (d[..., None] * v.float().reshape(-1) * (1.0 - th * th)).numpy()
+    th, d = th.numpy(), d.numpy()
+    dq = dv_rows = np.zeros((b, a), np.float32)
+    for rank in range(cluster):
+        t0, t1 = rank * rows, min(t_len, (rank + 1) * rows)
+        blk_q = blk_v = None
+        for warp in range(WARPS):
+            gq = gv = np.zeros((b, a), np.float32)
+            for i in range(t0 + warp, t1, WARPS):
+                gq = gq + w[:, i]
+                gv = _fma(th[:, i], d[:, i, None], gv)
+            blk_q = gq if blk_q is None else blk_q + gq
+            blk_v = gv if blk_v is None else blk_v + gv
+        dq, dv_rows = dq + blk_q, dv_rows + blk_v
+    dv = np.zeros(a, np.float32)
+    for row in dv_rows:
+        dv = dv + row
+    return (torch.from_numpy(w).to(keys.dtype), torch.from_numpy(dq).to(q.dtype),
+            torch.from_numpy(dv).reshape(v.shape).to(v.dtype))
+
+
+ORDER_SHAPES = [(4, 37, 256), (3, 11, 100), (2, 9, 600)]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_energy_and_vjp(b, t, a, bf16):
+    """Inputs (keys, q, v, de as torch tensors) and JAX's interpreted K1
+    energies and K2 VJP on them, every bf16 rounding kept (no excess
+    precision)."""
+    keys, q, v = _inputs(b, t, a, seed=11)
+    de = np.random.default_rng(12).standard_normal((b, t)).astype(np.float32)
+    if bf16:
+        (jk, jq), (tk, tq) = _bf16(keys, q)
+    else:
+        (jk, jq), (tk, tq) = (keys, q), (torch.from_numpy(keys), torch.from_numpy(q))
+
+    def fwd_bwd(k, qq, vv, c):
+        e, vjp = jax.vjp(_jax_pallas, k, qq, vv)
+        return e, vjp(c)
+
+    args = (jk, jq, v, jnp.asarray(de))
+    e, grads = jax.jit(fwd_bwd).lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})(*args)
+    want = [torch.from_numpy(np.array(x, np.float32)) for x in (e, *grads)]
+    return (tk, tq, torch.from_numpy(v), torch.from_numpy(de)), want
+
+
+def _hold(got, want, name, ulp):
+    """Each entry of ``got`` within 1e-5 of ``want``'s peak, plus one bf16
+    ulp of the entry where ``ulp``."""
+    g, w = got.float(), want.float()
+    assert g.shape == w.shape, name
+    tol = 1e-5 * float(w.abs().max()) + (2.0 ** -7 * w.abs() if ulp else 0.0)
+    err = (g - w).abs()
+    assert bool((err <= tol).all()), (name, float(err.max()))
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,t,a", ORDER_SHAPES)
+def test_fwd_order_matches_plain_and_jax(b, t, a, bf16):
+    inputs, want = _jax_energy_and_vjp(b, t, a, bf16)
+    got = emulate_energy_fwd(*inputs[:3])
+    _hold(got, attention_energy_reference(*inputs[:3]), "e vs plain", False)
+    _hold(got, want[0], "e vs JAX", False)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4, 8])
+@pytest.mark.parametrize("b,t,a", ORDER_SHAPES)
+def test_bwd_order_matches_plain_and_jax(b, t, a, cluster, bf16):
+    """At the plan's cluster (None) and at every other, ceil(T / C) rows a
+    block."""
+    inputs, want = _jax_energy_and_vjp(b, t, a, bf16)
+    c = bwd_plan(b, t, H100_RESIDENT).cluster if cluster is None else cluster
+    got = emulate_energy_bwd(*inputs, c, -(-t // c))
+    ref = energy_bwd_reference(*inputs)
+    for name, g, r, w in zip(("dkeys", "dq", "dv"), got, ref, want[1:]):
+        assert g.dtype == r.dtype, name
+        ulp = bf16 and name != "dv"
+        _hold(g, r, f"{name} vs plain", ulp)
+        _hold(g, w, f"{name} vs JAX", ulp)

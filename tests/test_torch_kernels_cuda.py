@@ -19,8 +19,12 @@ magnitude's peak, one f32 iteration of either (split TF32 products) within
 2x the plain f32 step's own error against the same step summed in f64, and
 K5 bit-equal to K4 at beta 0 in both modes; the probes: shared
 memory exact, ops 1e-4 of its peak, the cluster barrier launched at every
-cluster size; attention energy (K1) and its
-three gradients (K2) 1e-5 of each one's peak (f32, summation order only);
+cluster size, the empty kernel launched at every cluster size of K2;
+attention energy (K1) and its
+three gradients (K2) 1e-5 of each one's peak (f32, summation order only),
+at K2's every cluster size too, dv the same bits on every call, K2 one
+device kernel per call and its counter back at 0 between calls of other
+batch sizes;
 in bf16 (keys and q bf16) against ``energy_bwd_reference`` with the same
 rounding points: e and dv (f32) 1e-5 of the peak, dkeys and dq each entry
 within one bf16 ulp (2^-7 of its magnitude: an f32 sum's last bit can flip
@@ -46,8 +50,9 @@ from tacotron_tpu_torch.dsp.fused_gl import (f64_matmul, gl_spectrum_reference,
                                              gl_step_reference, griffin_lim_spectrum,
                                              griffin_lim_step, zero_phase)
 from tacotron_tpu_torch.models.tacotron import Tacotron, length_mask
-from tacotron_tpu_torch.ops.attn_energy import (attention_energy, attention_energy_reference,
-                                                energy_bwd, energy_bwd_reference, energy_fwd)
+from tacotron_tpu_torch.ops.attn_energy import (BWD_CLUSTERS, _ticket, attention_energy,
+                                                attention_energy_reference, energy_bwd,
+                                                energy_bwd_reference, energy_fwd, fwd_grid)
 from tacotron_tpu_torch.ops.decode_loop import (CLUSTER_SIZES, _decode_loop_cuda,
                                                 cluster_plan, decode_loop,
                                                 decode_loop_reference, pack_decoder_weights)
@@ -448,7 +453,25 @@ def _energy_inputs(dev, b, t, a, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t,a", [(4, 37, 256), (32, 128, 256), (3, 11, 30)])
+@pytest.mark.parametrize("cluster", [1, *BWD_CLUSTERS])
+def test_probe_empty_runs(dev, cluster):
+    blocks, threads = fwd_grid(32, 128, torch.bfloat16)
+    before = runtime.LAUNCHES["probe_empty"]
+    probe.probe_empty(blocks, threads, cluster, device=dev)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["probe_empty"] == before + 1
+    with pytest.raises(probe.ProbeError, match="CUDA error"):
+        probe.probe_empty(blocks + 1, threads, 8, device=dev)     # not a multiple of 8
+    assert runtime.LAUNCHES["probe_empty"] == before + 1
+
+
+# the shapes of the kernels' checks: the training path's, JAX's odd one, the
+# scalar path's, one row, one batch row, and more clusters than fit at once
+ENERGY_SHAPES = [(32, 128, 256), (32, 1, 256), (1, 128, 256), (256, 128, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,a", [(4, 37, 256), (3, 11, 30), *ENERGY_SHAPES])
 def test_attn_energy_kernels_match_plain(dev, b, t, a):
     keys, q, v, de = _energy_inputs(dev, b, t, a)
     leaves = [x.clone().requires_grad_(True) for x in (keys, q, v)]
@@ -468,11 +491,22 @@ def test_attn_energy_kernels_match_plain(dev, b, t, a):
     assert torch.equal(again[2], grads[2])          # dv: fixed-order sums
 
 
+def _hold_bwd(got, want, ulp):
+    """K2's (dkeys, dq, dv) against its plain version's: dv (f32) within
+    1e-5 of its peak; dkeys and dq within 1e-5 of the peak, plus one bf16
+    ulp of each entry where ``ulp``."""
+    assert [(g.shape, g.dtype) for g in got] == [(w.shape, w.dtype) for w in want]
+    for i, (g, w) in enumerate(zip(got, want)):
+        w = w.float()
+        tol = 1e-5 * float(w.abs().max()) + (2.0 ** -7 * w.abs() if ulp and i < 2 else 0.0)
+        assert bool(((g.float() - w).abs() <= tol).all()), ("dkeys", "dq", "dv")[i]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t,a", [(6, 37, 256), (32, 128, 256), (3, 11, 100)])
+@pytest.mark.parametrize("b,t,a", [(6, 37, 256), (3, 11, 100), *ENERGY_SHAPES])
 def test_attn_energy_bf16_kernels_match_plain(dev, b, t, a):
-    """The bf16 mode at JAX's odd shape, the training path's and a width
-    that takes the scalar path (A % 8 != 0)."""
+    """The bf16 mode at JAX's odd shape, a width that takes the scalar path
+    (A % 8 != 0), and ENERGY_SHAPES."""
     keys, q, v, de = _energy_inputs(dev, b, t, a)
     keys, q = keys.bfloat16(), q.bfloat16()
     before = dict(runtime.LAUNCHES)
@@ -484,14 +518,8 @@ def test_attn_energy_bf16_kernels_match_plain(dev, b, t, a):
     assert (e.dtype, dkeys.dtype, dq.dtype, dv.dtype) == (torch.float32, torch.bfloat16,
                                                           torch.bfloat16, torch.float32)
     e_ref = attention_energy_reference(keys, q, v)
-    ref = energy_bwd_reference(keys, q, v, de)
-    for got, want in ((e, e_ref), (dv, ref[2])):
-        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
-    for got, want in zip((dkeys, dq), ref[:2]):
-        assert got.shape == want.shape and got.dtype == want.dtype
-        w = want.float()
-        tol = 2.0 ** -7 * w.abs() + 1e-5 * float(w.abs().max())
-        assert bool(((got.float() - w).abs() <= tol).all())
+    assert float((e - e_ref).abs().max()) <= 1e-5 * float(e_ref.abs().max())
+    _hold_bwd((dkeys, dq, dv), energy_bwd_reference(keys, q, v, de), ulp=True)
 
     leaves = [x.clone().requires_grad_(True) for x in (keys, q, v)]
     grads = torch.autograd.grad(attention_energy(*leaves), leaves, de)
@@ -541,3 +569,69 @@ def test_training_loss_and_grads_through_the_kernels(dev, form):
     for k, want in out["xla"][1].items():
         err = float((out["fused"][1][k] - want).abs().max())
         assert err <= 1e-4 * float(want.abs().max()) + 1e-7, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("cluster", [1, *BWD_CLUSTERS])
+@pytest.mark.parametrize("b,t,a", [(6, 37, 256), (3, 11, 100), (2, 9, 600)])
+def test_attn_energy_bwd_at_every_cluster_size(dev, b, t, a, cluster, bf16):
+    """K2 pinned to each cluster size (ceil(T / C) rows a block; at T 11
+    and C 8 two blocks take no row), against its plain version."""
+    keys, q, v, de = _energy_inputs(dev, b, t, a, seed=cluster)
+    if bf16:
+        keys, q = keys.bfloat16(), q.bfloat16()
+    got = energy_bwd(keys, q, v, de, _cluster=cluster)
+    torch.cuda.synchronize()
+    _hold_bwd(got, energy_bwd_reference(keys, q, v, de), ulp=bf16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_attn_energy_dv_is_the_same_bits_every_call(dev, bf16):
+    keys, q, v, de = _energy_inputs(dev, 32, 128, 256, seed=4)
+    if bf16:
+        keys, q = keys.bfloat16(), q.bfloat16()
+    calls = [energy_bwd(keys, q, v, de) for _ in range(3)]
+    torch.cuda.synchronize()
+    for got in calls[1:]:
+        assert all(torch.equal(g, w) for g, w in zip(got, calls[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_attn_energy_bwd_counter_resets(dev, bf16):
+    """B 32 and B 5 back to back, no synchronisation between: each call's
+    last cluster (ticket B - 1) sums dv and leaves the counter at 0 for the
+    next, whatever its B."""
+    inputs = {b: _energy_inputs(dev, b, 37, 256, seed=b) for b in (32, 5)}
+    if bf16:
+        inputs = {b: [x.bfloat16() if i < 2 else x for i, x in enumerate(xs)]
+                  for b, xs in inputs.items()}
+    order = (32, 5, 32, 5, 5, 32)
+    got = [energy_bwd(*inputs[b]) for b in order]
+    torch.cuda.synchronize()
+    assert int(_ticket(dev).item()) == 0
+    for b, g in zip(order, got):
+        _hold_bwd(g, energy_bwd_reference(*inputs[b]), ulp=bf16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_attn_energy_bwd_is_one_launch(dev, bf16):
+    """Exactly one device kernel per K2 call, by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    keys, q, v, de = _energy_inputs(dev, 32, 128, 256)
+    if bf16:
+        keys, q = keys.bfloat16(), q.bfloat16()
+    energy_bwd(keys, q, v, de)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            energy_bwd(keys, q, v, de)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    assert len(kernels) == 1 and list(kernels.values()) == [5], kernels
+    assert "energy_bwd<" in next(iter(kernels))
