@@ -20,7 +20,8 @@ Phases, in order; any failure raises and exits non-zero:
    momentum 0 and 0.99, in its f32 (split TF32 products) and its bf16
    mode; the streaming Griffin-Lim kernel (K5) over 10 calls in both modes,
    and in f32 against K4; the probes (P1 at 48, 100 and 227 KiB, one KiB past the limit
-   refused with the CUDA error shown; P2); a small end-to-end check, the
+   refused with the CUDA error shown; P2, two calls the same bits); a small
+   end-to-end check, the
    fused Synthesizer against the step-by-step one with every plain
    version; the attention energy (K1) and its backward (K2) at B 32, T_in
    128, A 256 against autograd through the plain formula, and their bf16
@@ -28,7 +29,8 @@ Phases, in order; any failure raises and exits non-zero:
    (the scalar path) against the plain forward and ``energy_bwd_reference``
    and under autograd; and the teacher-forced loss and every parameter
    gradient on the tiny config through K1/K2 against the plain formula,
-   for both decoder forms, with and without remat;
+   for both decoder forms, with and without remat, and with
+   remat_policy="save_attn" against "all" for both forms and both energies;
 4. [main] the parity synthesis path: ``Synthesizer(fused=True)`` at the
    synth_gl1000 config (256-d model, r 2, 500 decode steps, Griffin-Lim
    1000, the kernel's bf16 mode by default) on 8 prompts with seeded random
@@ -53,7 +55,8 @@ Phases, in order; any failure raises and exits non-zero:
    point;
 7. K3's, K4's, K5's and the probes' time at their paths' shapes beside
    the plain version, a library yardstick and the bound (P1 at 48 and 227
-   KiB); K3 at every cluster size (1, 2, 4, 8, 16) with the card's count of
+   KiB; P2 with its floor, an empty kernel on the same cluster, threads and
+   shared memory); K3 at every cluster size (1, 2, 4, 8, 16) with the card's count of
    resident clusters of each, microseconds per step and one cluster
    barrier's cost, the chosen size held at least 2x faster than 1; for
    the Griffin-Lim kernels in both modes each launch's device
@@ -79,7 +82,10 @@ Phases, in order; any failure raises and exits non-zero:
 9. K1's and K2's time at that path's shapes beside the plain version, the
    bound, the floor (an empty kernel launched on the same grid and
    clusters, ``probe.probe_empty``) and each one's device time per launch
-   inside the profiled step;
+   inside the profiled step; then [train-save-attn]: the same widths and
+   batch on the plain energy, one warm and one timed step under
+   remat_policy "all" and under "save_attn", the timed steps' peak memory
+   apart by the kept tanh (S B T_in A 4 bytes) within 25%;
 10. [train-bf16] bench.py's training recipe (compute_dtype="bfloat16",
    hoisted, remat, fused energy) at the same widths and batch, as 8: one
    warm and 5 timed steps, the profiled step (400 bf16 K1 and 200 bf16 K2
@@ -91,9 +97,18 @@ Phases, in order; any failure raises and exits non-zero:
    compute_dtype="bfloat16" (K3 on bf16-computed keys, Griffin-Lim 100
    iterations to keep the script short): a warm and a timed call, and the
    mel's drift from [main]'s f32 mel, printed, not held (500 feed-previous
-   steps on random weights may diverge); one JSON line with all eleven kernel
-   rows;
-12. last line: {"ok": true, "device": {...}}.
+   steps on random weights may diverge);
+12. [cli] the synthesis CLI at synth_gl1000: a run directory with the
+   port's checkpoint of seeded random weights (restored and held equal),
+   then ``cli.synthesize.main`` on 2 prompts with ``--fused`` (one K3 and
+   3000 K4 launches counted) and with ``--preset synth_fast`` (300 K4
+   launches), the wavs and the JSON line checked; then K3 and K4 held
+   against their plain versions at the CLI's own inputs (its restored
+   weights, prompts, seed and configs): K3 at the cluster size B 2 gives
+   it, in both storage modes over 50 steps and in bf16 over 500; K4's bf16
+   mode on each run's magnitudes, its first iteration and as GL_PATH sets
+   out; one JSON line with all eleven kernel rows;
+13. last line: {"ok": true, "device": {...}}.
 
 ``--report PATH`` also writes every check and measurement as JSON.
 """
@@ -140,6 +155,10 @@ TF32_PRODUCTS_BOUND = 3
 # random-weight magnitudes (5.23e-2 measured) says how far GL drifts, not
 # which one errs. The f32 kernels' precision gate is GL_F32_STEP_FACTOR
 MAIN_TOL = {"decode": 2e-2, "griffin_lim": 5e-2, "griffin_lim_f32_vs_f64": 1.0}
+# K3 against its plain version over 50 steps, dropout off: (frames,
+# alignments) max abs error by storage (lowp); f32: summation order only;
+# bf16: rounding to bf16 flips where the two sums differ in the last bit
+K3_TOL = {False: (1e-4, 1e-5), True: (0.02, 1e-3)}
 # bf16 Griffin-Lim, kernel vs its plain version (same rounding points; an
 # f32 sum that differs in its last bit flips a bf16 rounding, and GL carries
 # the flip on): waveform max abs error over its peak after 10 iterations on
@@ -511,11 +530,13 @@ def phase_probes(checks):
 
     log("[P2] ops probe vs plain, seeded normal operands")
     inputs = probe.ops_inputs(dev, seed=0)
-    got, want = probe.probe_ops(*inputs), probe.probe_ops_reference(*inputs)
+    runs = [probe.probe_ops(*inputs) for _ in range(2)]
+    want = probe.probe_ops_reference(*inputs)
     torch.cuda.synchronize()
-    err, peak = max_err(got, want), float(want.abs().max())
+    err, peak = max_err(runs[0], want), float(want.abs().max())
     log(f"  probe_ops: max abs err {err:.3e} (peak {peak:.3f})")
     require(err <= 1e-4 * peak, "probe_ops within 1e-4 of its peak (f32 summation order)")
+    require(torch.equal(runs[0], runs[1]), "probe_ops: two calls give the same bits")
     checks["probe_ops"] = {"max_abs_err": err, "peak": peak, "tol_of_peak": 1e-4}
 
 
@@ -548,9 +569,7 @@ def phase_kernels(report):
         f"{chosen} and at 1 (resident clusters by size {resident})")
     require(chosen > 1 and resident[chosen] >= memory.shape[0],
             f"a cluster of {chosen} > 1 blocks per row, all {memory.shape[0]} resident at once")
-    # (frames, alignments) max abs error; f32: summation order only; bf16:
-    # rounding to bf16 flips where the two sums differ in the last bit
-    tol = {False: (1e-4, 1e-5), True: (0.02, 1e-3)}
+    tol = K3_TOL
     for lowp in (False, True):
         for cluster in (chosen, 1):
             with torch.no_grad():
@@ -779,6 +798,40 @@ def phase_train_e2e(report):
                     raise AssertionError(f"{name}: gradient {k} off by {err:.3e}")
             log(f"  ok: {name}: every gradient within 1e-4 of its peak + 1e-7")
 
+    log("[train-e2e] remat_policy save_attn against all, both decoder forms, both energies "
+        "(remat on): loss and every parameter gradient")
+    for form in ("scan", "hoisted"):
+        for energy in ("xla", "fused"):
+            res = {}
+            for policy in ("all", "save_attn"):
+                cfg = dataclasses.replace(base, tf_decoder=form, remat_decoder=True,
+                                          attention_energy=energy, remat_policy=policy)
+                model = init_params(Tacotron(cfg, device=dev), seed=0).train()
+                before = dict(runtime.LAUNCHES)
+                o = model(text, lengths, gt_mel=mel)
+                loss, _ = tacotron_loss(o.mel, o.linear, mel, linear)
+                loss.backward()
+                torch.cuda.synchronize()
+                n = {k: runtime.LAUNCHES[k] - before.get(k, 0)
+                     for k in ("attn_energy_fwd", "attn_energy_bwd")}
+                res[policy] = (loss.item(), {k: p.grad for k, p in model.named_parameters()}, n)
+            name = f"{form}_{energy}_save_attn"
+            loss_rel = abs(res["save_attn"][0] - res["all"][0]) / abs(res["all"][0])
+            worst = max(float((res["save_attn"][1][k] - w).abs().max())
+                        / (float(w.abs().max()) + 1e-12) for k, w in res["all"][1].items())
+            checks[name] = {"loss_rel_err": loss_rel, "worst_grad_err_of_peak": worst,
+                            "launches": res["save_attn"][2]}
+            log(f"  {name}: loss rel err {loss_rel:.3e}, worst grad err / peak {worst:.3e}, "
+                f"launches {res['save_attn'][2]}")
+            require(res["save_attn"][2] == res["all"][2],
+                    f"{name}: the energy kernels launched as under all ({res['all'][2]})")
+            require(loss_rel <= 1e-5, f"{name}: loss within rel 1e-5 of all's")
+            for k, w in res["all"][1].items():
+                err = float((res["save_attn"][1][k] - w).abs().max())
+                if err > 1e-4 * float(w.abs().max()) + 1e-7:
+                    raise AssertionError(f"{name}: gradient {k} off by {err:.3e}")
+            log(f"  ok: {name}: every gradient within 1e-4 of its peak + 1e-7 of all's")
+
 
 def phase_main(report, cfg, vocab):
     from tacotron_tpu_torch import runtime
@@ -893,6 +946,162 @@ def phase_main_bf16(report, cfg, vocab, mel_f32):
                            "gl_iters": n_it, "audio_seconds": out["audio_seconds"],
                            "audio_seconds_per_s": aps, "launches": launches,
                            "mel_drift_from_f32": drift}
+
+
+def phase_cli(report, cfg, vocab):
+    """[cli] the synthesis CLI at synth_gl1000 width, as a user runs it: a
+    run directory holding the port's checkpoint of seeded random weights,
+    restored and held equal to the weights saved; then
+    ``cli.synthesize.main`` on 2 prompts with ``--fused`` (K3 and K4 bf16)
+    and with ``--preset synth_fast`` (early exit, trimming, K4 bf16), the
+    launch counts set to 0 just before each, the wavs and the JSON line
+    checked."""
+    import contextlib
+    import glob
+    import io
+    import shutil
+    import wave
+
+    from tacotron_tpu_torch import runtime
+    from tacotron_tpu_torch.cli import synthesize as cli
+    from tacotron_tpu_torch.config import get_config
+    from tacotron_tpu_torch.train import checkpoint, create_train_state
+
+    log("[cli] python -m tacotron_tpu_torch.cli.synthesize at synth_gl1000, 2 prompts: "
+        "--fused, then --preset synth_fast")
+    root = os.path.join(ROOT, "build", "chip_smoke_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    run_dir, data_dir = os.path.join(root, "run"), os.path.join(root, "data")
+    os.makedirs(run_dir)
+    os.makedirs(data_dir)
+    with open(os.path.join(run_dir, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+    vocab.save(os.path.join(data_dir, "vocab.json"))
+    t0 = time.perf_counter()
+    state = create_train_state(cfg, seed=0)
+    checkpoint.save(os.path.join(run_dir, "ckpt"), 0, state, cfg.train)
+    saved = {k: v.clone() for k, v in state.model.state_dict().items()}
+    fresh, step = checkpoint.restore(os.path.join(run_dir, "ckpt"),
+                                     create_train_state(cfg, seed=1), cfg.train)
+    require(step == 0 and all(torch.equal(v, saved[k])
+                              for k, v in fresh.model.state_dict().items()),
+            f"the checkpoint restores the {len(saved)} tensors saved, bit for bit "
+            f"({time.perf_counter() - t0:.2f} s to write and restore)")
+    del state, fresh, saved
+    keys = ["audio_seconds", "audio_seconds_per_s", "n", "out_dir", "trimmed_audio_seconds",
+            "trimmed_audio_seconds_per_s", "wall_seconds"]
+    want_launches = {"fused": {"decode_loop": 1, "griffin_lim": 3 * cfg.audio.griffin_lim_iters},
+                     "synth_fast": {"griffin_lim": 3 * get_config("synth_fast").audio.griffin_lim_iters}}
+    runs = {}
+    for name, flags in (("fused", ["--fused"]), ("synth_fast", ["--preset", "synth_fast"])):
+        out_dir = os.path.join(root, name)
+        argv = ["--run-dir", run_dir, "--data-dir", data_dir, "--out-dir", out_dir,
+                "--text", PROMPTS[0], "--text", PROMPTS[1], *flags]
+        buf = io.StringIO()
+        runtime.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        wall = time.perf_counter() - t0
+        launches = dict(runtime.LAUNCHES)
+        lines = buf.getvalue().strip().splitlines()
+        line = json.loads(lines[-1])
+        samples = []
+        for path in sorted(glob.glob(os.path.join(out_dir, "utt_*.wav"))):
+            with wave.open(path) as w:
+                samples.append(w.getnframes())
+                require(w.getframerate() == cfg.audio.sample_rate and w.getsampwidth() == 2,
+                        f"{name}: {os.path.basename(path)} is 16-bit PCM at "
+                        f"{cfg.audio.sample_rate} Hz, {w.getnframes()} samples")
+        runs[name] = {"wall_s": wall, "json": line, "launches": launches, "samples": samples}
+        log(f"  {name}: {lines[0]}; {wall:.2f} s in the process; {line}; launches {launches}")
+        require(sorted(line) == keys and line["n"] == 2 and len(samples) == 2 and min(samples) > 0,
+                f"{name}: two wavs and the JSON line's keys")
+        require(all(launches.get(k) == v for k, v in want_launches[name].items()),
+                f"{name}: launches {want_launches[name]}")
+    report["cli"] = runs
+    runs["checks"] = check_cli_kernels(cfg, vocab, os.path.join(run_dir, "ckpt"))
+
+
+def check_cli_kernels(cfg, vocab, ckpt_dir):
+    """K3 and K4 at [cli]'s own inputs, against their plain versions: the
+    run directory's weights restored as the CLI restores them, its 2
+    prompts, its seed 0 and its configs (synth_gl1000, and synth_fast as
+    ``--preset`` overlays it). K3 at the cluster size B 2 gives it, in both
+    storage modes over 50 steps at K3_TOL, and over the path's 500 steps in
+    bf16 at MAIN_TOL; K4 in its bf16 mode, the mode both runs launch, on
+    each run's magnitudes: its first iteration component by component
+    within one bf16 ulp of the magnitude's peak, then as GL_PATH sets out
+    (depth: the run's iterations). -> the errors."""
+    from tacotron_tpu_torch.cli.synthesize import overlay_preset
+    from tacotron_tpu_torch.dsp.audio import spectrogram_magnitude
+    from tacotron_tpu_torch.dsp.fused_gl import gl_spectrum_reference, griffin_lim_spectrum
+    from tacotron_tpu_torch.infer.synthesize import Synthesizer
+    from tacotron_tpu_torch.models.tacotron import length_mask
+    from tacotron_tpu_torch.ops.decode_loop import (cluster_plan, decode_loop,
+                                                    decode_loop_reference, pack_decoder_weights)
+    from tacotron_tpu_torch.train import checkpoint, create_train_state
+    from tacotron_tpu_torch.weights import split_state
+
+    dev = torch.device("cuda")
+    state, _ = checkpoint.restore(ckpt_dir, create_train_state(cfg, seed=1), cfg.train)
+    p, bs = split_state(state.model)
+    del state
+    synth = Synthesizer(cfg, p, bs, vocab, fused=True)
+    m, texts = synth.model, PROMPTS[:2]
+    text, lengths = synth.encode_texts(texts)
+    mask = length_mask(text.shape[1], lengths)
+    with torch.no_grad():
+        # the Synthesizer's own draws: the encoder's from the call's generator
+        memory = m.encoder(text, lengths, torch.Generator(device=dev).manual_seed(0))
+        keys = m.memory_proj(memory)
+    w = pack_decoder_weights(m.decoder.cell)
+    b, t_in = memory.shape[:2]
+    chosen, resident = cluster_plan(memory, keys, w)
+    n_path = cfg.model.max_decode_steps
+    log(f"  K3 at the CLI's inputs (B {b}, T_in {t_in}): cluster size {chosen} (resident "
+        f"clusters by size {resident})")
+    require(chosen > 1 and resident[chosen] >= b,
+            f"a cluster of {chosen} > 1 blocks per row, all {b} resident at once")
+    out = {"decode_cluster": chosen}
+    for lowp, n in ((False, 50), (True, 50), (True, n_path)):
+        tf, ta = K3_TOL[lowp] if n == 50 else (MAIN_TOL["decode"], None)
+        with torch.no_grad():
+            kf, ka = decode_loop(memory, keys, mask, w, n_steps=n, dropout=False, lowp=lowp)
+            pf, pa = decode_loop_reference(memory, keys, mask, w, n_steps=n, dropout=False,
+                                           lowp=lowp)
+        ef, ea = max_err(kf, pf), max_err(ka, pa)
+        name = f"decode_{'bf16' if lowp else 'f32'}_{n}_steps"
+        out[name] = {"frames_max_abs_err": ef, "aligns_max_abs_err": ea,
+                     "frames_peak": float(pf.abs().max()), "tol": (tf, ta), "cluster": chosen}
+        log(f"  {name} (cluster {chosen}): frames err {ef:.3e} (peak "
+            f"{out[name]['frames_peak']:.3f}), aligns err {ea:.3e}")
+        require(bool(torch.isfinite(kf).all()) and ef <= tf and (ta is None or ea <= ta),
+                f"{name} at the CLI's inputs finite, within frames {tf}"
+                + ("" if ta is None else f", alignments {ta}"))
+
+    for name, c, fused in (("fused", cfg, True), ("synth_fast", overlay_preset(cfg, "synth_fast"),
+                                                  False)):
+        acfg = c.audio
+        # the run's spectrogram: the same call up to Griffin-Lim, which the
+        # kernel is then held on at the run's shape
+        res = Synthesizer(c, p, bs, vocab, fused=fused)(texts, seed=0, gl_iters=1)
+        t_gl = res["wavs"].shape[1] // acfg.hop_length + 1
+        mag = spectrogram_magnitude(torch.from_numpy(res["linear"][:, :t_gl]).to(dev), acfg)
+        kw = dict(momentum=acfg.gl_momentum, **gl_kw(acfg))
+        label = (f"cli {name}: griffin_lim bf16 (B {b}, F {t_gl}, momentum {acfg.gl_momentum})")
+        with torch.no_grad():
+            first = max(max_err(x, y) for x, y in zip(
+                griffin_lim_spectrum(mag, n_iter=1, **kw),
+                gl_spectrum_reference(mag, n_iter=1, **kw))) / float(mag.max())
+        log(f"  {label}: first iteration max err / magnitude peak {first:.3e}")
+        require(first <= GL_PATH["step_tol"], f"{label}: first iteration within one bf16 ulp "
+                f"({GL_PATH['step_tol']:.2e}) of the magnitude's peak")
+        chk = check_gl_path(label, mag, acfg, lambda n: griffin_lim_spectrum(mag, n_iter=n, **kw),
+                            lambda n: gl_spectrum_reference(mag, n_iter=n, **kw),
+                            acfg.griffin_lim_iters)
+        out[f"griffin_lim_bf16_{name}"] = {"t_gl": t_gl, "first_iteration": first, **chk}
+    return out
 
 
 def steps_done_of(mel, r):
@@ -1464,7 +1673,16 @@ def phase_timing_serving(report, fast_cfg, fast_res, mag_fast, mag_main, main_la
         p1_plain = sum(ms for ms, _ in device_kernels(
             lambda: probe.probe_smem_reference(x), reps).values())
         p1_lib = sum(ms for ms, _ in device_kernels(lambda: torch.mul(x, 2), reps).values())
-        p2_ms, _ = kernel_ms(lambda: probe.probe_ops(*ops_in), ("probe_ops_kernel",), reps)
+        kern = device_kernels(lambda: probe.probe_ops(*ops_in), reps)
+        require(len(kern) == 1 and "probe_ops_kernel" in next(iter(kern)),
+                f"probe_ops: one device kernel per call ({sorted(kern)})")
+        p2_ms = launch_ms(kern)
+        plan = probe.ops_plan()
+        grid = (plan.cluster, plan.threads, plan.cluster)
+        probe.probe_empty(*grid, smem_bytes=plan.smem_bytes)
+        kern = device_kernels(lambda: probe.probe_empty(*grid, smem_bytes=plan.smem_bytes), reps)
+        require(len(kern) == 1, "the empty kernel on the ops probe's cluster was profiled")
+        p2_floor = launch_ms(kern)
         p2_plain = sum(ms for ms, _ in device_kernels(
             lambda: probe.probe_ops_reference(*ops_in), reps).values())
         # on seeded normal operands: the all-ones ones sum exactly in any order
@@ -1490,12 +1708,16 @@ def phase_timing_serving(report, fast_cfg, fast_res, mag_fast, mag_main, main_la
           "path": "[probe]",
           "max_abs_err": p2_err, "ms": p2_ms, "plain_ms": p2_plain, "bound_ms": bp2[0],
           "bound_by": bp2[1], "library_ms": None,
-          "shape": "spec (64, 256), d (275, 256), p (275, 275) f32"}
+          "shape": "spec (64, 256), d (275, 256), p (275, 275) f32",
+          "cluster": probe.OPS_CLUSTER, "floor_ms": p2_floor}
     for k in (p1, p2):
         log(f"  {k['name']}: {k['ms'] * 1e3:.2f} us of device time per launch (plain "
             f"{k['plain_ms'] * 1e3:.2f} us, bound {k['bound_ms'] * 1e3:.3f} us by "
             f"{k['bound_by']}, library "
             + ("none)" if k["library_ms"] is None else f"torch.mul {k['library_ms'] * 1e3:.2f} us)"))
+    log(f"  probe_ops on a cluster of {probe.OPS_CLUSTER}: floor (an empty kernel on {grid} "
+        f"with {plan.smem_bytes} bytes of shared memory) {p2_floor * 1e3:.2f} us; "
+        f"{bp2[0] / p2_ms:.2%} of the bound")
     return [k4, k5, k5f, p1, p2]
 
 
@@ -1536,6 +1758,69 @@ def train_config(compute_dtype):
         compute_dtype=compute_dtype))
 
 
+def train_batch(cfg, dev):
+    """The training path's batch, as bench.py makes it."""
+    b, t_in, t_out = TRAIN_B, TRAIN_T_IN, TRAIN_T_OUT
+    g = torch.Generator().manual_seed(0)
+    batch = [torch.randint(1, 60, (b, t_in), generator=g),
+             torch.full((b,), t_in), torch.rand(b, t_out, cfg.model.n_mels, generator=g),
+             torch.rand(b, t_out, cfg.model.n_freq, generator=g), torch.full((b,), t_out)]
+    return [x.to(dev) for x in batch]
+
+
+def phase_train_save_attn(report):
+    """[train-save-attn] remat_policy="save_attn" at the training path's
+    widths and batch, on the plain energy ("xla": the only energy whose tanh
+    is a tensor to keep), hoisted, remat, f32: one warm and one timed step
+    under "all" and under "save_attn" (same weights, batch and dropout
+    seed); the timed step's peak memory under each, the difference held
+    within 25% of the tensor save_attn keeps, S B T_in A 4 bytes; then one
+    step under the profiler for each one's device time and launches."""
+    from tacotron_tpu_torch.config import get_config
+    from tacotron_tpu_torch.train import create_train_state, train_step
+
+    dev = torch.device("cuda")
+    base = get_config("full_1chip")
+    b, t_in, t_out = TRAIN_B, TRAIN_T_IN, TRAIN_T_OUT
+    n_dec, a = t_out // base.model.r, base.model.attention_dim
+    log(f"[train-save-attn] train_step, full_1chip widths, hoisted + xla + remat, f32, B {b}, "
+        f"T_in {t_in}, T_out {t_out}: remat_policy all, then save_attn; 1 warm + 1 timed step each")
+    rep = {}
+    for policy in ("all", "save_attn"):
+        cfg = base.replace(model=dataclasses.replace(
+            base.model, tf_decoder="hoisted", attention_energy="xla", remat_decoder=True,
+            remat_policy=policy))
+        state = create_train_state(cfg, seed=0)
+        batch = train_batch(cfg, dev)
+        state, m, _ = train_step(state, *batch, cfg=cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m, _ = train_step(state, *batch, cfg=cfg)
+        loss = float(m["total_loss"])
+        step_ms = (time.perf_counter() - t0) * 1e3
+        rep[policy] = {"step_ms": step_ms, "loss": loss,
+                       "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        kern = device_kernels(lambda: train_step(state, *batch, cfg=cfg))
+        rep[policy].update(profiled_device_ms=sum(ms for ms, _ in kern.values()),
+                           profiled_launches=sum(n for _, n in kern.values()))
+        log(f"  {policy}: step {step_ms:.3f} ms, loss {loss:.6f}, max_memory_allocated "
+            f"{rep[policy]['max_memory_allocated'] / 2**30:.3f} GiB; one more step under the "
+            f"profiler: {rep[policy]['profiled_device_ms']:.3f} ms of device time in "
+            f"{rep[policy]['profiled_launches']:.0f} launches")
+        del state, batch, m
+    kept = n_dec * b * t_in * a * 4
+    diff = rep["save_attn"]["max_memory_allocated"] - rep["all"]["max_memory_allocated"]
+    rep.update(kept_tensor_bytes=kept, peak_difference_bytes=diff)
+    report["train_save_attn"] = rep
+    log(f"  peak difference {diff / 2**20:.1f} MiB; the kept tanh, {n_dec} x {b} x {t_in} x {a} "
+        f"x 4 bytes, {kept / 2**20:.1f} MiB")
+    require(abs(diff - kept) <= 0.25 * kept,
+            "save_attn's peak exceeds all's by the kept tanh within 25%")
+    require(abs(rep["save_attn"]["loss"] - rep["all"]["loss"]) <= 1e-5 * abs(rep["all"]["loss"]),
+            "the timed step's loss under save_attn within rel 1e-5 of all's")
+
+
 def phase_train(report, compute_dtype="float32"):
     """The training path in ``compute_dtype``: [train] (f32) or [train-bf16]."""
     from tacotron_tpu_torch import runtime
@@ -1552,11 +1837,7 @@ def phase_train(report, compute_dtype="float32"):
     log(f"{tag} train_step, full_1chip widths, hoisted + fused + remat, {compute_dtype}, "
         f"B {b}, T_in {t_in}, T_out {t_out}: 1 warm step, {steps} timed")
     state = create_train_state(cfg, seed=0)
-    g = torch.Generator().manual_seed(0)         # the batch as bench.py makes it
-    batch = [torch.randint(1, 60, (b, t_in), generator=g),
-             torch.full((b,), t_in), torch.rand(b, t_out, cfg.model.n_mels, generator=g),
-             torch.rand(b, t_out, cfg.model.n_freq, generator=g), torch.full((b,), t_out)]
-    batch = [x.to(dev) for x in batch]
+    batch = train_batch(cfg, dev)
     t0 = time.perf_counter()
     state, m, _ = train_step(state, *batch, cfg=cfg)
     first = float(m["total_loss"])
@@ -1881,10 +2162,12 @@ def main(argv=None) -> int:
         state, batch, train_launches = phase_train(report)
         kernels = phase_train_timing(report, state, batch, train_launches) + kernels
         del state
+        phase_train_save_attn(report)
         state, batch, train_launches = phase_train(report, "bfloat16")
         kernels = kernels[:2] + phase_train_timing(report, state, batch, train_launches) + kernels[2:]
         del state
         phase_main_bf16(report, cfg, vocab, mel_main)
+        phase_cli(report, cfg, vocab)
         for k in kernels:
             require(k["launches"] > 0, f"{k['name']} launched on its path ({k['launches']})")
         report["kernels"] = kernels

@@ -3,7 +3,7 @@ port, to compare two checkouts on one card, in turns in one run. Needs
 one NVIDIA GPU:
 
     python3 scripts/synth_ab.py --tree PATH [--calls 3] [--out FILE]
-                                [--decode-rows 8 72] [--energy]
+                                [--decode-rows 8 72] [--energy] [--probe]
 
 Imports ``tacotron_tpu_torch`` and ``chip_smoke`` from ``--tree`` (a
 checkout's root; this one by default), builds its kernels, and runs
@@ -28,6 +28,13 @@ f32 and in bf16; each one's device microseconds per call by torch.profiler
 over 200 calls, ``--calls`` times, and the device kernels per call; where
 the tree's ``energy_bwd`` takes a ``_cluster`` pin, K2 at each cluster size
 too.
+
+With ``--probe``, it times the ops probe (P2, ``probe.probe_ops``) alone
+instead, on chip_smoke.py [timing]'s all-ones operands: device microseconds
+per call by torch.profiler over 200 calls, ``--calls`` times, and the
+device kernels per call; where the tree's ``probe_empty`` takes
+``smem_bytes``, the floor (an empty kernel on the same cluster, threads and
+shared memory).
 """
 import argparse
 import dataclasses
@@ -46,6 +53,7 @@ def main(argv=None):
                     help="time the fused decode alone at these batch sizes")
     ap.add_argument("--energy", action="store_true",
                     help="time the attention-energy kernels alone")
+    ap.add_argument("--probe", action="store_true", help="time the ops probe (P2) alone")
     args = ap.parse_args(argv)
     tree = str(Path(args.tree).resolve())
     sys.path.insert(0, tree)
@@ -75,7 +83,9 @@ def main(argv=None):
         result["decode"] = time_decode(cs, base, vocab, args.decode_rows, args.calls)
     if args.energy:
         result["energy"] = time_energy(cs, args.calls)
-    for name, dtype, gl_iters in (() if args.decode_rows or args.energy else
+    if args.probe:
+        result["probe"] = time_probe(cs, args.calls)
+    for name, dtype, gl_iters in (() if args.decode_rows or args.energy or args.probe else
                                   (("main", "float32", None), ("main-bf16", "bfloat16", 100))):
         cfg = base.replace(model=dataclasses.replace(base.model, compute_dtype=dtype))
         p, bs = split_state(cs.full_model(cfg, torch.device("cuda")))
@@ -169,6 +179,35 @@ def time_energy(cs, calls, reps=200):
             row[f"{name}_us"] = us
             row[f"{name}_kernels"] = sum(n for _, n in kern.values())
         out[str(dtype).split(".")[-1]] = row
+    return out
+
+
+def time_probe(cs, calls, reps=200):
+    """{"ops_us": [...], "ops_kernels": n, "floor_us": [...]}: device microseconds per
+    call, ``calls`` times (each one's time per launch the profiler
+    recorded), and the launches it recorded per call."""
+    import functools
+    import inspect
+
+    import torch
+    from tacotron_tpu_torch import probe
+
+    dev = torch.device("cuda")
+    inputs = probe.ops_inputs(dev)
+    fns = [("ops", functools.partial(probe.probe_ops, *inputs))]
+    if "smem_bytes" in inspect.signature(probe.probe_empty).parameters:
+        plan = probe.ops_plan()
+        fns.append(("floor", functools.partial(probe.probe_empty, plan.cluster, plan.threads,
+                                               plan.cluster, dev, plan.smem_bytes)))
+    out = {}
+    for name, fn in fns:
+        fn()
+        us = []
+        for _ in range(calls):
+            kern = cs.device_kernels(fn, reps)
+            us.append(sum(ms / n for ms, n in kern.values()) * 1e3)
+        out[f"{name}_us"] = us
+        out[f"{name}_kernels"] = sum(n for _, n in kern.values())
     return out
 
 

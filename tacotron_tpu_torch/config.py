@@ -100,7 +100,7 @@ class ModelConfig:
     # attention energy: "xla" (the plain formula) | "fused" (kernels K1/K2
     # on CUDA tensors)
     attention_energy: str = "xla"
-    remat_policy: str = "all"         # only "all" is ported; "save_attn" raises
+    remat_policy: str = "all"         # "all" or "save_attn" (models/decoder.py)
 
     @property
     def memory_dim(self) -> int:

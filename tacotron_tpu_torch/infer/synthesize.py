@@ -86,11 +86,15 @@ class Synthesizer:
         self.model.load_state_dict({**params, **batch_stats}, strict=True)
         self.model.eval()
 
-    def encode_texts(self, texts: list[str]):
+    def encode_texts(self, texts: list[str], pad_to: int | None = None):
+        """-> (ids (B, T) int64, lengths (B,)) on the device; T is the longest
+        prompt's length, or ``pad_to`` if that is longer."""
         if not texts:
             raise ValueError("no prompts: texts is empty")
         ids = [self.vocab.encode(t) for t in texts]
         max_len = max(len(i) for i in ids)
+        if pad_to is not None:
+            max_len = max(max_len, pad_to)
         text = np.zeros((len(ids), max_len), np.int64)
         lengths = np.zeros((len(ids),), np.int64)
         for j, a in enumerate(ids):

@@ -20,6 +20,21 @@ share the parameters (``ModelConfig.tf_decoder``):
 masks are drawn outside the recomputed step, so the recomputation sees the
 same masks without touching the generator.
 
+``remat_policy`` (with ``remat_decoder``) is the JAX package's: ``"all"``
+recomputes everything; ``"save_attn"`` keeps each step's (B, T_in,
+attention_dim) Bahdanau tanh and recomputes the rest. As in JAX the tanh
+exists as a tensor only on the hoisted form with the ``"xla"`` energy: the
+``"scan"`` form ignores the policy (JAX's ``nn.remat`` cell takes none),
+and the ``"fused"`` energy keeps its tanh inside K1/K2 (nothing is named,
+so nothing is saved). There the step is split at the tanh: the attention
+GRU and the query are one recomputed region, the tanh is taken between
+the regions, so autograd keeps it as the tanh's saved output, and the rest
+of the step is a second recomputed region that takes it as an input. This
+keeps exactly the one tensor and recomputes no part of it: selective
+checkpointing (``create_selective_checkpoint_contexts`` with a policy that
+saves the 3-D ``tanh``) would keep the same tensor but still recompute
+``keys + q`` and, in bf16, the tanh's f32 copy. Values equal ``"all"``'s.
+
 With a bf16 ``compute_dtype`` the two forms keep JAX's two kinds of weight
 cast: the step-by-step cell casts its f32 parameters in every step (flax
 ``Dense``), so their gradients sum in f32; the hoisted form casts them once,
@@ -37,6 +52,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tacotron_tpu_torch.config import ModelConfig
 from tacotron_tpu_torch.ops.attention import NEG_INF, BahdanauAttention, energy_scores
+from tacotron_tpu_torch.ops.attn_energy import energy_contract, energy_tanh
 from tacotron_tpu_torch.ops.gru import GRUCell, gru_cell_step
 from tacotron_tpu_torch.ops.modules import Dense, Prenet, dense, dropout
 
@@ -143,14 +159,16 @@ def hoisted_teacher_forced(cell: DecoderCell, frames_in, keys, memory, mask,
                                     g.candidate.weight, g.candidate.bias))
             for g in (getattr(cell, f"decoder_gru{i}") for i in range(cfg.decoder_depth))]
 
-    def step(h_att, ctx, h_dec, gx_t, cx_t):
+    def gru_query(h_att, ctx, gx_t, cx_t):
         ch = torch.cat([ctx, h_att], dim=-1)
         ru = torch.sigmoid(gx_t + dense(ch, wg_ch, None, cd).float())
         r, u = ru.chunk(2, dim=-1)
         cand = torch.tanh(cx_t + dense(torch.cat([ctx, r * h_att], dim=-1), wc_ch,
                                        None, cd).float())
         h_att = u * h_att + (1.0 - u) * cand
-        scores = energy_scores(keys_c, dense(h_att, wq, None, cd), att.v, att.energy)
+        return h_att, dense(h_att, wq, None, cd)
+
+    def after_scores(scores, h_att, h_dec):
         if mask is not None:
             scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
         align = torch.softmax(scores, dim=-1)
@@ -161,7 +179,23 @@ def hoisted_teacher_forced(cell: DecoderCell, frames_in, keys, memory, mask,
             h_i = gru_cell_step(h_prev, h, *w, cd)
             h = h + h_i
             new_hd.append(h_i)
-        return h_att, ctx, tuple(new_hd), h, align
+        return ctx, tuple(new_hd), h, align
+
+    def step(h_att, ctx, h_dec, gx_t, cx_t):
+        h_att, q = gru_query(h_att, ctx, gx_t, cx_t)
+        scores = energy_scores(keys_c, q, att.v, att.energy)
+        return (h_att, *after_scores(scores, h_att, h_dec))
+
+    def after_tanh(e, h_att, h_dec):
+        return after_scores(energy_contract(e, att.v), h_att, h_dec)
+
+    def step_saving_tanh(h_att, ctx, h_dec, gx_t, cx_t):
+        # two recomputed regions around the tanh, which autograd keeps
+        h_att, q = _remat(gru_query, h_att, ctx, gx_t, cx_t)
+        return (h_att, *_remat(after_tanh, energy_tanh(keys_c, q), h_att, h_dec))
+
+    saves_tanh = (cfg.remat_decoder and cfg.remat_policy == "save_attn"
+                  and att.energy == "xla")
 
     dev = memory.device
     h_att = torch.zeros(b, cfg.attention_gru_dim, device=dev)
@@ -171,7 +205,10 @@ def hoisted_teacher_forced(cell: DecoderCell, frames_in, keys, memory, mask,
     hs, aligns = [], []
     for t in range(s):
         args = (h_att, ctx, h_dec, gx[:, t], cx[:, t])
-        h_att, ctx, h_dec, h, a = _remat(step, *args) if cfg.remat_decoder else step(*args)
+        if saves_tanh:
+            h_att, ctx, h_dec, h, a = step_saving_tanh(*args)
+        else:
+            h_att, ctx, h_dec, h, a = _remat(step, *args) if cfg.remat_decoder else step(*args)
         hs.append(h)
         aligns.append(a)
     frames = cell.frame_proj(torch.stack(hs, 1)).float()  # (B, S, r*n_mels)
@@ -222,9 +259,6 @@ class Decoder(nn.Module):
         b, t_out = gt_frames.shape[:2]
         if t_out % cfg.r:
             raise ValueError(f"T_out ({t_out}) must be padded to a multiple of r ({cfg.r})")
-        if cfg.remat_decoder and cfg.remat_policy != "all":
-            raise NotImplementedError(f"remat_policy {cfg.remat_policy!r} is not ported; "
-                                      f"only 'all' is (ROADMAP.md, port queue)")
         n_steps = t_out // cfg.r
         last = gt_frames[:, cfg.r - 1::cfg.r]            # (B, n_steps, n_mels)
         shifted = torch.cat([torch.zeros_like(last[:, :1]), last[:, :-1]], dim=1)

@@ -62,10 +62,20 @@ def bwd_plan(b: int, t: int, resident: dict[int, int]) -> BwdPlan:
     return BwdPlan(c, -(-t // c))
 
 
+def energy_tanh(keys, q):
+    """The plain formula's (B, T_in, A) tanh, in the dtype of ``keys``/``q``."""
+    return torch.tanh(keys + q[:, None, :])
+
+
+def energy_contract(t, v):
+    """The tanh contracted with ``v`` in f32 -> (B, T_in) f32."""
+    return (t.float() @ v.float()).squeeze(-1)
+
+
 def attention_energy_reference(keys, q, v):
     """The plain formula, as the JAX package's XLA path: tanh in the dtype of
     ``keys``/``q``, contracted with ``v`` in f32 -> (B, T_in) f32."""
-    return (torch.tanh(keys + q[:, None, :]).float() @ v.float()).squeeze(-1)
+    return energy_contract(energy_tanh(keys, q), v)
 
 
 def energy_bwd_reference(keys, q, v, de):

@@ -9,23 +9,27 @@ Port of the JAX package's ``scripts/probe_pallas.py`` (TPU probes P1
 ``smem`` asks whether one block can have that much dynamic shared memory
 and use it (an H100 allows 227 KiB; one more is refused, and the refusal
 is raised with the CUDA error, never turned into a pass). ``ops`` runs the
-op shapes the Griffin-Lim kernels rely on in one block: an NT product from
+op shapes the Griffin-Lim kernels rely on in one launch: an NT product from
 shared-memory tiles, two overlapping row-offset accumulations, an unaligned
-row reversed by a permutation product, a loop inside the kernel.
+row reversed by a permutation product, a loop inside the kernel. The launch
+is one thread-block cluster that splits the output's columns over its
+ranks (``ops_plan``; the design is in ``csrc/probe.cu`` at
+``probe_ops_kernel``).
 
 Each probe has a plain PyTorch version, which CPU tensors take.
 ``probe_cluster_barrier`` asks what the fused decode's design needs
 (``csrc/decode_loop.cu`` ends each phase of a step with a cluster barrier):
 it launches clusters that run n cluster barriers and nothing else, for the
 barrier's cost. ``probe_empty`` launches a kernel that does nothing on a
-given grid (the attention-energy kernels' grids): the floor of a small
-kernel's device time. Neither computes anything, so they have no plain
-version and run on the card only.
+given grid (the attention-energy kernels' grids, the ops probe's cluster):
+the floor of a small kernel's device time. Neither computes anything, so
+they have no plain version and run on the card only.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import sys
 
 import numpy as np
@@ -35,6 +39,59 @@ from tacotron_tpu_torch import runtime
 
 SMEM_SHAPE = (8, 512)
 OPS_F, OPS_S, OPS_H = 64, 256, 275
+# the ops kernel's geometry (csrc/probe.cu: kOpsCluster, kOpsRowGroups,
+# kOpsSplit, kOpsLd): one cluster of OPS_CLUSTER blocks; each thread 4 x 4
+# outputs, rows rg + 16 i; the 256-deep contraction split over 4 thread
+# groups; operand rows padded to 260 floats
+OPS_CLUSTER = 16
+OPS_ROW_GROUPS, OPS_SPLIT, OPS_LD = 16, 4, OPS_S + 4
+
+
+@dataclasses.dataclass(frozen=True)
+class OpsPlan:
+    """The ops kernel's launch: ``cluster`` blocks of ``threads`` threads
+    with ``smem_bytes`` of dynamic shared memory; rank r owns the output
+    columns ``cols[r]`` (a half-open range) of all F + 8 rows, and reads
+    p's rows of the same range for its share of the permutation product.
+    Splitting columns needs no halo rows: output row i takes product rows
+    i - 3 and i - 5 of its own column."""
+    cluster: int
+    cols: tuple
+    col_groups: int
+    threads: int
+    smem_bytes: int
+
+
+def ops_col0(r: int, cluster: int) -> int:
+    """First column of rank r: floor(r H / C)."""
+    return r * OPS_H // cluster
+
+
+def ops_owner(j: int, cluster: int) -> int:
+    """The rank owning column j, as the kernel finds it."""
+    t = j * cluster // OPS_H
+    return t + 1 if j >= ops_col0(t + 1, cluster) else t
+
+
+def ops_plan(cluster: int = OPS_CLUSTER) -> OpsPlan:
+    """The launch at the built cluster size, ``OPS_CLUSTER``, the only one
+    ``probe_ops`` launches. Another size that the kernel's geometry allows
+    (a thread per column of p, at most 1024 a block, at most 16 blocks a
+    cluster) serves the CPU emulation in tests/test_torch_probe.py and
+    scripts/probe_study.py's ``cluster_8`` variant, which rebuilds the
+    kernel with kOpsCluster 8."""
+    most = -(-OPS_H // cluster) if cluster > 0 else 0
+    groups = -(-most // 4)
+    threads = OPS_ROW_GROUPS * groups * OPS_SPLIT
+    if not (0 < cluster <= 16 and OPS_H <= threads <= 1024):
+        raise ValueError(f"the ops kernel cannot run on a cluster of {cluster}")
+    pad = 4 * groups
+    floats = (OPS_F * OPS_LD + pad * OPS_LD + OPS_SPLIT * OPS_F * pad + cluster * pad
+              + cluster + 32)
+    return OpsPlan(cluster=cluster,
+                   cols=tuple((ops_col0(r, cluster), ops_col0(r + 1, cluster))
+                              for r in range(cluster)),
+                   col_groups=groups, threads=threads, smem_bytes=4 * floats)
 
 
 def probe_smem_reference(x):
@@ -82,7 +139,7 @@ def _lib():
     lib.tt_probe_ops.restype = ci
     lib.tt_probe_cluster_barrier.argtypes = [ci, ci, ci, vp]
     lib.tt_probe_cluster_barrier.restype = ci
-    lib.tt_probe_empty.argtypes = [ci, ci, ci, vp]
+    lib.tt_probe_empty.argtypes = [ci, ci, ci, ci, vp]
     lib.tt_probe_empty.restype = ci
     for fn in (lib.tt_probe_error_name, lib.tt_probe_error_string):
         fn.argtypes = [ci]
@@ -134,6 +191,7 @@ def probe_ops(spec, d, p):
     spec = _f32_on(spec, (OPS_F, OPS_S), dev, "probe_ops: spec")
     d = _f32_on(d, (OPS_H, OPS_S), dev, "probe_ops: d")
     p = _f32_on(p, (OPS_H, OPS_H), dev, "probe_ops: p")
+    spec, d = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (spec, d))   # 16-byte copies
     out = torch.empty(OPS_F + 8, OPS_H, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
@@ -158,16 +216,18 @@ def probe_cluster_barrier(clusters: int, cluster: int, n: int, device=None) -> N
     runtime.LAUNCHES["probe_cluster_barrier"] += 1
 
 
-def probe_empty(blocks: int, threads: int, cluster: int = 1, device=None) -> None:
+def probe_empty(blocks: int, threads: int, cluster: int = 1, device=None,
+                smem_bytes: int = 0) -> None:
     """Launch an empty kernel on ``blocks`` blocks of ``threads`` threads in
-    clusters of ``cluster`` (1..8); asynchronous on the current stream. Its
-    device time is the floor of any kernel launched on that grid."""
+    clusters of ``cluster`` (1..16) with ``smem_bytes`` of dynamic shared
+    memory; asynchronous on the current stream. Its device time is the
+    floor of any kernel launched on that grid."""
     dev = runtime.resolve_device(device)
     if dev.type != "cuda":
         raise ValueError(f"probe_empty runs on a CUDA device, not {dev}")
     lib = _lib()
     with torch.cuda.device(dev):
-        err = lib.tt_probe_empty(blocks, threads, cluster, runtime.stream_ptr(dev))
+        err = lib.tt_probe_empty(blocks, threads, cluster, smem_bytes, runtime.stream_ptr(dev))
     _check(lib, err, f"probe_empty({blocks} blocks of {threads} in clusters of {cluster})")
     runtime.LAUNCHES["probe_empty"] += 1
 

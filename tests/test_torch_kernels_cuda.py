@@ -18,8 +18,10 @@ one bf16 iteration of either kernel within one bf16 ulp (2^-7) of the
 magnitude's peak, one f32 iteration of either (split TF32 products) within
 2x the plain f32 step's own error against the same step summed in f64, and
 K5 bit-equal to K4 at beta 0 in both modes; the probes: shared
-memory exact, ops 1e-4 of its peak, the cluster barrier launched at every
-cluster size, the empty kernel launched at every cluster size of K2;
+memory exact, ops 1e-4 of its peak, one launch, the same bits on every
+call, the cluster barrier launched at every
+cluster size, the empty kernel launched at every cluster size of K2 and on
+the ops kernel's cluster;
 attention energy (K1) and its
 three gradients (K2) 1e-5 of each one's peak (f32, summation order only),
 at K2's every cluster size too, dv the same bits on every call, K2 one
@@ -432,7 +434,7 @@ def test_probe_cluster_barrier_runs(dev, cluster):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("seed", [None, 0])
+@pytest.mark.parametrize("seed", [None, 0, 1])
 def test_probe_ops_matches_plain(dev, seed):
     inputs = probe.ops_inputs(dev, seed)
     before = runtime.LAUNCHES["probe_ops"]
@@ -443,6 +445,45 @@ def test_probe_ops_matches_plain(dev, seed):
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
     with pytest.raises(ValueError, match="probe_ops: d"):
         probe.probe_ops(inputs[0], inputs[1][:, :-1], inputs[2])
+
+
+@pytest.mark.cuda
+def test_probe_ops_is_the_same_bits_every_call(dev):
+    """No float atomics: three calls give the same bits, and every output
+    element got the same addend s (rows 0..2 hold only s)."""
+    inputs = probe.ops_inputs(dev, 0)
+    outs = [probe.probe_ops(*inputs) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    assert torch.equal(outs[0][:3], outs[0][0, 0].expand(3, probe.OPS_H))
+
+
+@pytest.mark.cuda
+def test_probe_ops_is_one_launch(dev):
+    """Exactly one device kernel per probe_ops call, by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    inputs = probe.ops_inputs(dev, 0)
+    probe.probe_ops(*inputs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            probe.probe_ops(*inputs)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    assert len(kernels) == 1 and list(kernels.values()) == [5], kernels
+    assert f"probe_ops_kernel<{probe.OPS_CLUSTER}>" in next(iter(kernels))
+
+
+@pytest.mark.cuda
+def test_probe_empty_on_the_ops_cluster(dev):
+    plan = probe.ops_plan()
+    before = runtime.LAUNCHES["probe_empty"]
+    probe.probe_empty(plan.cluster, plan.threads, plan.cluster, device=dev,
+                      smem_bytes=plan.smem_bytes)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["probe_empty"] == before + 1
 
 
 def _energy_inputs(dev, b, t, a, seed=0):
