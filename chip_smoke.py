@@ -108,7 +108,20 @@ Phases, in order; any failure raises and exits non-zero:
    it, in both storage modes over 50 steps and in bf16 over 500; K4's bf16
    mode on each run's magnitudes, its first iteration and as GL_PATH sets
    out; one JSON line with all eleven kernel rows;
-13. last line: {"ok": true, "device": {...}}.
+13. [train-cli] the data pipeline and the training CLI at full_1chip width:
+   the char-tone corpus of the trained-weights recipe (256 utterances),
+   ``cli.preprocess.main`` on the card (the first 16 utterances' f32
+   features held against the CPU's at CLI_FEATURE_TOL), ``cli.train.main``
+   at r 5 with the fused energy, B 32: 20 f32 steps (scan decoder, native
+   assembler, a trace of steps 12-13, an eval at step 20: K4 bf16), then
+   the resume to step 30 in bf16 with hoisted + remat and the device cache;
+   each run's K1, K2 and K4 launches equal to what its steps' buckets (the
+   loader's schedule replayed), decoder form, remat and eval give, the
+   losses finite, the checkpoint restored bit for bit, the device cache's
+   batches equal to the native assembler's (ms per batch of each), and
+   K1/K2 (f32 and bf16) and K4 bf16 held against their plain versions on
+   the runs' own inputs; the kernel rows gain ``train_cli_launches``;
+14. last line: {"ok": true, "device": {...}}.
 
 ``--report PATH`` also writes every check and measurement as JSON.
 """
@@ -204,6 +217,40 @@ MAIN_BF16_GL_ITERS = 100
 TRAIN_B, TRAIN_T_IN, TRAIN_T_OUT = 32, 128, 400
 TRAIN_STEPS = {"float32": 3, "bfloat16": 5}
 TRAIN_ROUNDS = {"float32": 1, "bfloat16": 3}
+
+# [train-cli]: the corpus of the trained-weights recipe (scripts/r5_evidence_run.sh:
+# 256 utterances of 20 characters, 0.06 s each +-30%), B 32, 20 f32 steps then a
+# resume to 30 in bf16; the card's features checked against the CPU's on the
+# first 16 utterances
+TRAIN_CLI = {"n": 256, "text_len": 20, "char_sec": 0.06, "jitter": 0.3, "batch": 32,
+             "steps": (20, 30), "cpu_check": 16}
+# [train-cli] features, card (cuFFT) against CPU (torch.fft), f32 max abs error
+# of the normalised spectrograms. FFT-bound: a transform's last-bit error is
+# multiplied by the dB scale in the pure tones' deep spectral valleys, so
+# two FFTs differ here by far more than on speech-like signals (2.094e-3 and
+# 2.312e-5 measured on an H100, the same in every run)
+CLI_FEATURE_TOL = {"linear": 5e-3, "mel": 5e-5}
+# [train-cli]'s eval magnitudes (20 training steps: no longer flat at the
+# spectrogram's floor): where a bin's analysis sum nearly cancels, one bf16
+# rounding that an f32 sum's last bit flips turns the projected phase. In
+# runs of this phase on an H100 one step's largest component error was
+# 3.8e-3 to 2.2e-2 of the peak, past GL_PATH's one ulp (7.8e-3) at single
+# bins: at most 4 of the 25.6M components of one magnitude over 8 eval
+# magnitudes (scripts/train_cli_study.py). So here at most this share of
+# the components may pass one ulp, none by more than twice its bin's
+# magnitude
+GL_EVAL_STEP_SHARE = 1e-5
+# [train-cli], the training step through K1/K2 against the plain energy on
+# the run's weights and batch (f32): [train-e2e]'s per-gradient tolerance,
+# set on the tiny config, plus this share of the model's largest gradient
+# entry. At full width after 10-20 training steps the gradients of the
+# post-net and the decoder's output layer are sums that cancel, and the
+# last-bit differences of K1's energies move them by up to ~6e-3 of their
+# own peak; the CLI's training is not bit-reproducible on the card, so the
+# weights, and these errors, differ from run to run. In 13 checks on an
+# H100 (scripts/train_cli_study.py) the largest error was 9.6e-7, 0.038 of
+# this tolerance (the largest entry 6.5e-3 to 9.6e-3)
+CLI_GRAD_FLOOR = 3e-3
 
 PROMPTS = [
     "The birch canoe slid on the smooth planks, and the boy glued the sheet to the dark blue background.",
@@ -437,24 +484,39 @@ def check_gl_speech(name, b, f, acfg, cases):
     return out
 
 
-def check_gl_steps(name, mag, acfg):
+def check_gl_steps(name, mag, acfg, over_share=0.0):
     """The streaming kernel against the plain step, one iteration from the
     plain bf16 loop's own state at GL_PATH's depths -> the largest component
-    error over the magnitude's peak."""
+    error over the magnitude's peak. ``over_share``: the share of the
+    components allowed past one bf16 ulp of the peak (0: none), each still
+    within twice its bin's magnitude (a projection cannot move a bin
+    further)."""
     from tacotron_tpu_torch.dsp.fused_gl import gl_step_reference, griffin_lim_step, zero_phase
     kw, peak, worst = gl_kw(acfg), float(mag.max()), 0.0
+    tol = GL_PATH["step_tol"] * peak
+    over = total = wild = 0
     re, im = zero_phase(mag, True)
     with torch.no_grad():
         for depth in range(max(GL_PATH["step_depths"]) + 1):
             pr, pi = gl_step_reference(re, im, mag, **kw)
             if depth in GL_PATH["step_depths"]:
-                kr, ki = griffin_lim_step(re, im, mag, **kw)
-                worst = max(worst, max_err(kr, pr) / peak, max_err(ki, pi) / peak)
+                for got, want in zip(griffin_lim_step(re, im, mag, **kw), (pr, pi)):
+                    d = (got.float() - want.float()).abs()
+                    worst = max(worst, float(d.max()) / peak)
+                    over, total = over + int((d > tol).sum()), total + d.numel()
+                    wild += int((d > 2 * mag.float() + tol).sum())
             re, im = pr, pi
     log(f"  {name}: one step from the plain loop's state at depths {GL_PATH['step_depths']}: "
-        f"max err / magnitude peak {worst:.3e}")
-    require(worst <= GL_PATH["step_tol"], f"{name}: each step within one bf16 ulp "
-            f"({GL_PATH['step_tol']:.2e}) of the magnitude's peak")
+        f"max err / magnitude peak {worst:.3e}; {over} of {total} components past one bf16 "
+        f"ulp of the peak")
+    if over_share:
+        require(over <= over_share * total and not wild,
+                f"{name}: each step within one bf16 ulp ({GL_PATH['step_tol']:.2e}) of the "
+                f"magnitude's peak but for at most {over_share} of the components, those "
+                f"within twice their bin's magnitude")
+    else:
+        require(worst <= GL_PATH["step_tol"], f"{name}: each step within one bf16 ulp "
+                f"({GL_PATH['step_tol']:.2e}) of the magnitude's peak")
     return worst
 
 
@@ -488,12 +550,15 @@ def check_gl_f32_steps(name, mag, acfg):
     return worst
 
 
-def check_gl_path(name, mag, acfg, kernel, plain, n_iter, at_depth=None, steps=True):
+def check_gl_path(name, mag, acfg, kernel, plain, n_iter, at_depth=None, steps=True,
+                  over_share=0.0):
     """A bf16 Griffin-Lim kernel at a path's shape, magnitudes and depth
     against its plain version, as GL_PATH sets out: ``kernel(n)`` and
     ``plain(n)`` give the spectrum after n iterations on ``mag``;
-    ``at_depth`` is the pair after ``n_iter`` where the caller has it."""
-    out = {"step_max_err_over_mag_peak": check_gl_steps(name, mag, acfg)} if steps else {}
+    ``at_depth`` is the pair after ``n_iter`` where the caller has it;
+    ``over_share`` as ``check_gl_steps``'."""
+    out = ({"step_max_err_over_mag_peak": check_gl_steps(name, mag, acfg, over_share)}
+           if steps else {})
     n = GL_PATH["iters"]
     with torch.no_grad():
         out["short"] = check_gl(f"{name}, {n} iterations", kernel(n), plain(n), mag, acfg,
@@ -1102,6 +1167,327 @@ def check_cli_kernels(cfg, vocab, ckpt_dir):
                             acfg.griffin_lim_iters)
         out[f"griffin_lim_bf16_{name}"] = {"t_gl": t_gl, "first_iteration": first, **chk}
     return out
+
+
+def run_cli(main, argv):
+    """-> (stdout lines of ``main(argv)``, seconds)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return buf.getvalue().strip().splitlines(), time.perf_counter() - t0
+
+
+def loader_schedule(data_dir, cfg, n_steps):
+    """The buckets of the training CLI's first ``n_steps`` batches: its
+    loader's schedule replayed (the same seed), without assembling them."""
+    from tacotron_tpu_torch.data.loader import DataLoader, Dataset
+    dl = DataLoader(Dataset(data_dir), batch_size=cfg.train.batch_size,
+                    num_buckets=cfg.data.num_buckets, r=cfg.model.r, seed=cfg.train.seed,
+                    use_native=False)
+    dl._make_batch = lambda b, items: b
+    out = []
+    while len(out) < n_steps:
+        out += list(dl.epoch())
+    return [dl.buckets[b].n_frames // cfg.model.r for b in out[:n_steps]]
+
+
+def capture_energy_inputs(model, batch, gen):
+    """(keys, q, v) of the model's first attention-energy call on ``batch``
+    (the first decoder step's), detached."""
+    from tacotron_tpu_torch.ops import attention
+    seen = []
+    inner = attention.attention_energy
+
+    def spy(keys, q, v):
+        if not seen:
+            seen.append([x.detach().clone() for x in (keys, q, v)])
+        return inner(keys, q, v)
+
+    attention.attention_energy = spy
+    try:
+        with torch.no_grad():
+            model.train()(batch[0], batch[1], gt_mel=batch[2].float(), generator=gen)
+    finally:
+        attention.attention_energy = inner
+    return seen[0]
+
+
+def check_train_cli_kernels(cfg, ckpt_dir, step, batch, bf16):
+    """K1/K2 at [train-cli]'s own inputs: the run's checkpoint ``step``
+    restored as the CLI restores it, the loader's first batch and one set of
+    dropout masks, with deterministic convolutions and index reductions (the
+    plain energy's run is held to repeat bit for bit). The teacher-forced
+    loss and every parameter gradient through the fused energy against the
+    plain one. f32: the loss at [train-e2e]'s rel 1e-5; each gradient within
+    [train-e2e]'s 1e-4 of its peak + 1e-7, plus CLI_GRAD_FLOOR of the
+    model's largest gradient entry. bf16: the loss at [train-bf16]'s 1e-3
+    (the formula rounds elsewhere than K1/K2), the gradients' distance
+    printed. Then K1 and K2 alone on the keys, query and v of the model's
+    first energy call: f32 at ENERGY_TOL, bf16 as ENERGY_BF16 sets out."""
+    from tacotron_tpu_torch.models.tacotron import Tacotron
+    from tacotron_tpu_torch.train import checkpoint, create_train_state
+    from tacotron_tpu_torch.train.loss import tacotron_loss
+
+    dev = torch.device("cuda")
+    tag = "bf16" if bf16 else "f32"
+    state, _ = checkpoint.restore(ckpt_dir, create_train_state(cfg, seed=1), cfg.train, step)
+    weights = state.model.state_dict()
+    del state
+    text, lengths, mel, linear, frame_len = batch
+    res = {}
+    # deterministic convolutions and index reductions, so that the plain
+    # energy's run repeats bit for bit and what differs is K1/K2's
+    flags = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for run, energy in (("xla", "xla"), ("xla_again", "xla"), ("fused", "fused")):
+            model = Tacotron(dataclasses.replace(cfg.model, attention_energy=energy), device=dev)
+            model.load_state_dict(weights)
+            o = model.train()(text, lengths, gt_mel=mel.float(),
+                              generator=torch.Generator(device=dev).manual_seed(7))
+            loss, _ = tacotron_loss(o.mel, o.linear, mel.float(), linear.float(), frame_len,
+                                    mask_padding=cfg.train.mask_padding,
+                                    linear_weight=cfg.train.loss_linear_weight)
+            loss.backward()
+            res[run] = (float(loss.detach()), {k: p.grad for k, p in model.named_parameters()})
+            if run == "fused":
+                inputs = capture_energy_inputs(model, batch,
+                                               torch.Generator(device=dev).manual_seed(7))
+            del model
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = flags[0]
+        torch.use_deterministic_algorithms(flags[1], warn_only=flags[2])
+    repeat = res["xla"][0] == res["xla_again"][0] and all(
+        torch.equal(g, res["xla_again"][1][k]) for k, g in res["xla"][1].items())
+    loss_rel = abs(res["fused"][0] - res["xla"][0]) / abs(res["xla"][0])
+    grads = {k: (float((res["fused"][1][k] - w).abs().max()), float(w.abs().max()))
+             for k, w in res["xla"][1].items()}
+    worst = max(e / (p + 1e-12) for e, p in grads.values())
+    top = max(p for _, p in grads.values())
+    log(f"  {tag} at the CLI's inputs (step {step}, B {text.shape[0]}, T_in {text.shape[1]}, "
+        f"T_out {mel.shape[1]}): loss fused {res['fused'][0]:.6f} xla {res['xla'][0]:.6f} "
+        f"(rel {loss_rel:.3e}), worst gradient err / peak {worst:.3e}, the largest gradient "
+        f"entry {top:.3e}; the plain energy's run repeats bit for bit: {repeat}")
+    for k, (e, p) in sorted(grads.items(), key=lambda kv: -kv[1][0] / (kv[1][1] + 1e-12))[:4]:
+        log(f"    {k}: err {e:.3e}, peak {p:.3e}")
+    require(repeat, f"{tag}: the plain energy's loss and gradients repeat bit for bit")
+    require(np.isfinite(res["fused"][0]) and np.isfinite(res["xla"][0]), f"{tag}: losses finite")
+    tol = {k: 1e-4 * p + 1e-7 + CLI_GRAD_FLOOR * top for k, (_, p) in grads.items()}
+    out = {"loss": {k: v[0] for k, v in res.items()}, "loss_rel_err": loss_rel,
+           "worst_grad_err_of_peak": worst, "largest_grad": top,
+           "largest_grad_err": max(e for e, _ in grads.values()),
+           "worst_grad_err_of_tol": max(grads[k][0] / t for k, t in tol.items())}
+    if bf16:
+        require(loss_rel <= 1e-3, f"{tag}: loss through K1/K2 within rel 1e-3 of the plain "
+                f"energy's")
+    else:
+        require(loss_rel <= 1e-5, f"{tag}: loss through K1/K2 within rel 1e-5 of the plain "
+                f"energy's")
+        bad = {k: grads[k][0] for k, t in tol.items() if grads[k][0] > t}
+        log(f"  {tag}: largest gradient error {out['largest_grad_err']:.3e}, the worst "
+            f"{out['worst_grad_err_of_tol']:.3f} of its tolerance")
+        require(not bad, f"{tag}: every gradient within 1e-4 of its peak + 1e-7 + "
+                f"{CLI_GRAD_FLOOR} x the largest gradient entry ({bad})")
+    keys, q, v = inputs
+    de = torch.randn(keys.shape[:2], generator=torch.Generator().manual_seed(5)).to(dev)
+    log(f"  {tag} K1/K2 alone on the first energy call's keys {tuple(keys.shape)} "
+        f"{keys.dtype}, q, v")
+    if bf16:
+        out["kernels"] = energy_bf16_check(keys.float(), q.float(), v, de, label=f"{tag} cli ")
+    else:
+        errs, same_dv = energy_check(keys, q, v, de)
+        for n, (err, peak) in errs.items():
+            log(f"  {tag} cli {n}: max abs err {err:.3e} (peak {peak:.3f})")
+            require(err <= ENERGY_TOL * peak, f"{tag} cli {n} within {ENERGY_TOL} of its peak")
+        require(same_dv, f"{tag} cli dv bit-identical across two runs")
+        out["kernels"] = errs
+    return out
+
+
+def phase_train_cli(report):
+    """[train-cli] the data pipeline and the training CLI at full_1chip
+    width, as a user runs them: the char-tone corpus of the trained-weights
+    recipe, ``cli.preprocess.main`` on the card (the first utterances'
+    features also on the CPU, held at CLI_FEATURE_TOL), then
+    ``cli.train.main`` for 20 f32 steps (scan decoder, native assembler,
+    fused energy, a trace window, an eval at step 20) and its resume to
+    step 30 in bf16 (hoisted + remat, the device cache). Each run's K1, K2
+    and K4 launches equal what its steps' buckets, decoder form and remat
+    and its eval give; the checkpoint restores bit for bit; the device
+    cache's batches equal the native assembler's; K1/K2 and K4 bf16 are
+    held against their plain versions on the runs' own inputs."""
+    import shutil
+
+    from tacotron_tpu_torch import runtime
+    from tacotron_tpu_torch.cli import preprocess as preprocess_cli
+    from tacotron_tpu_torch.cli import train as train_cli
+    from tacotron_tpu_torch.config import AudioConfig, Config
+    from tacotron_tpu_torch.data import ljspeech
+    from tacotron_tpu_torch.data.loader import DataLoader, Dataset, put_batch
+    from tacotron_tpu_torch.dsp.audio import spectrogram_magnitude
+    from tacotron_tpu_torch.dsp.fused_gl import gl_spectrum_reference, griffin_lim_spectrum
+    from tacotron_tpu_torch.infer import Synthesizer
+    from tacotron_tpu_torch.train import checkpoint, create_train_state
+    from tacotron_tpu_torch.weights import split_state
+
+    c = TRAIN_CLI
+    dev = torch.device("cuda")
+    log(f"[train-cli] the char-tone corpus ({c['n']} utterances, text_len {c['text_len']}, "
+        f"char_sec {c['char_sec']} jitter {c['jitter']}), cli.preprocess on the card, then "
+        f"cli.train at full_1chip, r 5, fused energy, B {c['batch']}: {c['steps'][0]} f32 steps "
+        f"(scan, native assembler), resumed to {c['steps'][1]} in bf16 (hoisted + remat, "
+        f"device cache)")
+    root = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(root, ignore_errors=True)
+    corpus, data, run = (os.path.join(root, d) for d in ("corpus", "data", "run"))
+    rep = {"card": smi()}
+    ljspeech.generate_char_tone_corpus(corpus, n=c["n"], seed=0, char_sec=c["char_sec"],
+                                       text_len=c["text_len"], char_sec_jitter=c["jitter"])
+    lines, secs = run_cli(preprocess_cli.main, ["--corpus-dir", corpus, "--data-dir", data,
+                                                "--preset", "full_1chip"])
+    rep["preprocess"] = {"seconds_in_process": secs, "json": json.loads(lines[-1])}
+    log(f"  preprocess: {lines[-1]}; {secs:.2f} s in the process")
+    ds = Dataset(data)
+    require(len(ds) == c["n"] and ds.mels.shape[1] == 80 and ds.linears.shape[1] == 1025,
+            f"{c['n']} utterances, 80 mels, 1025 linear bins")
+
+    # the card's f32 features against the CPU's (cuFFT is a third FFT)
+    with open(os.path.join(data, "config.json")) as f:
+        acfg = AudioConfig(**json.load(f))
+    entries = ljspeech.read_metadata(corpus)[:c["cpu_check"]]
+    wavs = [ljspeech.load_wav(p, acfg.sample_rate) for _, p, _ in entries]
+    card = ljspeech._features_batched(wavs, acfg, 16, dev)
+    cpu = ljspeech._features_batched(wavs, acfg, 16, "cpu")
+    feat = {}
+    for i, kind in ((0, "mel"), (1, "linear")):
+        d = np.concatenate([np.abs(a[i] - b[i]).ravel() for a, b in zip(card, cpu)])
+        stored = np.concatenate([a[i].astype(np.float16).ravel() for a in card])
+        on_disk = (ds.mels if kind == "mel" else ds.linears)[:sum(n for _, _, n in card)]
+        feat[kind] = {"max_abs_err": float(d.max()), "p999": float(np.quantile(d, 0.999)),
+                      "tol": CLI_FEATURE_TOL[kind],
+                      "f16_equal_to_disk": bool(np.array_equal(stored, np.asarray(on_disk).ravel()))}
+        log(f"  {kind} card vs CPU, {len(wavs)} utterances: max abs err {d.max():.3e}, "
+            f"99.9th percentile {feat[kind]['p999']:.3e} (tol {CLI_FEATURE_TOL[kind]})")
+        require(d.max() <= CLI_FEATURE_TOL[kind], f"{kind}: card within {CLI_FEATURE_TOL[kind]} "
+                f"of the CPU")
+        require(feat[kind]["f16_equal_to_disk"], f"{kind}: the data directory holds the card's "
+                f"features, cast to f16")
+    rep["features_card_vs_cpu"] = feat
+
+    base = ["--data-dir", data, "--run-dir", run, "--preset", "full_1chip", "--set", "model.r=5",
+            "--set", "model.attention_energy=fused", "--batch-size", str(c["batch"]),
+            "--summary-every", "5", "--checkpoint-every", "10", "--eval-every", "20"]
+    runs = {}
+    for name, extra in (
+            ("f32", ["--steps", str(c["steps"][0]), "--trace-steps", "12:13"]),
+            ("bf16", ["--steps", str(c["steps"][1]), "--device-cache",
+                      "--set", "model.tf_decoder=hoisted", "--set", "model.remat_decoder=true",
+                      "--set", "model.compute_dtype=bfloat16"])):
+        runtime.LAUNCHES.clear()
+        lines, secs = run_cli(train_cli.main, base + extra)
+        launches = {k: v for k, v in runtime.LAUNCHES.items() if v}
+        summaries = [json.loads(ln) for ln in lines if ln.startswith('{"step"')]
+        cfg = Config.from_json(open(os.path.join(run, "config.json")).read())
+        first, last = (c["steps"][0], c["steps"][1]) if name == "bf16" else (0, c["steps"][0])
+        n_dec = loader_schedule(data, cfg, last - first)
+        remat = 2 if cfg.model.remat_decoder else 1
+        evals = [s for s in range(first + 1, last + 1) if s % 20 == 0]
+        want = {"attn_energy_fwd": remat * sum(n_dec) + len(evals) * cfg.model.max_decode_steps,
+                "attn_energy_bwd": sum(n_dec)}
+        if evals:
+            want["griffin_lim"] = 3 * 60 * len(evals)
+        runs[name] = {"seconds_in_process": secs, "lines": lines[:2] + lines[-1:],
+                      "summaries": summaries, "launches": launches, "want_launches": want,
+                      "decoder_steps": n_dec}
+        for ln in lines:
+            log(f"  {name}: {ln}")
+        log(f"  {name}: {secs:.2f} s in the process; launches {launches}; decoder steps per "
+            f"training step {n_dec}")
+        losses = [s[k] for s in summaries for k in ("mel_loss", "linear_loss", "total_loss")]
+        require(len(summaries) == (last - first) // 5 and all(np.isfinite(losses)),
+                f"{name}: every summary's loss finite")
+        require(json.loads(lines[-1]) == {"done": True, "step": last}, f"{name}: done at step {last}")
+        require(launches == want, f"{name}: launches {want} ({remat} K1 per decoder step, "
+                f"{len(evals)} eval(s) of {cfg.model.max_decode_steps} steps and 60 "
+                f"Griffin-Lim iterations)")
+        if first:
+            require(lines[1] == f"resumed from step {first}", f"{name}: {lines[1]}")
+        else:
+            require(f"trace written: {os.path.join(run, 'trace')}" in lines and any(
+                f.endswith(".pt.trace.json") for f in os.listdir(os.path.join(run, "trace"))),
+                f"{name}: a trace of steps 12-13 written")
+        runs[name]["frames_per_s"] = [s["frames_per_s"] for s in summaries]
+        log(f"  {name}: frames_per_s by summary {runs[name]['frames_per_s']} on {rep['card']}")
+        runs[name]["cfg"] = cfg
+    rep["runs"] = {k: {kk: vv for kk, vv in v.items() if kk != "cfg"} for k, v in runs.items()}
+
+    cfg32, cfg16 = runs["f32"]["cfg"], runs["bf16"]["cfg"]
+    ckpt = os.path.join(run, "ckpt")
+    state, step = checkpoint.restore(ckpt, create_train_state(cfg32, seed=1), cfg32.train,
+                                     c["steps"][0])
+    saved = np.load(os.path.join(ckpt, f"step_{step}", "leaves.npz"))
+    leaves = checkpoint.state_leaves(state, cfg32.train)
+    require(all(np.array_equal(a, saved[f"leaf_{i}"]) for i, (_, a) in enumerate(leaves)),
+            f"step {step}'s checkpoint restores its {len(leaves)} leaves bit for bit")
+
+    # the eval's Griffin-Lim (K4 bf16) on the eval's own magnitudes: the same
+    # call as the CLI's at step 20, up to Griffin-Lim
+    synth = Synthesizer(cfg32, *split_state(state.model), ds.vocab)
+    del state
+    res = synth(["the quick brown fox jumps over the lazy dog"], gl_iters=1)
+    t_gl = res["wavs"].shape[1] // cfg32.audio.hop_length + 1
+    mag = spectrogram_magnitude(torch.from_numpy(res["linear"][:, :t_gl]).to(dev), cfg32.audio)
+    kw = dict(momentum=cfg32.audio.gl_momentum, **gl_kw(cfg32.audio))
+    rep["griffin_lim_bf16_eval"] = check_gl_path(
+        f"train-cli eval: griffin_lim bf16 (B 1, F {t_gl})", mag, cfg32.audio,
+        lambda n: griffin_lim_spectrum(mag, n_iter=n, **kw),
+        lambda n: gl_spectrum_reference(mag, n_iter=n, **kw), 60,
+        over_share=GL_EVAL_STEP_SHARE)
+    del synth, res, mag
+
+    # the device cache's batches against the native assembler's, and each
+    # assembler's time per batch
+    kw = dict(batch_size=c["batch"], num_buckets=cfg16.data.num_buckets, r=5, seed=0)
+    native, cache = DataLoader(ds, **kw), DataLoader(ds, device_cache=True, **kw)
+    nb, cb = list(native.epoch()), list(cache.epoch())
+    require(len(nb) == len(cb) > 0 and all(
+        n.bucket == k.bucket and n.items == k.items and all(
+            torch.equal(torch.from_numpy(a), t.cpu()) for a, t in zip(n.arrays(), k.arrays()))
+        for n, k in zip(nb, cb)), f"the device cache's {len(cb)} batches of an epoch equal the "
+                                  f"native assembler's")
+    ms = {}
+    for name, dl in (("native", native), ("native_to_card", native), ("device_cache", cache)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in dl.epoch():
+            if name == "native_to_card":
+                put_batch(b, dev)
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3 / len(nb)
+    rep["assembler_ms_per_batch"] = ms
+    log(f"  ms per batch, B {c['batch']}, an epoch of {len(nb)}: native {ms['native']:.3f} "
+        f"(+ pinned copy to the card {ms['native_to_card']:.3f}), device cache "
+        f"{ms['device_cache']:.3f}; {rep['card']}")
+    del cache, cb
+
+    # K1/K2 on the runs' inputs: the loader's first batch, each run's last checkpoint
+    first = nb[0]
+    batch = put_batch(first, dev)[0]
+    rep["kernels_at_cli_inputs"] = {
+        "f32": check_train_cli_kernels(cfg32, ckpt, c["steps"][0], batch, False),
+        "bf16": check_train_cli_kernels(cfg16, ckpt, c["steps"][1], batch, True)}
+    report["train_cli"] = rep
+    return {"attn_energy_fwd": runs["f32"]["launches"].get("attn_energy_fwd", 0),
+            "attn_energy_bwd": runs["f32"]["launches"].get("attn_energy_bwd", 0),
+            "attn_energy_fwd_bf16": runs["bf16"]["launches"].get("attn_energy_fwd", 0),
+            "attn_energy_bwd_bf16": runs["bf16"]["launches"].get("attn_energy_bwd", 0),
+            "griffin_lim_bf16": runs["f32"]["launches"].get("griffin_lim", 0)}
 
 
 def steps_done_of(mel, r):
@@ -2168,8 +2554,13 @@ def main(argv=None) -> int:
         del state
         phase_main_bf16(report, cfg, vocab, mel_main)
         phase_cli(report, cfg, vocab)
+        cli_launches = phase_train_cli(report)
         for k in kernels:
             require(k["launches"] > 0, f"{k['name']} launched on its path ({k['launches']})")
+            if k["name"] in cli_launches:
+                k["train_cli_launches"] = cli_launches[k["name"]]
+                require(k["train_cli_launches"] > 0, f"{k['name']} launched on [train-cli]'s "
+                        f"path ({k['train_cli_launches']})")
         report["kernels"] = kernels
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)

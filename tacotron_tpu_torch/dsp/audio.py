@@ -1,8 +1,10 @@
-"""Normalised linear spectrogram -> waveform.
+"""Audio features: waveform <-> normalised log spectrograms.
 
-Port of the inversion half of the JAX package's ``dsp/audio.py``:
-denormalise -> dB to amplitude -> magnitude^power sharpening (paper §3.3)
--> Griffin-Lim phase recovery -> final iSTFT -> inverse pre-emphasis.
+Port of the JAX package's ``dsp/audio.py``. Forward (preprocessing):
+pre-emphasis (0.97) -> STFT magnitude -> (80-band mel) -> dB -> normalised
+into [0, 1]. Inverse (synthesis): denormalise -> dB to amplitude ->
+magnitude^power sharpening (paper §3.3) -> Griffin-Lim phase recovery ->
+final iSTFT -> inverse pre-emphasis.
 """
 
 from __future__ import annotations
@@ -12,9 +14,15 @@ import torch
 from tacotron_tpu_torch.config import AudioConfig
 from tacotron_tpu_torch.dsp.dft import gl_spectrum_mm, istft_mm
 from tacotron_tpu_torch.dsp.fused_gl import griffin_lim_spectrum
-from tacotron_tpu_torch.dsp.stft import gl_spectrum_fft
+from tacotron_tpu_torch.dsp.mel import mel_filterbank
+from tacotron_tpu_torch.dsp.stft import gl_spectrum_fft, stft_magnitude
 
 _PREEMPH_BLOCK = 256
+
+
+def preemphasis(y, coef: float = 0.97):
+    """y[t] - coef * y[t-1] (reference: scipy lfilter([1, -coef], [1]))."""
+    return torch.cat([y[..., :1], y[..., 1:] - coef * y[..., :-1]], dim=-1)
 
 
 def inv_preemphasis(y, coef: float = 0.97):
@@ -45,6 +53,38 @@ def inv_preemphasis(y, coef: float = 0.97):
     decay = (coef ** (i + 1)).float()
     x = local + prev[..., None] * decay
     return x.reshape(*lead, nb * blk)[..., :n]
+
+
+def amp_to_db(x):
+    return 20.0 * torch.log10(torch.clamp(x, min=1e-5))
+
+
+def normalize(s_db, cfg: AudioConfig):
+    return torch.clamp((s_db - cfg.min_level_db) / -cfg.min_level_db, 0.0, 1.0)
+
+
+def spectrogram(y, cfg: AudioConfig, *, preemph: bool = True, center: bool = True):
+    """Waveform (..., T) -> normalised linear log-spectrogram (..., frames, n_freq).
+
+    ``preemph=False, center=False`` is the batched-preprocess path
+    (``data/ljspeech.py``): pre-emphasis and the centre reflect padding are
+    then applied per utterance by the caller, so batch zero-padding never
+    leaks into the reflected tail frames."""
+    if preemph:
+        y = preemphasis(y, cfg.preemphasis)
+    mag = stft_magnitude(y, cfg.n_fft, cfg.hop_length, cfg.win_length, center=center)
+    return normalize(amp_to_db(mag) - cfg.ref_level_db, cfg)
+
+
+def melspectrogram(y, cfg: AudioConfig, *, preemph: bool = True, center: bool = True):
+    """Waveform (..., T) -> normalised mel log-spectrogram (..., frames, n_mels)."""
+    if preemph:
+        y = preemphasis(y, cfg.preemphasis)
+    mag = stft_magnitude(y, cfg.n_fft, cfg.hop_length, cfg.win_length, center=center)
+    fb = torch.from_numpy(mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels,
+                                         cfg.fmin, cfg.fmax)).to(mag.device)
+    mel = torch.einsum("...tf,mf->...tm", mag, fb)
+    return normalize(amp_to_db(mel) - cfg.ref_level_db, cfg)
 
 
 def db_to_amp(x):

@@ -1,7 +1,7 @@
 """Framing, windowing and overlap-add for the STFT, and the FFT transforms.
 
-Port of the parts of the JAX package's ``dsp/stft.py`` that synthesis
-uses, and of its ``dsp/griffin_lim.py`` (the ``"fft"`` Griffin-Lim backend
+Port of the JAX package's ``dsp/stft.py`` (the forward transform feeds
+preprocessing, the inverse synthesis), and of its ``dsp/griffin_lim.py`` (the ``"fft"`` Griffin-Lim backend
 over ``torch.fft``; the JAX package computes these transforms outside any
 kernel too). Conventions follow librosa's, as the reference did: centre-padded
 (reflect), periodic Hann window of ``win_length`` zero-padded (centred) to
@@ -73,6 +73,12 @@ def stft(y, n_fft: int, hop_length: int, win_length: int, center: bool = True):
     """Complex STFT. (..., T) -> (..., frames, n_fft//2 + 1)."""
     frames = frame_signal(y.float(), n_fft, hop_length, center=center)
     return torch.fft.rfft(frames * _window(win_length, n_fft, y), n=n_fft, dim=-1)
+
+
+def stft_magnitude(y, n_fft: int, hop_length: int, win_length: int,
+                   center: bool = True):
+    """|STFT|. (..., T) -> (..., frames, n_fft//2 + 1), f32."""
+    return stft(y, n_fft, hop_length, win_length, center=center).abs()
 
 
 def istft(spec, n_fft: int, hop_length: int, win_length: int,

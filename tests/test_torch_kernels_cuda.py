@@ -676,3 +676,70 @@ def test_attn_energy_bwd_is_one_launch(dev, bf16):
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
     assert len(kernels) == 1 and list(kernels.values()) == [5], kernels
     assert "energy_bwd<" in next(iter(kernels))
+
+
+@pytest.fixture(scope="module")
+def card_data(dev, tmp_path_factory):
+    """A synthetic corpus preprocessed on the card at a small STFT."""
+    from tacotron_tpu_torch.config import AudioConfig
+    from tacotron_tpu_torch.data import ljspeech
+    root = tmp_path_factory.mktemp("card_data")
+    ljspeech.generate_synthetic_corpus(str(root / "corpus"), n=10, min_sec=0.3, max_sec=0.9)
+    acfg = AudioConfig(n_fft=512, win_length=400, hop_length=128)
+    ljspeech.preprocess(str(root / "corpus"), str(root / "data"), acfg, chunk=4)
+    return root
+
+
+@pytest.mark.cuda
+def test_device_cache_on_the_card_equals_numpy_assembler(card_data):
+    from tacotron_tpu_torch.data.loader import DataLoader, Dataset
+    kw = dict(batch_size=3, num_buckets=3, r=5, seed=3)
+    ds = Dataset(str(card_data / "data"))
+    host = DataLoader(ds, use_native=False, **kw)
+    cache = DataLoader(ds, device_cache=True, **kw)
+    assert cache.assembler == "device_cache"
+    for _ in range(2):
+        for h, c in zip(host.epoch(), cache.epoch()):
+            assert h.bucket == c.bucket and h.items == c.items
+            for a, t in zip(h.arrays(), c.arrays()):
+                assert t.is_cuda and str(t.dtype).endswith(str(a.dtype))
+                assert torch.equal(t.cpu(), torch.from_numpy(a))
+
+
+@pytest.mark.cuda
+def test_pinned_prefetch_delivers_the_host_bytes(card_data, dev):
+    from tacotron_tpu_torch.data.loader import DataLoader, Dataset, device_prefetch, put_batch
+    dl = DataLoader(Dataset(str(card_data / "data")), batch_size=3, num_buckets=2, r=5)
+    assert dl.assembler == "native"
+    batches = list(dl.epoch())
+    n = 0
+    for b, (arrays, pinned) in device_prefetch(iter(batches), lambda b: put_batch(b, dev)):
+        assert len(pinned) == 5 and all(p.is_pinned() for p in pinned)
+        for a, t in zip(b.arrays(), arrays):
+            assert t.is_cuda
+            assert torch.equal(t.cpu(), torch.from_numpy(a))
+        n += 1
+    assert n == len(batches) > 0
+
+
+@pytest.mark.cuda
+def test_train_cli_two_steps_launch_k1_k2(card_data, tmp_path):
+    import ast
+    import contextlib
+    import io
+    import json
+    from tacotron_tpu_torch.cli import train as train_cli
+    buf = io.StringIO()
+    runtime.LAUNCHES.clear()
+    with contextlib.redirect_stdout(buf):
+        train_cli.main(["--data-dir", str(card_data / "data"), "--run-dir", str(tmp_path / "run"),
+                        "--preset", "tiny_cpu", "--batch-size", "4", "--num-buckets", "1",
+                        "--steps", "2", "--summary-every", "1",
+                        "--set", "model.attention_energy=fused"])
+    lines = buf.getvalue().strip().splitlines()
+    bucket = ast.literal_eval(lines[0].removeprefix("buckets: "))[0]
+    n_dec = bucket[1] // get_config("tiny_cpu").model.r
+    assert runtime.LAUNCHES["attn_energy_fwd"] == runtime.LAUNCHES["attn_energy_bwd"] == 2 * n_dec
+    assert json.loads(lines[-1]) == {"done": True, "step": 2}
+    losses = [json.loads(ln)["total_loss"] for ln in lines if ln.startswith('{"step"')]
+    assert len(losses) == 2 and all(v == v for v in losses)
