@@ -121,7 +121,21 @@ Phases, in order; any failure raises and exits non-zero:
    batches equal to the native assembler's (ms per batch of each), and
    K1/K2 (f32 and bf16) and K4 bf16 held against their plain versions on
    the runs' own inputs; the kernel rows gain ``train_cli_launches``;
-14. last line: {"ok": true, "device": {...}}.
+14. [dp] the parallel layer (``torch.distributed``) on the one card, kernels
+   built before any rank starts: the data-parallel step at [train]'s width
+   and batch over a 1-rank NCCL group, bit-equal to the plain step; two
+   gloo ranks of 16 rows against one process on the 32 rows (dropout on, 3
+   steps; losses, gradients, parameters and batch statistics as DP_* sets
+   out; each rank's K1/K2 launches and step ms); the tensor-parallel step
+   on (data 1, model 2) at tiny widths against one process, linear_proj
+   half on each rank; ``Synthesizer(mesh=...)`` at synth_gl1000 on 8
+   prompts over the two ranks against one process (mel, linear 1e-5; each
+   rank's K4 launches; the waveforms against K4 on the gathered
+   spectrogram); then ``cli.train`` as two processes (--coordinator, the
+   per-chip batch, --debug-sync, a checkpoint by process 0 only), their
+   resume, and ``cli.synthesize --data-parallel``; the kernel rows of K1,
+   K2 (f32) and K4 bf16 gain ``dp_launches``, one count per rank;
+15. last line: {"ok": true, "device": {...}}.
 
 ``--report PATH`` also writes every check and measurement as JSON.
 """
@@ -129,7 +143,9 @@ Phases, in order; any failure raises and exits non-zero:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -1194,9 +1210,10 @@ def loader_schedule(data_dir, cfg, n_steps):
     return [dl.buckets[b].n_frames // cfg.model.r for b in out[:n_steps]]
 
 
-def capture_energy_inputs(model, batch, gen):
-    """(keys, q, v) of the model's first attention-energy call on ``batch``
-    (the first decoder step's), detached."""
+@contextlib.contextmanager
+def first_energy_call():
+    """A list that receives (keys, q, v), detached, of the first
+    attention-energy call made while the context is open."""
     from tacotron_tpu_torch.ops import attention
     seen = []
     inner = attention.attention_energy
@@ -1208,10 +1225,16 @@ def capture_energy_inputs(model, batch, gen):
 
     attention.attention_energy = spy
     try:
-        with torch.no_grad():
-            model.train()(batch[0], batch[1], gt_mel=batch[2].float(), generator=gen)
+        yield seen
     finally:
         attention.attention_energy = inner
+
+
+def capture_energy_inputs(model, batch, gen):
+    """(keys, q, v) of the model's first attention-energy call on ``batch``
+    (the first decoder step's), detached."""
+    with first_energy_call() as seen, torch.no_grad():
+        model.train()(batch[0], batch[1], gt_mel=batch[2].float(), generator=gen)
     return seen[0]
 
 
@@ -2493,6 +2516,581 @@ def phase_train_timing(report, state, batch, launches):
     return [k1, k2]
 
 
+DP = {"steps": 3, "prompts": 8, "cli_steps": (4, 6), "per_chip_batch": 16, "timeout_s": 600}
+# [dp] the 2-rank step against the one-process step on the same 32 rows, the
+# same dropout masks (both at deterministic convolutions), each step from a
+# common state: step 1 from the seeded weights, steps 2 and 3 from rank 0's
+# state after the step before (weights, batch statistics, Adam moments,
+# dropout generator), so that what differs is the step alone and no earlier
+# step's rounding carried forward. Then: losses and gradient norm rel
+# DP_LOSS_RTOL (summation order only); the gradients by [train-cli]'s rule
+# (1e-4 of each one's peak + 1e-7 + CLI_GRAD_FLOOR of the largest entry;
+# cancelling sums move by far more than their own peak's 1e-4 with a
+# last-bit change) and each also within DP_GRAD_OF_PEAK of its own peak,
+# so that no tensor of small gradients hides under the model's largest
+# entry (the post-net's cancelling convolution sums were the worst, 4.9e-3
+# of their peak at step 1 on an H100; a gradient left unreduced is off by
+# half of its own); the
+# updated parameters within DP_PARAM_ATOL plus 1.01 x the difference of the
+# two Adam moves that the two steps' clipped gradients make from the
+# common moments (Adam's first step moves an entry by lr g / (|g| + eps),
+# so where |g| is near eps a rounding-sized difference of g moves it by up
+# to 2 lr); the running batch statistics after the step (0.99 of the
+# common ones + 0.01 of the global batch's: per-rank statistics would be
+# 1e-3 off) within DP_STAT_TOL of each one's peak + 1e-7. The uninterrupted
+# runs' statistics after step 3 are printed beside them: they differ by the
+# parameters that Adam's first step moved apart
+DP_LOSS_RTOL = 1e-5
+DP_GRAD_OF_PEAK = 2e-2
+DP_PARAM_ATOL = 2e-6
+DP_STAT_TOL = 1e-5
+
+
+def dp_train_config():
+    """[train]'s recipe in f32 (hoisted, remat, the fused energy), prenet
+    dropout 0.5 as full_1chip has it."""
+    return train_config("float32")
+
+
+def dp_tp_config():
+    """The tensor-parallel check's config: tiny widths, vocab 32 and n_freq
+    260 (both split in two), the fused energy, model 2."""
+    from tacotron_tpu_torch.config import MeshConfig, get_config
+    c = get_config("tiny_cpu")
+    return dataclasses.replace(c, model=dataclasses.replace(
+        c.model, vocab_size=32, n_freq=260, attention_energy="fused"),
+        mesh=MeshConfig(model_parallel_size=2))
+
+
+def dp_tp_batch(dev):
+    g = torch.Generator().manual_seed(3)
+    b, t_in, t_out = 8, 24, 40
+    lengths = torch.tensor([24, 20, 17, 24, 9, 13, 22, 24])
+    text = torch.randint(1, 30, (b, t_in), generator=g) * (torch.arange(t_in) < lengths[:, None])
+    batch = [text, lengths, torch.rand(b, t_out, 80, generator=g),
+             torch.rand(b, t_out, 260, generator=g), torch.full((b,), t_out)]
+    return [x.to(dev) for x in batch]
+
+
+def dp_deterministic():
+    """Deterministic convolutions and index reductions, so that the
+    one-process step repeats bit for bit; TF32 off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+
+
+def host_copy(x):
+    """``x`` (a tensor, or a dict or list of them) copied to the host."""
+    if isinstance(x, torch.Tensor):
+        return x.to("cpu", copy=True)
+    if isinstance(x, dict):
+        return {k: host_copy(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(host_copy(v) for v in x)
+    return x
+
+
+def digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.contiguous().view(torch.uint8).numpy().tobytes()).hexdigest()
+
+
+def dp_run(state, step_fn, arrays, n_steps, keep=True):
+    """n_steps of ``step_fn`` -> metrics and ms per step, and for each step
+    the digests of its gradients, updated parameters and batch statistics,
+    full (gathered over a model group); with ``keep`` also those tensors on
+    the host, the dropout generator's state before the step and (but for
+    the last step, and unsharded) the Adam state after it."""
+    from tacotron_tpu_torch.parallel.sharding import full_tensor
+    m = state.model
+    out = {"metrics": [], "ms": [], "digests": [], "steps": []}
+    for i in range(n_steps):
+        gen = state.generator.get_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics, _ = step_fn(state, *arrays)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["metrics"].append(metrics)
+        rec = {"grads": {k: host_copy(full_tensor(m, k, p.grad)) for k, p in m.named_parameters()},
+               "params": {k: host_copy(full_tensor(m, k, p.detach()))
+                          for k, p in m.named_parameters()},
+               "stats": {k: host_copy(b) for k, b in m.named_buffers()}}
+        out["digests"].append({s: {k: digest(t) for k, t in rec[s].items()} for s in rec})
+        if keep:
+            rec["gen"] = gen
+            if i < n_steps - 1 and not getattr(m, "tp_shards", None):
+                rec["opt"] = host_copy(state.opt.state_dict())
+            out["steps"].append(rec)
+    return state, out
+
+
+def dp_restart(cfg, batch, prev, gen):
+    """One one-process step on ``batch`` from the state after another run's
+    step (``prev``: its ``dp_run`` record; None: the seeded start) and from
+    its dropout generator state ``gen`` -> that step's ``dp_run``."""
+    from tacotron_tpu_torch.train import create_train_state, make_train_step
+    state = create_train_state(cfg, seed=0, device=batch[0].device)
+    if prev is not None:
+        state.model.load_state_dict({**prev["params"], **prev["stats"]})
+        # a copy: Adam keeps the loaded step counts and advances them in place
+        state.opt.load_state_dict(host_copy(prev["opt"]))
+        state = state._replace(step=int(prev["opt"]["state"][0]["step"]))
+    state.generator.set_state(gen)
+    return dp_run(state, make_train_step(cfg), batch, 1)[1]
+
+
+def adam_move(g, m0, v0, t, lr, tc):
+    """The move of Adam's step ``t`` (from 1) on gradient ``g`` from the
+    moments m0, v0 (None: zero), in f64: lr m_hat / (sqrt(v_hat) + eps)."""
+    b1, b2, eps = tc.adam_b1, tc.adam_b2, tc.adam_eps
+    g = g.double()
+    m = (1 - b1) * g + (0 if m0 is None else b1 * m0.double())
+    v = (1 - b2) * g * g + (0 if v0 is None else b2 * v0.double())
+    return lr / (1 - b1 ** t) * m / (v.sqrt() / (1 - b2 ** t) ** 0.5 + eps)
+
+
+def dp_hold(tag, got, want, prev, train_cfg):
+    """One step's record ``got`` (a rank's) against ``want`` (one process's
+    from the same state; ``prev``: that state's record, None for the
+    seeded start) by the DP_* rules; ``got``/``want`` also carry the step's
+    ``metrics``. -> the worst errors."""
+    from tacotron_tpu_torch.train.schedule import learning_rate
+    t = 1 if prev is None else int(prev["opt"]["state"][0]["step"]) + 1
+    lr = learning_rate(train_cfg, t - 1)
+    for k in ("mel_loss", "linear_loss", "total_loss", "grad_norm"):
+        g, w = got["metrics"][k], want["metrics"][k]
+        require(abs(g - w) <= DP_LOSS_RTOL * abs(w),
+                f"{tag}: {k} {g:.7f} within rel {DP_LOSS_RTOL} of one process's {w:.7f}")
+    top = max(float(g.abs().max()) for g in want["grads"].values())
+    worst = {"grad_of_tol": 0.0, "grad_of_peak": {}, "param": 0.0, "param_amplified": 0,
+             "stat_of_tol": 0.0}
+    names = list(want["params"])
+    moments = {} if prev is None else {names[i]: (s["exp_avg"], s["exp_avg_sq"])
+                                       for i, s in prev["opt"]["state"].items()}
+    bad, n_all = {}, 0
+    for k, w in want["grads"].items():
+        err = float((got["grads"][k] - w).abs().max())
+        peak = float(w.abs().max())
+        tol = 1e-4 * peak + 1e-7 + CLI_GRAD_FLOOR * top
+        worst["grad_of_tol"] = max(worst["grad_of_tol"], err / tol)
+        worst["grad_of_peak"][k] = err / peak if peak else (0.0 if err == 0 else float("inf"))
+        m0, v0 = moments.get(k, (None, None))
+        d = (got["params"][k] - want["params"][k]).abs().double()
+        adam = 1.01 * (adam_move(got["grads"][k], m0, v0, t, lr, train_cfg)
+                       - adam_move(w, m0, v0, t, lr, train_cfg)).abs()
+        if not bool((d <= DP_PARAM_ATOL + adam).all()):
+            bad[k] = float((d - adam).max())
+        amplified = adam > DP_PARAM_ATOL
+        worst["param"] = max(worst["param"], float(d[~amplified].max())
+                             if (~amplified).any() else 0.0)
+        worst["param_amplified"] += int(amplified.sum())
+        n_all += w.numel()
+    require(worst["grad_of_tol"] <= 1.0, f"{tag}: every gradient within 1e-4 of its peak + "
+            f"1e-7 + {CLI_GRAD_FLOOR} x the largest entry (worst {worst['grad_of_tol']:.3f} of it)")
+    ranked = sorted(worst["grad_of_peak"].items(), key=lambda kv: -kv[1])
+    log(f"  {tag}: gradients' error over their own peak, the largest: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in ranked[:4]))
+    worst["grad_of_peak_max"] = ranked[0][1]
+    del worst["grad_of_peak"]
+    require(worst["grad_of_peak_max"] <= DP_GRAD_OF_PEAK, f"{tag}: every gradient within "
+            f"{DP_GRAD_OF_PEAK} of its own peak (worst {worst['grad_of_peak_max']:.3e})")
+    require(not bad, f"{tag}: every updated parameter within {DP_PARAM_ATOL} + 1.01 x the "
+            f"difference of the two Adam moves (past it: {bad})")
+    for k, w in want["stats"].items():
+        tol = DP_STAT_TOL * float(w.abs().max()) + 1e-7
+        worst["stat_of_tol"] = max(worst["stat_of_tol"],
+                                   float((got["stats"][k] - w).abs().max()) / tol)
+    require(worst["stat_of_tol"] <= 1.0, f"{tag}: running batch statistics within "
+            f"{DP_STAT_TOL} of each one's peak + 1e-7 (worst {worst['stat_of_tol']:.3f} of it)")
+    log(f"  {tag}: worst gradient {worst['grad_of_tol']:.3e} of its tolerance; parameters "
+        f"max diff {worst['param']:.3e} where the Adam moves' difference is under "
+        f"{DP_PARAM_ATOL}, {worst['param_amplified']} of {n_all} entries where it is not")
+    return worst
+
+
+def dp_energy_check(seen):
+    """K1 and K2 alone on the (keys, q, v) of a rank's first energy call
+    (its own batch rows): against autograd through the plain formula
+    (``energy_check``) and against ``energy_bwd_reference`` directly ->
+    {name: (max abs error, peak)}, dv's repeat and K2's cluster size."""
+    from tacotron_tpu_torch.ops.attn_energy import (attention_energy_reference, energy_bwd,
+                                                    energy_bwd_reference, energy_fwd, plan_of)
+    keys, q, v = seen[0]
+    de = torch.randn(keys.shape[:2], generator=torch.Generator().manual_seed(5)).to(keys.device)
+    errs, same_dv = energy_check(keys, q, v, de)
+    got = (energy_fwd(keys, q, v), *energy_bwd(keys, q, v, de))
+    want = (attention_energy_reference(keys, q, v), *energy_bwd_reference(keys, q, v, de))
+    torch.cuda.synchronize()
+    for n, g, w in zip(("e", "dkeys", "dq", "dv"), got, want):
+        errs[f"direct_{n}"] = (max_err(g, w), float(w.abs().max()))
+    return {"errs": errs, "dv_repeats": same_dv, "shape": tuple(keys.shape),
+            "cluster": plan_of(keys).cluster}
+
+
+def dp_ranks(rank, world):
+    """What each of [dp]'s two ranks runs on the one card (a gloo group):
+    the full-width data-parallel steps, the tensor-parallel step and the
+    mesh synthesis; each with this rank's kernel launches, and K1/K2 held
+    alone on this rank's own first energy call. Rank 0 returns the steps'
+    tensors, rank 1 their digests."""
+    from tacotron_tpu_torch import runtime
+    from tacotron_tpu_torch.config import get_config
+    from tacotron_tpu_torch.data.vocab import Vocab
+    from tacotron_tpu_torch.infer import Synthesizer
+    from tacotron_tpu_torch.parallel import make_mesh
+    from tacotron_tpu_torch.train import create_train_state, make_train_step
+    from tacotron_tpu_torch.weights import split_state
+
+    dp_deterministic()
+    out = {"rank": rank}
+    for name, cfg in (("dp", dp_train_config()), ("tp", dp_tp_config())):
+        mesh = make_mesh(cfg.mesh)
+        if name == "dp":
+            per = TRAIN_B // mesh.data_size
+            rows = slice(mesh.data_index * per, (mesh.data_index + 1) * per)
+            arrays, n_steps = [x[rows] for x in train_batch(cfg, mesh.device)], DP["steps"]
+        else:
+            arrays, n_steps = dp_tp_batch(mesh.device), 1
+        state = create_train_state(cfg, seed=0, mesh=mesh)
+        runtime.LAUNCHES.clear()
+        with first_energy_call() as seen:
+            state, res = dp_run(state, make_train_step(cfg, mesh), arrays, n_steps,
+                                keep=rank == 0)
+        res["launches"] = dict(runtime.LAUNCHES)
+        res["mesh"] = (mesh.data_size, mesh.model_size)
+        res["shards"] = {k: tuple(p.shape) for k, p in state.model.named_parameters()
+                         if k in state.model.tp_shards}
+        del state
+        res["energy"] = dp_energy_check(seen)
+        out[name] = res
+
+    cfg = get_config("synth_gl1000")
+    vocab = Vocab.build(PROMPTS)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, vocab_size=len(vocab)))
+    mesh = make_mesh(cfg.mesh)
+    synth = Synthesizer(cfg, *split_state(full_model(cfg, mesh.device)), vocab, mesh=mesh)
+    runtime.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = synth(PROMPTS[:DP["prompts"]], seed=0, peak_normalize=False)
+    out["synth"] = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+                    "launches": dict(runtime.LAUNCHES), "mesh": (mesh.data_size, mesh.model_size),
+                    "rows": (mesh.data_index * DP["prompts"] // mesh.data_size,
+                             (mesh.data_index + 1) * DP["prompts"] // mesh.data_size),
+                    "digests": {k: digest(torch.from_numpy(np.ascontiguousarray(res[k])))
+                                for k in ("mel", "linear", "wavs")}}
+    if rank == 0:
+        out["synth"].update({k: res[k] for k in ("mel", "linear", "wavs", "end_frames")})
+    return out
+
+
+def torch_launch():
+    """``tests/torch_launch.py``: the ranks' launcher that the multi-process
+    tests use (a ``file://`` rendezvous, a wall, every rank killed on a
+    failure)."""
+    tests = os.path.join(ROOT, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_launch as module
+    return module
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_dp_cli(report, card):
+    """[dp] 5: two ``cli.train`` processes on [train-cli]'s corpus
+    (--coordinator 127.0.0.1:port, gloo on the one card), the per-chip batch
+    x 2, --debug-sync and one checkpoint; their resume; and
+    ``cli.synthesize --data-parallel`` on the run."""
+    import shutil
+
+    def run_procs(cmds, log_dir, timeout_s):
+        return torch_launch().run_commands(cmds, log_dir, timeout_s, dict(os.environ, PYTHONPATH=ROOT))
+
+    root = os.path.join(ROOT, "build", "chip_smoke_dp")
+    shutil.rmtree(root, ignore_errors=True)
+    data = os.path.join(ROOT, "build", "chip_smoke_train", "data")
+    run = os.path.join(root, "run")
+    steps = DP["cli_steps"]
+
+    def cli(module, n, *args):
+        port = free_port()
+        return [[sys.executable, "-m", f"tacotron_tpu_torch.cli.{module}", *args,
+                 "--coordinator", f"127.0.0.1:{port}", "--num-processes", str(n),
+                 "--process-id", str(i)] for i in range(n)]
+
+    def lines_of(out):
+        return [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+
+    train = ["--data-dir", data, "--run-dir", run, "--preset", "full_1chip", "--set", "model.r=5",
+             "--set", "model.attention_energy=fused", "--set",
+             f"train.per_chip_batch_size={DP['per_chip_batch']}", "--summary-every", "2",
+             "--checkpoint-every", str(steps[0]), "--debug-sync"]
+    rep = {}
+    for name, n_steps in (("train", steps[0]), ("resume", steps[1])):
+        t0 = time.perf_counter()
+        outs, codes = run_procs(cli("train", 2, *train, "--steps", str(n_steps)),
+                                os.path.join(root, name), DP["timeout_s"])
+        secs = time.perf_counter() - t0
+        for i, o in enumerate(outs):
+            for ln in o.strip().splitlines():
+                log(f"  cli.train {name} process {i}: {ln}")
+        require(codes == [0, 0], f"cli.train {name}: both processes exit 0 ({codes})")
+        summaries = [[ln for ln in lines_of(o) if "total_loss" in ln] for o in outs]
+        require(all("torch.distributed backend gloo" in o for o in outs),
+                f"cli.train {name}: both processes on gloo (two ranks on one card)")
+        require(all(lines_of(o)[-1] == {"done": True, "step": n_steps} for o in outs),
+                f"cli.train {name}: both done at step {n_steps}")
+        require(summaries[0] and [s["total_loss"] for s in summaries[0]] ==
+                [s["total_loss"] for s in summaries[1]] and all(
+                    np.isfinite(s["total_loss"]) for s in summaries[0]),
+                f"cli.train {name}: both print the same finite global losses")
+        rep[name] = {"seconds": secs, "summaries": summaries[0]}
+        log(f"  cli.train {name}: {secs:.2f} s for both processes; frames_per_s "
+            f"{[s['frames_per_s'] for s in summaries[0]]} (x 2 ranks) on {card}")
+    with open(os.path.join(run, "config.json")) as f:
+        batch = json.load(f)["train"]["batch_size"]
+    require(batch == 2 * DP["per_chip_batch"], f"global batch {batch} = per-chip "
+            f"{DP['per_chip_batch']} x 2 processes")
+    ckpts = sorted(os.listdir(os.path.join(run, "ckpt")))
+    require(ckpts == [f"step_{steps[0]}", f"step_{steps[1]}"], f"checkpoints {ckpts}")
+    require("resumed from step" not in open(os.path.join(root, "train", "p1.log")).read() and
+            all(f"resumed from step {steps[0]}" in open(os.path.join(root, "resume", f"p{i}.log"))
+                .read() for i in range(2)), f"both processes resumed from step {steps[0]}")
+    require(all("summary writer" in open(os.path.join(root, n, "p0.log")).read() and
+                "summary writer" not in open(os.path.join(root, n, "p1.log")).read()
+                for n in ("train", "resume")), "only process 0 writes summaries")
+
+    out_dir = os.path.join(root, "wavs")
+    # three of the corpus's own transcripts: its vocabulary has no others
+    from tacotron_tpu_torch.data import ljspeech
+    corpus = os.path.join(ROOT, "build", "chip_smoke_train", "corpus")
+    texts = [a for _, _, t in ljspeech.read_metadata(corpus)[:3] for a in ("--text", t)]
+    t0 = time.perf_counter()
+    outs, codes = run_procs(cli("synthesize", 2, "--run-dir", run, "--data-dir", data,
+                                "--out-dir", out_dir, *texts, "--steps", "60",
+                                "--gl-iters", "30", "--data-parallel"),
+                            os.path.join(root, "synth"), DP["timeout_s"])
+    for i, o in enumerate(outs):
+        for ln in o.strip().splitlines():
+            log(f"  cli.synthesize process {i}: {ln}")
+    require(codes == [0, 0], f"cli.synthesize --data-parallel: both processes exit 0 ({codes})")
+    res = lines_of(outs[0])[-1]
+    require(res["n"] == 3 and not lines_of(outs[1]) and sorted(os.listdir(out_dir)) ==
+            [f"utt_{i:03d}.wav" for i in range(3)],
+            "cli.synthesize --data-parallel: process 0 wrote 3 wavs and the JSON line")
+    rep["synthesize"] = {"seconds": time.perf_counter() - t0, "json": res}
+    report["dp"]["cli"] = rep
+
+
+def phase_dp(report):
+    """[dp] the parallel layer on the one card: (1) the data-parallel step
+    over a 1-rank NCCL group against the plain step, bit for bit; (2) two
+    gloo ranks of 16 rows each against one process on the 32, with dropout,
+    3 steps at full width; (3) the tensor-parallel step on (data 1, model 2)
+    at tiny widths against one process; (4) mesh synthesis on the two ranks
+    against one process; (5) the CLIs on two processes (``phase_dp_cli``).
+    Rank 1's results are held bit-equal to rank 0's, and K1/K2 and K4 are
+    held against their plain versions on each rank's own inputs. Kernels
+    are built already; the ranks only load them."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from tacotron_tpu_torch.config import get_config
+    from tacotron_tpu_torch.data.vocab import Vocab
+    from tacotron_tpu_torch.dsp.audio import gl_spectrum, spectrogram_magnitude, spectrum_to_wav
+    from tacotron_tpu_torch.dsp.fused_gl import gl_spectrum_reference, griffin_lim_spectrum
+    from tacotron_tpu_torch.infer import Synthesizer
+    from tacotron_tpu_torch.parallel import make_mesh
+    from tacotron_tpu_torch.train import create_train_state, make_train_step
+    from tacotron_tpu_torch.weights import split_state
+
+    dev = torch.device("cuda")
+    card = smi()
+    rep = report["dp"] = {"card": card}
+    log(f"[dp] the parallel layer on one card ({card}): 1-rank NCCL, 2 gloo ranks")
+    flags = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    dp_deterministic()
+    try:
+        cfg = dp_train_config()
+        batch = train_batch(cfg, dev)
+        # (1) world 1 over NCCL: the same bits as no mesh
+        _, plain = dp_run(create_train_state(cfg, seed=0), make_train_step(cfg), batch, 1)
+        with tempfile.TemporaryDirectory() as tmp:
+            dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
+                                    world_size=1, rank=0)
+            try:
+                mesh = make_mesh(cfg.mesh)
+                _, one = dp_run(create_train_state(cfg, seed=0, mesh=mesh),
+                                make_train_step(cfg, mesh), batch, 1)
+            finally:
+                dist.destroy_process_group()
+        diff = {k: float((one["steps"][0][s][k] - plain["steps"][0][s][k]).abs().max())
+                for s, d in plain["digests"][0].items() for k in d
+                if one["digests"][0][s][k] != d[k]}
+        same = one["metrics"] == plain["metrics"] and not diff
+        if not same:
+            _, again = dp_run(create_train_state(cfg, seed=0), make_train_step(cfg), batch, 1)
+            repeats = again["metrics"] == plain["metrics"] and \
+                again["digests"] == plain["digests"]
+            log(f"  1-rank NCCL step differs from the plain step: metrics {one['metrics']} vs "
+                f"{plain['metrics']}; tensors {diff}; the plain step repeats bit for bit: "
+                f"{repeats} (if not, the step itself is not deterministic here)")
+        require(same, f"(1) make_train_step(cfg, mesh) over a 1-rank NCCL group: loss, grad "
+                f"norm, every gradient, updated parameter and batch statistic bit-equal to the "
+                f"plain step (B {TRAIN_B}, full_1chip, f32)")
+        rep["world1"] = {"metrics": one["metrics"], "ms": one["ms"], "plain_ms": plain["ms"]}
+
+        # (2)-(4) on two ranks; the one-process references here
+        t0 = time.perf_counter()
+        ranks = torch_launch().run("chip_smoke:dp_ranks", 2, workdir=os.path.join(
+            ROOT, "build", "chip_smoke_dp_ranks"), timeout_s=DP["timeout_s"], platform="cuda",
+            pg_timeout_s=300, threads=4, extra_path=[ROOT])
+        rep["ranks_s"] = time.perf_counter() - t0
+        r0 = ranks[0]
+        for name, what in (("dp", "(2) every step's gradients, updated parameters and batch "
+                                  "statistics"),
+                           ("tp", "(3) the step's gradients, updated parameters (full) and batch "
+                                  "statistics"),
+                           ("synth", "(4) the gathered mel, linear and waveforms")):
+            require(ranks[1][name]["digests"] == r0[name]["digests"],
+                    f"{what} of rank 1 bit-equal to rank 0's")
+        for name, n in (("dp", 2), ("tp", 3)):
+            for r in ranks:
+                e = r[name]["energy"]
+                log(f"  ({n}) rank {r['rank']}: K1/K2 alone on its first energy call, keys "
+                    f"{e['shape']}, K2 cluster {e['cluster']}: " + ", ".join(
+                        f"{k} {err:.3e} (peak {peak:.3f})" for k, (err, peak) in e["errs"].items()))
+                for k, (err, peak) in e["errs"].items():
+                    require(err <= ENERGY_TOL * peak, f"({n}) rank {r['rank']} {k} at its own "
+                            f"shapes within {ENERGY_TOL} of its peak")
+                require(e["dv_repeats"], f"({n}) rank {r['rank']} dv bit-identical across "
+                        f"two runs")
+                la = r[name]["launches"]
+                require(la.get("attn_energy_fwd", 0) > 0 and la.get("attn_energy_bwd", 0) > 0,
+                        f"({n}) rank {r['rank']} launched K1 and K2 ({la})")
+        rep["energy"] = {f"{name}_rank{r['rank']}": r[name]["energy"] for name in ("dp", "tp")
+                         for r in ranks}
+
+        # (2) each step from a common state; the uninterrupted run beside it
+        _, want = dp_run(create_train_state(cfg, seed=0), make_train_step(cfg), batch,
+                         DP["steps"])
+        require(all(r["dp"]["mesh"] == (2, 1) for r in ranks), "(2) a (data 2, model 1) mesh")
+        got = r0["dp"]["steps"]
+        rep["dp2"] = []
+        for i in range(DP["steps"]):
+            prev = None if i == 0 else got[i - 1]
+            ref = want["steps"][0] if i == 0 else dp_restart(cfg, batch, prev, got[i]["gen"])
+            ref_metrics = want["metrics"][0] if i == 0 else ref["metrics"][0]
+            ref = ref if i == 0 else ref["steps"][0]
+            rep["dp2"].append(dp_hold(
+                f"(2) 2 ranks x 16 rows vs 1 process x 32, dropout 0.5, step {i + 1} from "
+                + ("the seeded start" if i == 0 else f"rank 0's state after step {i}"),
+                {**got[i], "metrics": r0["dp"]["metrics"][i]}, {**ref, "metrics": ref_metrics},
+                prev, cfg.train))
+        last = DP["steps"] - 1
+        apart = max(float((got[last]["stats"][k] - w).abs().max())
+                    for k, w in want["steps"][last]["stats"].items())
+        log(f"  (2) uninterrupted: step {last + 1} losses {r0['dp']['metrics'][last]} vs one "
+            f"process's {want['metrics'][last]}; batch statistics {apart:.3e} apart (from a "
+            f"common state: {rep['dp2'][last]['stat_of_tol']:.3f} of DP_STAT_TOL's tolerance)")
+        for r in ranks:
+            log(f"  (2) rank {r['rank']}: step ms {[round(x, 1) for x in r['dp']['ms']]} "
+                f"(one process: {[round(x, 1) for x in want['ms']]}); launches "
+                f"{r['dp']['launches']}; {card}")
+        rep["dp2_uninterrupted_stats_apart"] = apart
+        rep["dp2_ms"] = {"ranks": [r["dp"]["ms"] for r in ranks], "one": want["ms"],
+                         "launches": [r["dp"]["launches"] for r in ranks]}
+        del want, got
+
+        tcfg = dp_tp_config()
+        _, twant = dp_run(create_train_state(tcfg, seed=0), make_train_step(tcfg),
+                          dp_tp_batch(dev), 1)
+        require(all(r["tp"]["mesh"] == (1, 2) for r in ranks), "(3) a (data 1, model 2) mesh")
+        require(all(r["tp"]["shards"] == {"postnet.linear_proj.weight": (130, 64),
+                                          "postnet.linear_proj.bias": (130,),
+                                          "encoder.embed.embedding": (16, 64)} for r in ranks),
+                "(3) linear_proj (260 units) and the embedding (32 rows) half on each rank")
+        rep["tp"] = dp_hold("(3) tensor-parallel (data 1, model 2) vs 1 process",
+                            {**r0["tp"]["steps"][0], "metrics": r0["tp"]["metrics"][0]},
+                            {**twant["steps"][0], "metrics": twant["metrics"][0]}, None,
+                            tcfg.train)
+
+        # (4) mesh synthesis
+        scfg = get_config("synth_gl1000")
+        vocab = Vocab.build(PROMPTS)
+        scfg = dataclasses.replace(scfg, model=dataclasses.replace(scfg.model,
+                                                                   vocab_size=len(vocab)))
+        one_synth = Synthesizer(scfg, *split_state(full_model(scfg, dev)), vocab)
+        ref = one_synth(PROMPTS[:DP["prompts"]], seed=0, gl_iters=1, peak_normalize=False)
+        got = r0["synth"]
+        errs = {k: float(np.abs(got[k] - ref[k]).max()) for k in ("mel", "linear")}
+        log(f"  (4) mesh synthesis, synth_gl1000, {DP['prompts']} prompts over 2 ranks: mel "
+            f"{errs['mel']:.3e}, linear {errs['linear']:.3e} from one process; wall ms "
+            f"{[round(r['synth']['wall_ms'], 1) for r in ranks]}; {card}")
+        require(max(errs.values()) <= 1e-5, "(4) mel and linear within 1e-5 of one process's "
+                "Synthesizer(fused=False)")
+        require(np.array_equal(got["end_frames"], ref["end_frames"]), "(4) end frames equal")
+        for r in ranks:
+            require(r["synth"]["launches"].get("griffin_lim", 0) > 0,
+                    f"(4) rank {r['rank']} launched K4 ({r['synth']['launches']})")
+        # Griffin-Lim: each rank's waveforms against K4 on that rank's own
+        # rows of the spectrogram, bit for bit, and K4 held on those
+        # magnitudes by GL_PATH; K4 on all 8 rows at once beside them
+        acfg = scfg.audio
+        kw = dict(momentum=acfg.gl_momentum, **gl_kw(acfg))
+        lin = torch.from_numpy(got["linear"]).to(dev)
+        rep["synth"] = {"errs": errs, "launches": [r["synth"]["launches"] for r in ranks],
+                        "wall_ms": [r["synth"]["wall_ms"] for r in ranks]}
+        with torch.no_grad():
+            mag_all = spectrogram_magnitude(lin, acfg)
+            spec_all = gl_spectrum(mag_all, acfg, acfg.griffin_lim_iters)
+            wav_all = spectrum_to_wav(*spec_all, acfg).cpu().numpy()
+        for r in ranks:
+            lo, hi = r["synth"]["rows"]
+            with torch.no_grad():
+                mag = spectrogram_magnitude(lin[lo:hi], acfg)
+                spec = gl_spectrum(mag, acfg, acfg.griffin_lim_iters)
+                wav = spectrum_to_wav(*spec, acfg).cpu().numpy()
+                # the 4-row iSTFT of the 8-row launch's spectrum
+                wav_mixed = spectrum_to_wav(spec_all[0][lo:hi], spec_all[1][lo:hi],
+                                            acfg).cpu().numpy()
+            same = {"wav_vs_own_rows": bool(np.array_equal(wav, got["wavs"][lo:hi])),
+                    "k4_rows_vs_8row_launch": bool(torch.equal(spec[0], spec_all[0][lo:hi])
+                                                   and torch.equal(spec[1], spec_all[1][lo:hi])),
+                    "istft_rows_vs_8row_istft": bool(np.array_equal(wav_mixed,
+                                                                    wav_all[lo:hi])),
+                    "wav_vs_8row_launch": bool(np.array_equal(wav_all[lo:hi],
+                                                              got["wavs"][lo:hi]))}
+            log(f"  (4) rank {r['rank']} (rows {lo}-{hi - 1}): bit-equal: {same}")
+            require(same["wav_vs_own_rows"], f"(4) rank {r['rank']}'s waveforms bit-equal to "
+                    f"K4 and the iSTFT on its own rows {lo}-{hi - 1}, run here")
+            rep["synth"][f"rank{r['rank']}"] = same
+            rep["synth"][f"rank{r['rank']}"]["gl_path"] = check_gl_path(
+                f"(4) rank {r['rank']} griffin_lim bf16 on its rows {lo}-{hi - 1}", mag, acfg,
+                lambda n: griffin_lim_spectrum(mag, n_iter=n, **kw),
+                lambda n: gl_spectrum_reference(mag, n_iter=n, **kw), acfg.griffin_lim_iters,
+                at_depth=(spec, gl_spectrum_reference(mag, n_iter=acfg.griffin_lim_iters, **kw)))
+        del one_synth, ref, got, lin, mag_all, spec_all
+    finally:
+        torch.backends.cudnn.deterministic = flags[0]
+        torch.use_deterministic_algorithms(flags[1], warn_only=flags[2])
+    phase_dp_cli(report, card)
+    return {"attn_energy_fwd": [r["dp"]["launches"].get("attn_energy_fwd", 0) for r in ranks],
+            "attn_energy_bwd": [r["dp"]["launches"].get("attn_energy_bwd", 0) for r in ranks],
+            "griffin_lim_bf16": [r["synth"]["launches"].get("griffin_lim", 0) for r in ranks]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -2555,12 +3153,17 @@ def main(argv=None) -> int:
         phase_main_bf16(report, cfg, vocab, mel_main)
         phase_cli(report, cfg, vocab)
         cli_launches = phase_train_cli(report)
+        dp_launches = phase_dp(report)
         for k in kernels:
             require(k["launches"] > 0, f"{k['name']} launched on its path ({k['launches']})")
             if k["name"] in cli_launches:
                 k["train_cli_launches"] = cli_launches[k["name"]]
                 require(k["train_cli_launches"] > 0, f"{k['name']} launched on [train-cli]'s "
                         f"path ({k['train_cli_launches']})")
+            if k["name"] in dp_launches:
+                k["dp_launches"] = dp_launches[k["name"]]
+                require(all(n > 0 for n in k["dp_launches"]), f"{k['name']} launched on every "
+                        f"rank of [dp] ({k['dp_launches']})")
         report["kernels"] = kernels
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)

@@ -3,6 +3,7 @@
     python -m tacotron_tpu_torch.cli.synthesize --run-dir runs/x --data-dir data/ljspeech \\
         --text "hello world" [--text "..."] --out-dir out/ \\
         [--steps N] [--gl-iters 1000] [--fused] [--preset synth_fast] [--platform cpu]
+        [--data-parallel [--coordinator HOST:PORT --num-processes N --process-id I]]
 
 Restores a run directory written by either package's training (its
 ``config.json`` and the checkpoints under ``ckpt/``, ``train/checkpoint.py``),
@@ -11,8 +12,12 @@ writes ``utt_<i>.wav`` into the output directory, then prints one JSON line
 with the same keys as the JAX package's. It runs on the card unless
 ``--platform cpu`` asks for the plain PyTorch versions on the CPU; without
 a card and without that flag it raises. The flags and their mutual
-exclusions are the JAX package's; ``--data-parallel`` is refused, since
-multi-device synthesis is not ported (``ROADMAP.md`` Queue 1, item 7).
+exclusions are the JAX package's. ``--data-parallel`` splits the prompts
+over a mesh of the processes (``Synthesizer(mesh=...)``), one per device,
+joined by ``--coordinator``/``--num-processes``/``--process-id`` as in the
+training CLI; every process synthesizes its slice and process 0 writes the
+wavs and the JSON line. One process that sees several cards refuses
+``--data-parallel``: start one process per card.
 """
 
 from __future__ import annotations
@@ -72,7 +77,15 @@ def main(argv=None):
                    help="write per-utterance silence-trimmed wavs and run "
                         "Griffin-Lim only on the non-padding prefix")
     p.add_argument("--data-parallel", action="store_true",
-                   help="not ported: refused (ROADMAP.md Queue 1, item 7)")
+                   help="split the prompts over the processes' devices (a mesh of "
+                        "one process per device)")
+    p.add_argument("--coordinator", default=None,
+                   help="with --data-parallel: rendezvous address host:port (or a "
+                        "tcp:// or file:// URL)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="with --data-parallel: total process count")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="with --data-parallel: this process's id in [0, num-processes)")
     p.add_argument("--trace-dir", default=None,
                    help="capture a torch.profiler trace of the synthesis pass "
                         "(after a warm-up pass) into this directory; the JSON "
@@ -94,9 +107,8 @@ def main(argv=None):
             texts += [ln.strip() for ln in f if ln.strip()]
     if not texts:
         p.error("no prompts: pass --text and/or --text-file")
-    if args.data_parallel:
-        p.error("--data-parallel is not ported: multi-device synthesis waits for "
-                "the parallel slice (ROADMAP.md Queue 1, item 7)")
+    if (args.num_processes or 1) > 1 and not args.data_parallel:
+        p.error("--num-processes needs --data-parallel")
 
     from tacotron_tpu_torch.config import Config, apply_overrides
     from tacotron_tpu_torch.data.ljspeech import save_wav
@@ -121,17 +133,41 @@ def main(argv=None):
                 trim_before_gl=args.trim or cfg.infer.trim_before_gl))
     # mutual exclusions on the effective config (flags, --preset and --set
     # can all set these)
-    if args.fused and (cfg.infer.early_exit or cfg.infer.trim_before_gl):
+    ee_or_trim = cfg.infer.early_exit or cfg.infer.trim_before_gl
+    if args.data_parallel and (args.fused or ee_or_trim):
+        p.error("--data-parallel cannot combine with --fused or "
+                "early-exit/trim (from flags, --preset or --set): fused is a "
+                "single-chip kernel; early-exit/trim are host-driven")
+    if args.fused and ee_or_trim:
         p.error("--fused cannot combine with early-exit/trim (from flags, "
                 "--preset or --set): the fused kernel decodes a fixed "
                 "length; the flags' savings would silently not happen")
-    device = resolve_device(PLATFORMS[args.platform] if args.platform else None)
+    platform = PLATFORMS[args.platform] if args.platform else "cuda"
+    device = resolve_device(platform)
+    mesh = None
+    if args.data_parallel:
+        import torch
+
+        from tacotron_tpu_torch.parallel import make_mesh, multihost
+
+        multihost.initialize(args.coordinator, args.num_processes, args.process_id,
+                             platform=platform)
+        if (multihost.process_count() == 1 and platform == "cuda"
+                and torch.cuda.device_count() > 1):
+            p.error(f"--data-parallel in one process would use 1 of "
+                    f"{torch.cuda.device_count()} cards: start one process per card "
+                    f"(--coordinator, --num-processes, --process-id)")
+        mesh = make_mesh(cfg.mesh, platform)
+        device = mesh.device
+    primary = mesh is None or multihost.is_primary()
     vocab = Vocab.load(os.path.join(args.data_dir, "vocab.json"))
 
+    # the full parameters on every process: synthesis replicates them
     state = create_train_state(cfg, device=device)
     state, step = checkpoint.restore(os.path.join(args.run_dir, "ckpt"), state, cfg.train)
     print(f"restored checkpoint at step {step}")
-    synth = Synthesizer(cfg, *split_state(state.model), vocab, fused=args.fused, device=device)
+    synth = Synthesizer(cfg, *split_state(state.model), vocab, fused=args.fused, mesh=mesh,
+                        device=device)
     del state
 
     ctx = contextlib.nullcontext()
@@ -147,6 +183,8 @@ def main(argv=None):
         dt = time.time() - t0
     if args.trace_dir:
         print(f"trace written: {args.trace_dir}")
+    if not primary:
+        return
 
     os.makedirs(args.out_dir, exist_ok=True)
     for i, wav in enumerate(out["wavs"]):

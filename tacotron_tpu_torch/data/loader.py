@@ -10,11 +10,13 @@ step's padded batch, in one of three ways (``DataLoader.assembler``):
 
 The schedule is the JAX package's, item for item: the same numpy
 generators (``default_rng``) drawn in the same order give the same buckets
-and the same items for the same seed. The JAX package's loader also takes
-a positional shard of it per process; the port runs one process, which
-draws the whole schedule (multi-process training is ROADMAP.md Queue 1,
-item 7). Features are served in the packed arrays' f16 (the step's cast to
-f32 on the device gives the same values at half the bytes).
+and the same items for the same seed. With ``process_count`` > 1 each
+process takes its positional shard of the shared shuffle, as in JAX: every
+process draws the same bucket at the same step (the step count comes from
+the global size), its own rows of it, and fills a short shard from the
+bucket with a generator of its own (seed + ``process_index``). Features
+are served in the packed arrays' f16 (the step's cast to f32 on the device
+gives the same values at half the bytes).
 """
 
 from __future__ import annotations
@@ -134,11 +136,15 @@ class DataLoader:
     ``use_native`` picks the C++ assembler (a failed build raises) over the
     numpy one; ``device_cache`` gathers batches on ``device`` (None: the
     card) instead, and ``device`` means nothing without it.
-    ``self.assembler`` names the one in use."""
+    ``self.assembler`` names the one in use. ``batch_size`` is this
+    process's share of the global batch when ``process_count`` > 1."""
 
     def __init__(self, dataset: Dataset, batch_size: int, num_buckets: int, r: int,
-                 seed: int = 0, use_native: bool = True, device_cache: bool = False,
-                 device=None):
+                 seed: int = 0, process_index: int = 0, process_count: int = 1,
+                 use_native: bool = True, device_cache: bool = False, device=None):
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} is not in "
+                             f"[0, process_count={process_count})")
         self.ds = dataset
         self.batch_size = batch_size
         self.r = r
@@ -168,12 +174,14 @@ class DataLoader:
             if b >= 0:
                 self.assignments.setdefault(b, []).append(i)
         self.assignments = {b: np.asarray(v) for b, v in self.assignments.items()}
+        self.process_index = process_index
+        self.process_count = process_count
         # TWO generators, as the JAX package draws them: the schedule rng
-        # (the per-bucket shuffles and the step -> bucket sequence; in JAX
-        # shared by every process) and the fill rng (wrap-fill items within
-        # the bucket; in JAX seeded seed + process index)
+        # (the per-bucket shuffles and the step -> bucket sequence), the same
+        # on every process, and the fill rng (wrap-fill items within the
+        # bucket), this process's own
         self.sched_rng = np.random.default_rng(seed)
-        self.rng = np.random.default_rng(seed)
+        self.rng = np.random.default_rng(seed + process_index)
 
     def _make_batch(self, bucket_id: int, items: list[int]) -> Batch:
         spec = self.buckets[bucket_id]
@@ -206,24 +214,31 @@ class DataLoader:
     def epoch(self, shuffle: bool = True):
         """Yield full batches; within a batch all items share a bucket.
 
-        Remainders are wrapped (sampled with replacement by the fill rng,
-        within the bucket) to keep batches full."""
-        order = {}
+        Every process yields the same bucket at the same position of the
+        epoch. Remainders are wrapped (sampled with replacement by the fill
+        rng, within the bucket) to keep batches full."""
+        order, steps = {}, {}
+        per_step_global = self.batch_size * self.process_count
         for b, idx_all in self.assignments.items():
             idx = idx_all.copy()
             if shuffle:
                 self.sched_rng.shuffle(idx)
-            order[b] = idx
-        pending = [(b, s) for b in order for s in range(-(-len(order[b]) // self.batch_size))]
+            # this process's positional shard of the shared shuffle; the
+            # step count depends on the global size only
+            order[b] = idx[self.process_index::self.process_count]
+            steps[b] = -(-len(idx) // per_step_global)
+        pending = [(b, s) for b in order for s in range(steps[b])]
         if shuffle:
             self.sched_rng.shuffle(pending)
         for b, s in pending:
             chunk = order[b][s * self.batch_size : (s + 1) * self.batch_size]
             if len(chunk) < self.batch_size:
                 # fill from the bucket's own items, never across buckets,
-                # which would truncate long utterances
-                extra = self.rng.choice(order[b], self.batch_size - len(chunk))
-                chunk = np.concatenate([chunk, extra])
+                # which would truncate long utterances; a shard that ran dry
+                # draws from the bucket's global list
+                pool = order[b] if len(order[b]) else self.assignments[b]
+                extra = self.rng.choice(pool, self.batch_size - len(chunk))
+                chunk = np.concatenate([chunk, extra]) if len(chunk) else extra
             yield self._make_batch(b, list(chunk))
 
     def __iter__(self):

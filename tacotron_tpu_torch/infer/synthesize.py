@@ -15,6 +15,16 @@ to the batch's largest detected end frame, rounded up to
 ``gl_length_quantum``, before Griffin-Lim, so the dominant cost is not
 spent on padding. The trimming metadata (end_frames, wav_lengths, trimmed
 audio seconds) is returned whatever the flags.
+
+``mesh=`` (``parallel.make_mesh``) is data-parallel synthesis over the
+processes of the mesh's data axis: every process holds the whole prompt
+list, pads the batch with length-1 rows to a multiple of the data size and
+takes its slice (its data index's, in process order). Each process runs
+the step-by-step decode, the post-net and Griffin-Lim (the kernel on the
+card) on its slice, with the dropout masks of the global batch; the
+outputs are all-gathered, so every process returns the whole batch, and
+the pad rows are cut off. As in JAX, the fused decode and early exit /
+trimming (host-driven) are refused on a mesh.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from tacotron_tpu_torch.dsp.audio import gl_spectrum, spectrogram_magnitude, spe
 from tacotron_tpu_torch.infer.early_exit import decode_while, end_frames_device
 from tacotron_tpu_torch.models.tacotron import Tacotron, length_mask
 from tacotron_tpu_torch.ops.decode_loop import decode_loop, pack_decoder_weights
+from tacotron_tpu_torch.parallel.collectives import all_gather_cat
 from tacotron_tpu_torch.runtime import resolve_device
 
 STAGES = ("encoder", "decode", "postnet", "griffin_lim", "istft_inv_preemphasis")
@@ -57,13 +68,15 @@ class _StageClock:
 
 
 class Synthesizer:
-    """``Synthesizer(cfg, params, batch_stats, vocab, fused=..., device=None)``.
+    """``Synthesizer(cfg, params, batch_stats, vocab, fused=..., mesh=None,
+    device=None)``.
 
     ``params``/``batch_stats`` are the port's state-dict entries
-    (``weights.from_flax``). ``cfg.model.compute_dtype`` "bfloat16" runs the
-    model's products in bf16, the attention keys included, on every decode
-    path. ``device=None`` means the GPU and raises when
-    there is none; pass ``device="cpu"`` for the plain PyTorch versions.
+    (``weights.from_flax``), full on every process of a mesh.
+    ``cfg.model.compute_dtype`` "bfloat16" runs the model's products in
+    bf16, the attention keys included, on every decode path. ``device=None``
+    means the mesh's device, else the GPU, and raises when there is none;
+    pass ``device="cpu"`` for the plain PyTorch versions.
     """
 
     def __init__(self, cfg: Config, params, batch_stats, vocab: Vocab,
@@ -76,11 +89,18 @@ class Synthesizer:
                              "early_exit/trim_before_gl (host-driven paths); "
                              "turn one off")
         if mesh is not None:
-            raise NotImplementedError("multi-device synthesis is not ported yet "
-                                      "(ROADMAP.md, port queue: parallel)")
+            if fused:
+                raise ValueError("mesh synthesis uses the scan decode "
+                                 "(GSPMD); drop fused=True")
+            if icfg.early_exit or icfg.trim_before_gl:
+                raise ValueError("mesh synthesis: early-exit/trim are "
+                                 "host-driven; turn them off for DP")
+            if device is None:
+                device = mesh.device
         self.cfg = cfg
         self.vocab = vocab
         self.fused = fused
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.model = Tacotron(cfg.model, device=self.device)
         self.model.load_state_dict({**params, **batch_stats}, strict=True)
@@ -119,6 +139,18 @@ class Synthesizer:
         text, lengths = self.encode_texts(texts)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         clock = _StageClock(self.device, stage_ms)
+        n_real, mesh = text.shape[0], self.mesh
+        if mesh is not None:
+            # pad to a multiple of the data size with length-1 rows (a real
+            # mask; the rows are cut off below) and keep this rank's slice
+            nd = mesh.data_size
+            pad = -n_real % nd
+            text = torch.cat([text, text.new_zeros(pad, text.shape[1])])
+            lengths = torch.cat([lengths, lengths.new_ones(pad)])
+            per = text.shape[0] // nd
+            lo = mesh.data_index * per
+            text, lengths = text[lo:lo + per], lengths[lo:lo + per]
+            gen = mesh.batch_shard(gen)
 
         mask = length_mask(text.shape[1], lengths)
         memory = m.encoder(text, lengths, gen)
@@ -146,9 +178,10 @@ class Synthesizer:
         clock.mark("decode")
         linear = m.postnet(mel)
         clock.mark("postnet")
-        ends = end_frames_device(mel, threshold=icfg.silence_threshold,
-                                 min_run=icfg.min_silence_frames).cpu().numpy()
         gl_in = linear
+        if mesh is None:
+            ends = end_frames_device(mel, threshold=icfg.silence_threshold,
+                                     min_run=icfg.min_silence_frames).cpu().numpy()
         if icfg.trim_before_gl:
             q = icfg.gl_length_quantum
             t_gl = min(int(-(-max(int(ends.max()), q) // q) * q), linear.shape[1])
@@ -157,6 +190,13 @@ class Synthesizer:
                              gl_iters)
         clock.mark("griffin_lim")
         wav = spectrum_to_wav(re, im, cfg.audio)
+        if mesh is not None:
+            if mesh.data_group is not None:
+                mel, linear, align, wav = (all_gather_cat(x, mesh.data_group)
+                                           for x in (mel, linear, align, wav))
+            mel, linear, align, wav = (x[:n_real] for x in (mel, linear, align, wav))
+            ends = end_frames_device(mel, threshold=icfg.silence_threshold,
+                                     min_run=icfg.min_silence_frames).cpu().numpy()
         if peak_normalize:
             peak = wav.abs().amax(dim=-1, keepdim=True)
             wav = wav / torch.clamp(peak, min=1e-3)

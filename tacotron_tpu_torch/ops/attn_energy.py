@@ -20,7 +20,8 @@ warp spanning ``CHUNK`` columns of A. K1 takes ``WARPS`` x
 ``FWD_ROWS[dtype]`` rows of one batch row per block (``fwd_grid``). K2 is
 one launch of one thread-block cluster per batch row, its blocks taking
 consecutive chunks of the rows (``bwd_plan``); dv is summed by the last
-cluster to finish, behind a counter (one per device, ``_ticket``).
+cluster to finish, behind a counter (one per device and stream,
+``_ticket``), so calls in flight on two streams never share one.
 """
 
 from __future__ import annotations
@@ -194,14 +195,18 @@ def plan_of(keys) -> BwdPlan:
     return bwd_plan(b, t, _resident(keys.device, keys.dtype == torch.bfloat16))
 
 
-def _ticket(dev) -> torch.Tensor:
-    """K2's counter of finished clusters on ``dev``: one int, zeroed once
-    here and left at 0 by every call. The port launches on one stream, so
-    no two calls share it at once."""
+def _ticket(dev, stream=None) -> torch.Tensor:
+    """K2's counter of finished clusters for calls on ``stream`` (None: the
+    current one) of ``dev``: one int, zeroed once here, on that stream, and
+    left at 0 by every call. Calls on one stream run in order, so they
+    never hold it at once; calls on two streams hold two counters."""
     i = _index(dev)
-    if i not in _TICKETS:
-        _TICKETS[i] = torch.zeros(1, dtype=torch.int32, device=f"cuda:{i}")
-    return _TICKETS[i]
+    s = runtime.stream_ptr(dev) if stream is None else stream.cuda_stream
+    if (i, s) not in _TICKETS:
+        with torch.cuda.device(i), torch.cuda.stream(
+                stream or torch.cuda.current_stream(i)):
+            _TICKETS[(i, s)] = torch.zeros(1, dtype=torch.int32, device=f"cuda:{i}")
+    return _TICKETS[(i, s)]
 
 
 def energy_fwd(keys, q, v):

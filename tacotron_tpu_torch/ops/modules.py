@@ -13,11 +13,16 @@ product's inputs to bf16 and returns the product in bf16, as flax does.
 Parameters, batch-norm statistics and everything between the products stay
 f32: the callers widen with ``.float()`` where the JAX code does
 ``.astype(f32)`` (a no-op on an f32 tensor).
+
+On a mesh (``parallel/``) the batch is split over the ranks of a data
+group. A ``BatchShard`` generator makes dropout draw the global batch's
+masks and keep this rank's rows; the global batch statistics and the
+tensor-parallel layers are the variants in ``parallel/layers.py``.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -87,9 +92,26 @@ def conv1d_same(x, weight, compute_dtype=None):
     return F.conv1d(xt, weight).transpose(1, 2)
 
 
-def dropout_keep(shape, rate: float, generator: torch.Generator | None, device):
-    """The keep mask (bool) that ``dropout`` draws for an input of ``shape``."""
-    u = torch.rand(shape, generator=generator, device=device)
+class BatchShard(NamedTuple):
+    """A dropout generator that every rank of a data group shares, and this
+    rank's place in the global batch: ``index`` of ``count`` equal shards of
+    its leading axis. Dropout then draws the global batch's masks and keeps
+    this rank's rows, so the masks do not depend on the split."""
+
+    generator: torch.Generator
+    index: int
+    count: int
+
+
+def dropout_keep(shape, rate: float, generator, device):
+    """The keep mask (bool) that ``dropout`` draws for an input of
+    ``shape``, from a ``torch.Generator`` (or None) or a ``BatchShard``."""
+    if isinstance(generator, BatchShard):
+        n = shape[0]
+        u = torch.rand((n * generator.count, *shape[1:]), generator=generator.generator,
+                       device=device)[n * generator.index:n * (generator.index + 1)]
+    else:
+        u = torch.rand(shape, generator=generator, device=device)
     return u < 1.0 - rate
 
 
@@ -170,8 +192,8 @@ class BatchNorm(nn.Module):
         if self.training:
             xf = x.float()
             axes = tuple(range(x.ndim - 1))
-            mean = xf.mean(axes)
-            var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+            mean, msq = self.moments(xf, axes)
+            var = torch.clamp_min(msq - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -181,6 +203,10 @@ class BatchNorm(nn.Module):
         # flax order: (x - mean) * (scale * rsqrt(var + eps)) + bias
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean) * mul + self.bias
+
+    def moments(self, xf, axes):
+        """The batch's E[x] and E[x^2] over ``axes``."""
+        return xf.mean(axes), (xf * xf).mean(axes)
 
 
 class ConvBank(nn.Module):

@@ -23,8 +23,13 @@ directory ``<ckpt_dir>/step_<N>/`` holding
 Adam's ``mu``/``nu`` are ``torch.optim.Adam``'s ``exp_avg``/``exp_avg_sq``,
 carried through the same transposes as the parameters; both counts are the
 state's update count. Writes are atomic (a hidden temporary directory,
-fsync, ``os.replace``) and keep the newest ``keep``. One process writes and
-reads: there is no gather of sharded state (``ROADMAP.md`` Queue 1, item 7).
+fsync, ``os.replace``) and keep the newest ``keep``.
+
+On a mesh (``parallel/``) ``save`` and ``restore`` are collective: every
+rank calls them. The tensor-parallel shards of the parameters and their
+Adam moments are gathered into full arrays, so the files are the layout
+above whatever the mesh; only the primary process writes. ``restore`` reads
+the full arrays on every rank and hands each its shards.
 """
 
 from __future__ import annotations
@@ -38,6 +43,8 @@ import numpy as np
 import torch
 
 from tacotron_tpu_torch.config import TrainConfig
+from tacotron_tpu_torch.parallel import multihost
+from tacotron_tpu_torch.parallel.sharding import full_tensor, local_slice
 from tacotron_tpu_torch.train.step import TrainState
 from tacotron_tpu_torch.weights import from_flax, split_state, to_flax
 
@@ -56,13 +63,21 @@ def _sorted_leaves(tree: dict, prefix: str):
 
 
 def _moments(state: TrainState, slot: str) -> dict:
-    """Adam's ``slot`` of every parameter, by state-dict key (zeros before
-    the first update)."""
+    """Adam's ``slot`` of every parameter, by state-dict key, full (zeros
+    before the first update)."""
     out = {}
     for name, p in state.model.named_parameters():
         st = state.opt.state.get(p, {})
-        out[name] = st[slot].detach() if slot in st else torch.zeros_like(p)
+        m = st[slot].detach() if slot in st else torch.zeros_like(p)
+        out[name] = full_tensor(state.model, name, m)
     return out
+
+
+def full_state(model) -> tuple[dict, dict]:
+    """``weights.split_state`` of a model, its split parameters gathered
+    into full tensors (collective on a tensor-parallel mesh)."""
+    params, stats = split_state(model)
+    return {k: full_tensor(model, k, v) for k, v in params.items()}, stats
 
 
 def _key_of_seed(seed: int) -> np.ndarray:
@@ -76,7 +91,7 @@ def _seed_of_key(key: np.ndarray) -> int:
 def state_leaves(state: TrainState, train_cfg: TrainConfig) -> list[tuple[str, np.ndarray]]:
     """``[(path, array)]``: the JAX package's ``TrainState`` leaves of
     ``state``, in its flatten order."""
-    flax = to_flax(*split_state(state.model))
+    flax = to_flax(*full_state(state.model))
     count = np.asarray(state.step, np.int32)
     adam = 1 if train_cfg.grad_clip_norm is not None else 0
     leaves = [*_sorted_leaves(flax["params"], "params"),
@@ -91,10 +106,13 @@ def state_leaves(state: TrainState, train_cfg: TrainConfig) -> list[tuple[str, n
 
 
 def save(ckpt_dir: str, step: int, state: TrainState, train_cfg: TrainConfig,
-         keep: int = 5) -> str:
+         keep: int = 5) -> str | None:
     """Atomically write checkpoint ``step_<step>`` under ``ckpt_dir`` and
-    keep the newest ``keep``. Returns its path."""
+    keep the newest ``keep``. Returns its path; on a mesh every rank calls
+    it and the others return None."""
     leaves = state_leaves(state, train_cfg)
+    if not multihost.is_primary():
+        return None
     os.makedirs(ckpt_dir, exist_ok=True)
     name = f"step_{step}"
     tmp = os.path.join(ckpt_dir, f".tmp_{name}")
@@ -161,7 +179,7 @@ def restore(ckpt_dir: str, state: TrainState, train_cfg: TrainConfig,
     optimizer and generator, in place. Returns (state with its update
     count, step). Raises FileNotFoundError if there is none, ValueError on
     a leaf count, shape or dtype that ``state`` does not have, naming the
-    leaf's path."""
+    leaf's path. Collective on a tensor-parallel mesh."""
     if step is None:
         step = latest(ckpt_dir)
         if step is None:
@@ -190,6 +208,7 @@ def restore(ckpt_dir: str, state: TrainState, train_cfg: TrainConfig,
 
     model, opt = state.model, state.opt
     params, stats = from_flax({"params": tree["params"], "batch_stats": tree["batch_stats"]})
+    params = {k: local_slice(model, k, v) for k, v in params.items()}
     model.load_state_dict({**params, **stats}, strict=True)
     adam = tree["opt_state"][str(1 if train_cfg.grad_clip_norm is not None else 0)]
     count = int(adam["count"])
@@ -198,7 +217,8 @@ def restore(ckpt_dir: str, state: TrainState, train_cfg: TrainConfig,
     if count > 0:
         for name, p in model.named_parameters():
             opt.state[p] = {"step": torch.tensor(float(count), dtype=torch.float32),
-                            "exp_avg": mu[name].to(p.device), "exp_avg_sq": nu[name].to(p.device)}
+                            "exp_avg": local_slice(model, name, mu[name]).to(p.device),
+                            "exp_avg_sq": local_slice(model, name, nu[name]).to(p.device)}
 
     gen = state.generator
     extra = os.path.join(path, TORCH_STATE)

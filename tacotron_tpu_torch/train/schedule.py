@@ -63,12 +63,15 @@ def make_optimizer(params, cfg: TrainConfig) -> torch.optim.Adam:
                             betas=(cfg.adam_b1, cfg.adam_b2), eps=cfg.adam_eps)
 
 
-def apply_gradients(opt: torch.optim.Adam, cfg: TrainConfig, count: int) -> torch.Tensor:
+def apply_gradients(opt: torch.optim.Adam, cfg: TrainConfig, count: int,
+                    norm: torch.Tensor | None = None) -> torch.Tensor:
     """Clip, set the LR of update ``count`` and take one Adam step on the
     ``.grad`` of ``opt``'s parameters. Returns the global norm before
-    clipping."""
+    clipping: ``norm`` when given (a sharded model's, which no rank can
+    take alone), else ``global_norm`` of the gradients."""
     grads = [p.grad for group in opt.param_groups for p in group["params"]]
-    norm = global_norm(grads)
+    if norm is None:
+        norm = global_norm(grads)
     if cfg.grad_clip_norm is not None:
         clip_by_global_norm_(grads, cfg.grad_clip_norm, norm)
     lr = learning_rate(cfg, count)

@@ -141,11 +141,35 @@ class _FileWriter:
         self._scalars.close()
 
 
+class _NullWriter:
+    kind = "off"
+
+    def scalar(self, tag, value, step):
+        pass
+
+    def alignment(self, tag, alignment, step):
+        pass
+
+    def audio(self, tag, wav, sample_rate, step):
+        pass
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
 class SummaryWriter:
     """Scalars, alignments and audio under ``log_dir``; ``kind`` is
-    "tensorboardX" or "files"."""
+    "tensorboardX" or "files", or "off" when not ``enabled`` (the processes
+    other than the primary): then nothing is written or created."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str, enabled: bool = True):
+        if not enabled:
+            self._w = _NullWriter()
+            self.kind = self._w.kind
+            return
         os.makedirs(log_dir, exist_ok=True)
         try:
             self._w = _TensorBoardWriter(log_dir)

@@ -130,10 +130,6 @@ def test_cli_refusals(run, capsys):
     with pytest.raises(SystemExit) as e:
         cli.main(["--run-dir", "r", "--data-dir", "d", "--out-dir", "o"])
     assert e.value.code == 2 and "no prompts" in capsys.readouterr().err
-    with pytest.raises(SystemExit) as e:
-        cli.main(_argv(run, run / "never", "--data-parallel", "--platform", "cpu"))
-    assert e.value.code == 2 and "ROADMAP.md Queue 1, item 7" in capsys.readouterr().err
-    assert not os.path.exists(run / "never")
 
 
 def test_cli_runs_on_the_card_by_default(run):

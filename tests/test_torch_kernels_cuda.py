@@ -21,12 +21,13 @@ K5 bit-equal to K4 at beta 0 in both modes; the probes: shared
 memory exact, ops 1e-4 of its peak, one launch, the same bits on every
 call, the cluster barrier launched at every
 cluster size, the empty kernel launched at every cluster size of K2 and on
-the ops kernel's cluster;
+the ops kernel's cluster (launches counted as the kernel nodes of a CUDA
+graph captured around one call, which cannot miss one);
 attention energy (K1) and its
 three gradients (K2) 1e-5 of each one's peak (f32, summation order only),
 at K2's every cluster size too, dv the same bits on every call, K2 one
 device kernel per call and its counter back at 0 between calls of other
-batch sizes;
+batch sizes, and calls in flight on two streams each held as alone;
 in bf16 (keys and q bf16) against ``energy_bwd_reference`` with the same
 rounding points: e and dv (f32) 1e-5 of the peak, dkeys and dq each entry
 within one bf16 ulp (2^-7 of its magnitude: an f32 sum's last bit can flip
@@ -38,6 +39,7 @@ the teacher-forced training loss through the kernels vs the plain formula
 rtol 1e-5, every parameter gradient within 1e-4 of its peak plus 1e-7.
 """
 
+import collections
 import dataclasses
 
 import pytest
@@ -458,22 +460,45 @@ def test_probe_ops_is_the_same_bits_every_call(dev):
     assert torch.equal(outs[0][:3], outs[0][0, 0].expand(3, probe.OPS_H))
 
 
+def _kernel_nodes(fn):
+    """(kernel nodes, ``runtime.LAUNCHES`` added) of one call of ``fn``
+    captured into a CUDA graph: the capture records every launch the call
+    makes, so none can be missed (the profiler can miss a ~1 us kernel). A
+    warm call on the capture stream first fills the wrappers' caches (and
+    K2's counter for that stream), so the capture holds the call alone."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    before = collections.Counter(runtime.LAUNCHES)
+    with torch.cuda.graph(g, stream=s):
+        fn()
+    added = collections.Counter(runtime.LAUNCHES)
+    added.subtract(before)
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+        kinds.append(kind.value)
+    g.reset()
+    return kinds.count(0), {k: v for k, v in added.items() if v}   # 0: CU_GRAPH_NODE_TYPE_KERNEL
+
+
 @pytest.mark.cuda
 def test_probe_ops_is_one_launch(dev):
-    """Exactly one device kernel per probe_ops call, by torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Exactly one kernel per probe_ops call, counted in a CUDA graph
+    captured around it."""
     inputs = probe.ops_inputs(dev, 0)
-    probe.probe_ops(*inputs)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            probe.probe_ops(*inputs)
-        torch.cuda.synchronize()
-    kernels = {e.key: e.count for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
-    assert len(kernels) == 1 and list(kernels.values()) == [5], kernels
-    assert f"probe_ops_kernel<{probe.OPS_CLUSTER}>" in next(iter(kernels))
+    kernels, launches = _kernel_nodes(lambda: probe.probe_ops(*inputs))
+    assert kernels == 1 and launches == {"probe_ops": 1}, (kernels, launches)
 
 
 @pytest.mark.cuda
@@ -660,22 +685,39 @@ def test_attn_energy_bwd_counter_resets(dev, bf16):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 def test_attn_energy_bwd_is_one_launch(dev, bf16):
-    """Exactly one device kernel per K2 call, by torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Exactly one kernel per K2 call, counted in a CUDA graph captured
+    around it."""
     keys, q, v, de = _energy_inputs(dev, 32, 128, 256)
     if bf16:
         keys, q = keys.bfloat16(), q.bfloat16()
-    energy_bwd(keys, q, v, de)
+    kernels, launches = _kernel_nodes(lambda: energy_bwd(keys, q, v, de))
+    assert kernels == 1 and launches == {"attn_energy_bwd": 1}, (kernels, launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_attn_energy_bwd_on_two_streams(dev, bf16):
+    """K2 in flight on two streams at once, with different inputs: each
+    stream's calls take its own counter, so each call's dv is summed by its
+    own last cluster. Both streams' results against the plain version, and
+    both counters back at 0."""
+    inputs = [_energy_inputs(dev, b, 128, 256, seed=10 + b) for b in (32, 24)]
+    if bf16:
+        inputs = [[x.bfloat16() if i < 2 else x for i, x in enumerate(xs)] for xs in inputs]
+    streams = [torch.cuda.Stream() for _ in inputs]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            energy_bwd(keys, q, v, de)
-        torch.cuda.synchronize()
-    kernels = {e.key: e.count for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
-    assert len(kernels) == 1 and list(kernels.values()) == [5], kernels
-    assert "energy_bwd<" in next(iter(kernels))
+    got = [[], []]
+    for _ in range(20):                 # interleaved launches, no waits between
+        for i, (s, xs) in enumerate(zip(streams, inputs)):
+            with torch.cuda.stream(s):
+                got[i].append(energy_bwd(*xs))
+    torch.cuda.synchronize()
+    for s in streams:
+        assert int(_ticket(dev, s).item()) == 0
+    for xs, calls in zip(inputs, got):
+        want = energy_bwd_reference(*xs)
+        for g in calls:
+            _hold_bwd(g, want, ulp=bf16)
 
 
 @pytest.fixture(scope="module")

@@ -157,9 +157,12 @@ def test_refusals(setup, override, fused, error):
 
 def test_unported_backends_and_mesh_raise(setup):
     s = setup
-    with pytest.raises(NotImplementedError):
-        Synthesizer(s["cfg"], s["params"], s["stats"], s["vocab"], mesh=object(),
-                    device="cpu")
+    # mesh synthesis is ported (tests/test_torch_multiprocess.py holds it);
+    # on a mesh the fused decode is refused, as in JAX
+    from tacotron_tpu_torch.parallel import make_mesh
+    with pytest.raises(ValueError, match="drop fused=True"):
+        Synthesizer(s["cfg"], s["params"], s["stats"], s["vocab"], fused=True,
+                    mesh=make_mesh(s["cfg"].mesh, platform="cpu"), device="cpu")
     cfg = apply_overrides(s["cfg"], ["audio.gl_backend=librosa"])
     synth = Synthesizer(cfg, s["params"], s["stats"], s["vocab"], device="cpu")
     with pytest.raises(ValueError, match="unknown gl_backend"):
