@@ -135,7 +135,30 @@ Phases, in order; any failure raises and exits non-zero:
    per-chip batch, --debug-sync, a checkpoint by process 0 only), their
    resume, and ``cli.synthesize --data-parallel``; the kernel rows of K1,
    K2 (f32) and K4 bf16 gain ``dp_launches``, one count per rank;
-15. last line: {"ok": true, "device": {...}}.
+15. [tooling] the port's utils on the card: (a) ``utils/roofline.py``'s
+   whole-step shares, which [train], [train-bf16] (``train_step_flops`` at
+   their shapes with remat, over the median step and the profiled step's
+   device-busy time, against the f32 or bf16 peak: ``mfu``,
+   ``mfu_device_busy``) and [main] (the forward plus 1000 Griffin-Lim
+   iterations over the call, against the bf16 peak) print on their own
+   lines, gathered, and a Griffin-Lim iteration's count over the exact
+   window (the K4/K5 bounds) beside ``gl_iteration_flops``' over the
+   128-aligned span; every bound above comes from the same roofline
+   (``bound``); (b) seeded synth_gl1000 weights named as a TF1 checkpoint
+   names them (three decoder cells), ``tf1_converter.convert``-ed with
+   nothing unplaced and loaded through ``from_flax`` bit for bit, then
+   ``Synthesizer(fused=True)`` on the 8 prompts at GL 100 (1 K3 and 300 K4
+   launches, mel and linear bit-equal to the weights loaded directly), K3
+   and K4 bf16 held on these inputs as [cli] holds them; (c)
+   ``enable_compilation_cache`` in two child processes (the first builds
+   every library in a fresh directory, the second starts no compiler),
+   ``force`` / ``time_fn`` of a [main]-shaped call beside this script's
+   own timing, and ``cli.train --profile-port`` on [train-cli]'s corpus (8
+   f32 steps, fused energy): a capture of 2 steps asked for over HTTP after
+   step 2, a second request while its window is open refused, the trace's
+   K1/K2 device events equal to the captured steps' decoder steps; the
+   kernel rows of K1, K2 (f32), K3 and K4 bf16 gain ``tooling_launches``;
+16. last line: {"ok": true, "device": {...}}.
 
 ``--report PATH`` also writes every check and measurement as JSON.
 """
@@ -157,9 +180,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (dense, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
+# The H100 SXM's published peaks are utils/roofline.py's H100 dicts (dense,
+# at the 700 W limit): 3.35 TB/s; 989 TFLOP/s bf16, 495 TF32, 67 f32.
 # TF32 products per f32 product in the f32 Griffin-Lim kernels' bound: the
 # least split that can stand for an f32 product, big.big + big.small +
 # small.big. It does not depend on the build; the products the kernels take
@@ -356,11 +378,14 @@ def decoder_inputs(model, vocab, dev, b=8, seed=1):
     return memory, keys, length_mask(t_in, lengths)
 
 
-def bound(byts, flops, peak):
+def bound(byts, flops, kind):
     """(ms, "bytes" | "operations"): the larger of bytes over the HBM rate
-    and operations over the peak rate of their type."""
-    tb, to = byts / HBM_BYTES_PER_S, flops / peak
-    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+    and operations over the peak rate of their type, ``kind`` "bf16",
+    "tf32" or "f32" (``utils/roofline.speed_of_light`` on the H100 dicts,
+    the max that ``KernelRoofline.report()`` takes)."""
+    from tacotron_tpu_torch.utils.roofline import H100, speed_of_light
+    s, by = speed_of_light(flops, byts, H100[kind])
+    return s * 1e3, by
 
 
 def decode_bound(w, memory, keys, n_steps, lowp=True):
@@ -373,7 +398,7 @@ def decode_bound(w, memory, keys, n_steps, lowp=True):
         + b * t_in * 4 + b * n_steps * (w.f_w.shape[0] + t_in) * 4
     macs = sum(x.numel() for x in w if x.ndim == 2)
     flops = n_steps * b * (2 * macs + 3 * t_in * keys.shape[2] + 2 * t_in * m)
-    return bound(byts, flops, PEAK_FLOPS["bf16" if lowp else "f32"])
+    return bound(byts, flops, "bf16" if lowp else "f32")
 
 
 def tf32_products_taken():
@@ -393,8 +418,9 @@ def gl_bound_f32(rows, nb, win, n_iter, planar_io=False):
     streaming kernel also reads an f32 spectrum."""
     byts = rows * nb * (4 + 2 * 4 + (2 * 4 if planar_io else 0))
     flops = n_iter * 2 * 2 * rows * win * 2 * nb
-    return (bound(byts, TF32_PRODUCTS_BOUND * flops, PEAK_FLOPS["tf32"]),
-            flops / PEAK_FLOPS["f32"] * 1e3)
+    from tacotron_tpu_torch.utils.roofline import H100_F32
+    return (bound(byts, TF32_PRODUCTS_BOUND * flops, "tf32"),
+            flops / H100_F32["flops_peak"] * 1e3)
 
 
 def gl_bound_bf16(rows, nb, win, n_iter, planar_io=False):
@@ -402,7 +428,7 @@ def gl_bound_bf16(rows, nb, win, n_iter, planar_io=False):
     cores' bf16 peak. Bytes: the f32 magnitude read and the bf16 (re, im)
     spectrum written; the streaming kernel also reads a bf16 spectrum."""
     byts = rows * nb * (4 + 2 * 2 + (2 * 2 if planar_io else 0))
-    return bound(byts, n_iter * 2 * 2 * rows * win * 2 * nb, PEAK_FLOPS["bf16"])
+    return bound(byts, n_iter * 2 * 2 * rows * win * 2 * nb, "bf16")
 
 
 def dft_products_ms(mag, acfg, n_iter, dtype, padded=False):
@@ -946,6 +972,9 @@ def phase_main(report, cfg, vocab):
     report["main"] = {"stage_ms": out["stage_ms"], "wall_s": wall, "warm_s": warm_s,
                       "audio_seconds": out["audio_seconds"],
                       "audio_seconds_per_s": aps, "launches": launches}
+    report["main"]["roofline"] = synth_roofline(
+        cfg, synth.encode_texts(PROMPTS)[0].shape[1], out["linear"].shape[1],
+        cfg.audio.griffin_lim_iters, wall, report["card"])
 
     # the same Griffin-Lim through the f32 kernel, which no backend name
     # selects any more: the public function, on this call's spectrogram
@@ -1105,31 +1134,41 @@ def phase_cli(report, cfg, vocab):
 
 
 def check_cli_kernels(cfg, vocab, ckpt_dir):
-    """K3 and K4 at [cli]'s own inputs, against their plain versions: the
-    run directory's weights restored as the CLI restores them, its 2
-    prompts, its seed 0 and its configs (synth_gl1000, and synth_fast as
-    ``--preset`` overlays it). K3 at the cluster size B 2 gives it, in both
-    storage modes over 50 steps at K3_TOL, and over the path's 500 steps in
-    bf16 at MAIN_TOL; K4 in its bf16 mode, the mode both runs launch, on
-    each run's magnitudes: its first iteration component by component
-    within one bf16 ulp of the magnitude's peak, then as GL_PATH sets out
-    (depth: the run's iterations). -> the errors."""
+    """K3 and K4 at [cli]'s own inputs (``check_synth_kernels``): the run
+    directory's weights restored as the CLI restores them, its 2 prompts,
+    its seed 0 and its configs (synth_gl1000, and synth_fast as
+    ``--preset`` overlays it). -> the errors."""
     from tacotron_tpu_torch.cli.synthesize import overlay_preset
+    from tacotron_tpu_torch.train import checkpoint, create_train_state
+    from tacotron_tpu_torch.weights import split_state
+
+    state, _ = checkpoint.restore(ckpt_dir, create_train_state(cfg, seed=1), cfg.train)
+    p, bs = split_state(state.model)
+    del state
+    return check_synth_kernels("the CLI's", "cli", cfg, p, bs, vocab, PROMPTS[:2],
+                               [("fused", cfg, True),
+                                ("synth_fast", overlay_preset(cfg, "synth_fast"), False)])
+
+
+def check_synth_kernels(where, tag, cfg, p, bs, vocab, texts, runs, gl_iters=None):
+    """K3 and K4 against their plain versions at a synthesis path's own
+    inputs: weights ``p``, ``bs``, ``texts``, seed 0, and ``runs``, each
+    (name, config, fused). K3 at the cluster size the batch gives it, in
+    both storage modes over 50 steps at K3_TOL, and over the path's steps in
+    bf16 at MAIN_TOL; K4 in its bf16 mode, the mode the runs launch, on each
+    run's magnitudes: its first iteration component by component within one
+    bf16 ulp of the magnitude's peak, then as GL_PATH sets out (depth: the
+    run's ``gl_iters``, by default its config's). -> the errors."""
     from tacotron_tpu_torch.dsp.audio import spectrogram_magnitude
     from tacotron_tpu_torch.dsp.fused_gl import gl_spectrum_reference, griffin_lim_spectrum
     from tacotron_tpu_torch.infer.synthesize import Synthesizer
     from tacotron_tpu_torch.models.tacotron import length_mask
     from tacotron_tpu_torch.ops.decode_loop import (cluster_plan, decode_loop,
                                                     decode_loop_reference, pack_decoder_weights)
-    from tacotron_tpu_torch.train import checkpoint, create_train_state
-    from tacotron_tpu_torch.weights import split_state
 
     dev = torch.device("cuda")
-    state, _ = checkpoint.restore(ckpt_dir, create_train_state(cfg, seed=1), cfg.train)
-    p, bs = split_state(state.model)
-    del state
     synth = Synthesizer(cfg, p, bs, vocab, fused=True)
-    m, texts = synth.model, PROMPTS[:2]
+    m = synth.model
     text, lengths = synth.encode_texts(texts)
     mask = length_mask(text.shape[1], lengths)
     with torch.no_grad():
@@ -1140,7 +1179,7 @@ def check_cli_kernels(cfg, vocab, ckpt_dir):
     b, t_in = memory.shape[:2]
     chosen, resident = cluster_plan(memory, keys, w)
     n_path = cfg.model.max_decode_steps
-    log(f"  K3 at the CLI's inputs (B {b}, T_in {t_in}): cluster size {chosen} (resident "
+    log(f"  K3 at {where} inputs (B {b}, T_in {t_in}): cluster size {chosen} (resident "
         f"clusters by size {resident})")
     require(chosen > 1 and resident[chosen] >= b,
             f"a cluster of {chosen} > 1 blocks per row, all {b} resident at once")
@@ -1158,11 +1197,10 @@ def check_cli_kernels(cfg, vocab, ckpt_dir):
         log(f"  {name} (cluster {chosen}): frames err {ef:.3e} (peak "
             f"{out[name]['frames_peak']:.3f}), aligns err {ea:.3e}")
         require(bool(torch.isfinite(kf).all()) and ef <= tf and (ta is None or ea <= ta),
-                f"{name} at the CLI's inputs finite, within frames {tf}"
+                f"{name} at {where} inputs finite, within frames {tf}"
                 + ("" if ta is None else f", alignments {ta}"))
 
-    for name, c, fused in (("fused", cfg, True), ("synth_fast", overlay_preset(cfg, "synth_fast"),
-                                                  False)):
+    for name, c, fused in runs:
         acfg = c.audio
         # the run's spectrogram: the same call up to Griffin-Lim, which the
         # kernel is then held on at the run's shape
@@ -1170,7 +1208,7 @@ def check_cli_kernels(cfg, vocab, ckpt_dir):
         t_gl = res["wavs"].shape[1] // acfg.hop_length + 1
         mag = spectrogram_magnitude(torch.from_numpy(res["linear"][:, :t_gl]).to(dev), acfg)
         kw = dict(momentum=acfg.gl_momentum, **gl_kw(acfg))
-        label = (f"cli {name}: griffin_lim bf16 (B {b}, F {t_gl}, momentum {acfg.gl_momentum})")
+        label = (f"{tag} {name}: griffin_lim bf16 (B {b}, F {t_gl}, momentum {acfg.gl_momentum})")
         with torch.no_grad():
             first = max(max_err(x, y) for x, y in zip(
                 griffin_lim_spectrum(mag, n_iter=1, **kw),
@@ -1180,7 +1218,7 @@ def check_cli_kernels(cfg, vocab, ckpt_dir):
                 f"({GL_PATH['step_tol']:.2e}) of the magnitude's peak")
         chk = check_gl_path(label, mag, acfg, lambda n: griffin_lim_spectrum(mag, n_iter=n, **kw),
                             lambda n: gl_spectrum_reference(mag, n_iter=n, **kw),
-                            acfg.griffin_lim_iters)
+                            gl_iters or acfg.griffin_lim_iters)
         out[f"griffin_lim_bf16_{name}"] = {"t_gl": t_gl, "first_iteration": first, **chk}
     return out
 
@@ -2101,9 +2139,9 @@ def phase_timing_serving(report, fast_cfg, fast_res, mag_fast, mag_main, main_la
     f, s_, h = probe.OPS_F, probe.OPS_S, probe.OPS_H
     # P1: x read, out written; one multiply per element. P2: spec, d, p read,
     # out written; the NT product, the permutation product, the accumulations
-    bp1 = bound(2 * x.numel() * 4, x.numel(), PEAK_FLOPS["f32"])
+    bp1 = bound(2 * x.numel() * 4, x.numel(), "f32")
     bp2 = bound((f * s_ + h * s_ + h * h + (f + 8) * h) * 4,
-                2 * f * h * s_ + 2 * h * h + 4 * f * h, PEAK_FLOPS["f32"])
+                2 * f * h * s_ + 2 * h * h + 4 * f * h, "f32")
     p1 = {"name": "probe_smem", "route": "cuda", "source": "tacotron_tpu_torch/csrc/probe.cu",
           "replaces": "scripts/probe_pallas.py:16", "launches": launches.get("probe_smem", 0),
           "path": "[probe]",
@@ -2285,6 +2323,7 @@ def phase_train(report, compute_dtype="float32"):
            "launches": launches, "launches_per_step": per_step}
     report[key] = rep
     rep["profile"] = prof = profile_step(state, batch, cfg, med)
+    rep["roofline"] = train_roofline(cfg, med, prof["device_busy_ms"], report["card"])
     kinds = prof["energy_kernels"]
     mode = "__nv_bfloat16" if bf16 else "float"
     log(f"  attention energy kernels in the profiled step: {kinds}")
@@ -2397,6 +2436,53 @@ def profile_step(state, batch, cfg, step_ms):
             "top": [{"name": k, "ms": ms, "count": n} for k, (ms, n) in rows[:30]]}
 
 
+def whole_step_share(flops, ms, kind):
+    """(TFLOP/s, share of the H100's ``kind`` peak) of ``flops`` done in ``ms``."""
+    from tacotron_tpu_torch.utils.roofline import H100
+    rate = flops / (ms / 1e3)
+    return rate / 1e12, rate / H100[kind]["flops_peak"]
+
+
+def train_roofline(cfg, step_ms, busy_ms, card):
+    """The training path's whole-step work, ``train_step_flops`` at its
+    shapes with remat as it runs, over the median step and over the
+    profiled step's device-busy time, against the peak of the step's
+    compute dtype: f32 (TF32 is off) or bf16."""
+    from tacotron_tpu_torch.utils.roofline import H100, train_step_flops
+    kind = "bf16" if cfg.model.compute_dtype == "bfloat16" else "f32"
+    flops = train_step_flops(cfg.model, TRAIN_B, TRAIN_T_IN, TRAIN_T_OUT)
+    tflops, mfu = whole_step_share(flops, step_ms, kind)
+    busy_tflops, mfu_busy = whole_step_share(flops, busy_ms, kind)
+    log(f"  roofline: train_step_flops {flops / 1e9:.1f} GFLOP a step (remat_decoder "
+        f"{cfg.model.remat_decoder}); the median step {tflops:.4f} TFLOP/s, mfu {mfu:.3e} of "
+        f"the {H100[kind]['name']} peak ({H100[kind]['flops_peak'] / 1e12:g} TFLOP/s); the "
+        f"profiled step's device-busy {busy_ms:.3f} ms: {busy_tflops:.3f} TFLOP/s, "
+        f"mfu_device_busy {mfu_busy:.3e}; {card}")
+    return {"train_step_flops": flops, "peak": H100[kind]["name"], "tflops": tflops,
+            "mfu": mfu, "tflops_device_busy": busy_tflops, "mfu_device_busy": mfu_busy}
+
+
+def synth_roofline(cfg, t_in, frames, gl_iters, wall_s, card):
+    """One ``Synthesizer`` call's work from the roofline's functions: the
+    model forward (``train_step_flops(fwd_only=True)`` at T_out = the
+    decode's frames) plus ``gl_iters`` x ``gl_iteration_flops``, over the
+    call's wall time, reckoned against the H100's bf16 peak."""
+    from tacotron_tpu_torch.utils.roofline import H100_BF16, gl_iteration_flops, train_step_flops
+    b, a = len(PROMPTS), cfg.audio
+    fwd = train_step_flops(cfg.model, b, t_in, cfg.model.max_decode_steps * cfg.model.r,
+                           fwd_only=True)
+    per_it = gl_iteration_flops(b, frames, a.n_fft, a.win_length)
+    tflops, mfu = whole_step_share(fwd + gl_iters * per_it, wall_s * 1e3, "bf16")
+    log(f"  roofline: forward {fwd / 1e9:.2f} GFLOP (train_step_flops fwd_only, B {b}, T_in "
+        f"{t_in}, T_out {cfg.model.max_decode_steps * cfg.model.r}) + Griffin-Lim {gl_iters} x "
+        f"{per_it / 1e9:.2f} GFLOP (gl_iteration_flops, F {frames}, the 128-aligned span) = "
+        f"{(fwd + gl_iters * per_it) / 1e12:.3f} TFLOP; the call {tflops:.3f} TFLOP/s, mfu "
+        f"{mfu:.3e}, reckoned against the {H100_BF16['name']} peak "
+        f"({H100_BF16['flops_peak'] / 1e12:g} TFLOP/s); {card}")
+    return {"forward_flops": fwd, "gl_iteration_flops": per_it, "gl_iters": gl_iters,
+            "peak": H100_BF16["name"], "tflops": tflops, "mfu": mfu}
+
+
 def phase_train_timing(report, state, batch, launches):
     """K1/K2 at the training path's shapes, in the mode of the state's
     model: keys and q are that model's (bf16 under bf16 compute)."""
@@ -2482,8 +2568,8 @@ def phase_train_timing(report, state, batch, launches):
     # accumulate per element (f32 arithmetic in both modes).
     # K2: keys, q, v, de read, dkeys, dq, dv written; add, tanh, 1 - t^2,
     # de * v, times (1 - t^2), dq accumulate, t * de, dv accumulate per element.
-    fb = bound((el + b * a) * es + (a + b * t) * 4, 4 * el, PEAK_FLOPS["f32"])
-    bb = bound((2 * el + 2 * b * a) * es + (2 * a + b * t) * 4, 9 * el, PEAK_FLOPS["f32"])
+    fb = bound((el + b * a) * es + (a + b * t) * 4, 4 * el, "f32")
+    bb = bound((2 * el + 2 * b * a) * es + (2 * a + b * t) * 4, 9 * el, "f32")
     steps = TRAIN_STEPS[m.cfg.compute_dtype]
     per_step = {k: launches.get(k, 0) / steps for k in ("attn_energy_fwd", "attn_energy_bwd")}
     shape = f"B {b} T_in {t} A {a} {'bf16' if bf16 else 'f32'}"
@@ -3091,6 +3177,385 @@ def phase_dp(report):
             "griffin_lim_bf16": [r["synth"]["launches"].get("griffin_lim", 0) for r in ranks]}
 
 
+# [tooling]: the live capture's run, the TF1-converted synthesis's Griffin-Lim
+# iterations (GL 100 keeps the phase short; [main] runs 1000), and the
+# capture's steps, asked for once the run has done ``capture_after`` steps
+TOOLING = {"cli_steps": 8, "capture_after": 2, "capture_steps": 2, "gl_iters": 100}
+# enable_compilation_cache in a child process: build every kernel and the
+# native assembler in argv[2], or find them there, counting the compilers
+# started; argv[1] is the checkout's root
+CACHE_CHILD = """
+import json, subprocess, sys, time
+sys.path.insert(0, sys.argv[1])
+from tacotron_tpu_torch import runtime
+from tacotron_tpu_torch.native import binding
+from tacotron_tpu_torch.utils import profiling
+profiling.enable_compilation_cache(sys.argv[2])
+started, popen = [], subprocess.Popen
+class Counted(popen):
+    def __init__(self, args, *a, **k):
+        started.append(str(args[0]))
+        super().__init__(args, *a, **k)
+subprocess.Popen = Counted
+d = runtime.BUILD_DIR
+before = sorted(p.name for p in d.glob("*.so"))
+t0 = time.perf_counter()
+runtime.build()
+binding.build()
+for name in runtime.KERNEL_SOURCES:
+    runtime.load(name)
+binding.load_batcher()
+print(json.dumps({"dir": str(d), "before": before, "after": sorted(p.name for p in d.glob("*.so")),
+                  "started": started, "seconds": time.perf_counter() - t0}))
+"""
+
+
+def tf1_names(params, batch_stats):
+    """Flax-layout trees renamed to TF1 names as
+    ``tests/unit/test_tf1_converter.py::_tf1_names`` renames them, but with
+    the three-cell decoder convention: multi_rnn_cell/cell_0 is the
+    attention GRU, cell_1 and cell_2 the residual GRUs."""
+    def node(tree, path):
+        for k in path.split("/"):
+            tree = tree[k]
+        return tree
+
+    def g(tree, path):
+        return np.asarray(node(tree, path))
+
+    tf, P = {}, "model/inference"
+    tf[f"{P}/embedding"] = g(params, "encoder/embed/embedding")
+    for i in range(2):
+        sfx = "" if i == 0 else f"_{i}"
+        for leaf in ("kernel", "bias"):
+            tf[f"{P}/prenet/dense{sfx}/{leaf}"] = g(params, f"encoder/prenet/fc{i}/{leaf}")
+            tf[f"{P}/decoder/prenet/dense{sfx}/{leaf}"] = \
+                g(params, f"decoder/cell/prenet/fc{i}/{leaf}")
+    bn = {"gamma": (params, "scale"), "beta": (params, "bias"),
+          "moving_mean": (batch_stats, "mean"), "moving_variance": (batch_stats, "var")}
+    for scope, ours in (("encoder_cbhg", "encoder/cbhg"), ("post_cbhg", "postnet/cbhg")):
+        for k in sorted(int(k[4:]) for k in node(params, f"{ours}/bank") if k.startswith("conv")):
+            base = f"{P}/{scope}/conv1d_banks/num_{k}"
+            tf[f"{base}/conv1d/kernel"] = g(params, f"{ours}/bank/conv{k}/kernel")
+            for field, (tree, leaf) in bn.items():
+                tf[f"{base}/batch_normalization/{field}"] = g(tree, f"{ours}/bank/bn{k}/bn/{leaf}")
+        for i in range(sum(1 for k in node(params, f"{ours}/proj") if k.startswith("proj"))):
+            tf[f"{P}/{scope}/conv1d_proj_{i}/conv1d/kernel"] = g(params, f"{ours}/proj/proj{i}/kernel")
+            for field, (tree, leaf) in bn.items():
+                tf[f"{P}/{scope}/conv1d_proj_{i}/batch_normalization/{field}"] = \
+                    g(tree, f"{ours}/proj/bn{i}/bn/{leaf}")
+        hw = node(params, f"{ours}/highway")
+        for i in range(sum(1 for k in hw if k.startswith("H"))):
+            for leaf in ("kernel", "bias"):
+                tf[f"{P}/{scope}/highwaynet_{i}/dense/{leaf}"] = g(hw, f"H{i}/{leaf}")
+                tf[f"{P}/{scope}/highwaynet_{i}/dense_1/{leaf}"] = g(hw, f"T{i}/{leaf}")
+        if "resize" in hw:
+            for leaf in ("kernel", "bias"):
+                tf[f"{P}/{scope}/highway_resize/{leaf}"] = g(hw, f"resize/{leaf}")
+        # biGRU: our hoisted split fused back into TF's [x, h] layout
+        for d, tfd in (("fwd", "fw"), ("bwd", "bw")):
+            base = f"{P}/{scope}/bidirectional_rnn/{tfd}/gru_cell"
+            for part, ours_part in (("gates", "gates"), ("candidate", "cand")):
+                tf[f"{base}/{part}/kernel"] = np.concatenate(
+                    [g(params, f"{ours}/bigru/{d}/{ours_part}_x/kernel"),
+                     g(params, f"{ours}/bigru/{d}/{ours_part}_h/kernel")], axis=0)
+                tf[f"{base}/{part}/bias"] = g(params, f"{ours}/bigru/{d}/{ours_part}_x/bias")
+    tf[f"{P}/memory_layer/kernel"] = g(params, "memory_proj/kernel")
+    tf[f"{P}/decoder/bahdanau_attention/query_layer/kernel"] = \
+        g(params, "decoder/cell/attention/query/kernel")
+    tf[f"{P}/decoder/bahdanau_attention/attention_v"] = \
+        g(params, "decoder/cell/attention/v").reshape(-1)
+    for i, cell in enumerate(("attention_gru", "decoder_gru0", "decoder_gru1")):
+        for part in ("gates", "candidate"):
+            for leaf in ("kernel", "bias"):
+                tf[f"{P}/decoder/multi_rnn_cell/cell_{i}/gru_cell/{part}/{leaf}"] = \
+                    g(params, f"decoder/cell/{cell}/{part}/{leaf}")
+    for leaf in ("kernel", "bias"):
+        tf[f"{P}/decoder/output_projection_wrapper/{leaf}"] = \
+            g(params, f"decoder/cell/decoder_input_proj/{leaf}")
+        # generic denses, resolved by shape: the frame and the linear projection
+        tf[f"{P}/decoder/dense/{leaf}"] = g(params, f"decoder/cell/frame_proj/{leaf}")
+        tf[f"{P}/dense_2/{leaf}"] = g(params, f"postnet/linear_proj/{leaf}")
+    return tf
+
+
+def http_get(port, path, timeout=600):
+    """-> (HTTP status, JSON reply) of GET 127.0.0.1:port/path."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def tooling_roofline(report):
+    """(a) the whole-step shares that [train], [train-bf16] and [main]
+    printed, gathered; K4/K5's bound count beside ``gl_iteration_flops``."""
+    from tacotron_tpu_torch.dsp.dft import live_span
+    from tacotron_tpu_torch.utils.roofline import gl_iteration_flops
+    card = report["card"]
+    for key, tag in (("train", "[train]"), ("train_bf16", "[train-bf16]")):
+        r = report[key]["roofline"]
+        log(f"  (a) {tag}: {r['train_step_flops'] / 1e9:.1f} GFLOP a step; median step "
+            f"{r['tflops']:.4f} TFLOP/s, mfu {r['mfu']:.3e}; device-busy "
+            f"{r['tflops_device_busy']:.3f} TFLOP/s, mfu_device_busy {r['mfu_device_busy']:.3e}; "
+            f"against {r['peak']}; {card}")
+    r = report["main"]["roofline"]
+    log(f"  (a) [main]: {r['tflops']:.3f} TFLOP/s, mfu {r['mfu']:.3e} against {r['peak']}; {card}")
+    b, f, n_fft, win = len(PROMPTS), 1000, 2048, 1102
+    exact = 2 * 2 * b * f * win * 2 * (n_fft // 2 + 1)
+    lo, hi = live_span(n_fft, win)
+    aligned = gl_iteration_flops(b, f, n_fft, win)
+    log(f"  (a) a Griffin-Lim iteration at B {b}, F {f}: {exact / 1e9:.2f} GFLOP over the exact "
+        f"window ({win} samples; the K4/K5 bound) against gl_iteration_flops' "
+        f"{aligned / 1e9:.2f} GFLOP over the 128-aligned live span [{lo}, {hi}) ({hi - lo})")
+    require(aligned == exact * (hi - lo) / win, "gl_iteration_flops scales the exact count by "
+            "the live span over the window")
+    return {"gl_iteration_exact_flops": exact, "gl_iteration_flops": aligned}
+
+
+def tooling_tf1(cfg, vocab):
+    """(b) seeded weights at synth_gl1000 widths named as a TF1 checkpoint
+    names them (``tf1_names``), converted onto another seed's trees and
+    loaded through ``from_flax``; ``Synthesizer(fused=True)`` on [main]'s 8
+    prompts at GL ``TOOLING["gl_iters"]`` from them, its launch counts set
+    to 0 just before, against the same weights loaded directly; then K3 and
+    K4 bf16 held against their plain versions on these inputs. -> (the
+    results, the converted synthesizer, the call's launches)."""
+    import re
+
+    from tacotron_tpu_torch import runtime
+    from tacotron_tpu_torch.infer.synthesize import Synthesizer
+    from tacotron_tpu_torch.utils.tf1_converter import NAME_TABLE, convert
+    from tacotron_tpu_torch.weights import from_flax, split_state, to_flax
+
+    dev = torch.device("cuda")
+    n_it = TOOLING["gl_iters"]
+    p0, bs0 = split_state(full_model(cfg, dev, seed=0))
+    src = to_flax(p0, bs0)
+    tf_vars = tf1_names(src["params"], src["batch_stats"])
+    target = to_flax(*split_state(full_model(cfg, dev, seed=1)))
+    t0 = time.perf_counter()
+    out = convert(tf_vars, target["params"], target["batch_stats"])
+    conv_s = time.perf_counter() - t0
+    hit = {i for name in tf_vars for i, (pat, _) in enumerate(NAME_TABLE)
+           if re.match(pat, name)}
+    missed = [NAME_TABLE[i][0] for i in range(len(NAME_TABLE)) if i not in hit]
+    log(f"  (b) {len(tf_vars)} TF1 names ({sum(a.size for a in tf_vars.values())} values) "
+        f"converted in {conv_s:.3f} s: {len(out['matched'])} matched, unmatched "
+        f"{len(out['unmatched_tf'])} TF1 / {len(out['unmatched_ours'])} ours, "
+        f"{len(out['errors'])} errors; {len(hit)} of {len(NAME_TABLE)} NAME_TABLE patterns hit, "
+        f"not hit: {missed}")
+    require(not out["errors"] and not out["unmatched_tf"] and not out["unmatched_ours"],
+            "every TF1 name placed and every leaf of ours covered, no error")
+    require(len(missed) == 1 and "attention_wrapper" in missed[0],
+            "every NAME_TABLE pattern hit but the two-cell convention's attention_wrapper "
+            "(the three-cell names place the attention GRU as cell_0)")
+    p, bs = from_flax({"params": out["params"], "batch_stats": out["batch_stats"]})
+    require(sorted(p) == sorted(p0) and sorted(bs) == sorted(bs0) and all(
+        torch.equal(v.to(dev), p0[k]) for k, v in p.items()) and all(
+        torch.equal(v.to(dev), bs0[k]) for k, v in bs.items()),
+        f"the {len(p)} parameters and {len(bs)} statistics loaded from the conversion equal the "
+        f"source weights bit for bit")
+    direct = Synthesizer(cfg, p0, bs0, vocab, fused=True)
+    synth = Synthesizer(cfg, p, bs, vocab, fused=True)
+    want = direct(PROMPTS, seed=0, gl_iters=n_it)
+    runtime.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    got = synth(PROMPTS, seed=0, gl_iters=n_it)
+    wall = time.perf_counter() - t0
+    launches = dict(runtime.LAUNCHES)
+    log(f"  (b) Synthesizer(fused=True) from the converted weights, B {len(PROMPTS)}, GL {n_it}: "
+        f"{wall:.3f} s, launches {launches}")
+    require(launches.get("decode_loop") == 1 and launches.get("griffin_lim") == 3 * n_it,
+            f"K3 launched once and K4 3 x {n_it} times")
+    require(np.array_equal(got["mel"], want["mel"]) and np.array_equal(got["linear"], want["linear"]),
+            "mel and linear bit-equal to the same weights loaded directly")
+    require(bool(np.isfinite(got["wavs"]).all()) and float(np.abs(got["wavs"]).max()) > 0,
+            "wavs finite with a peak > 0")
+    checks = check_synth_kernels("the TF1-converted weights'", "tooling", cfg, p, bs, vocab,
+                                 PROMPTS, [("fused", cfg, True)], gl_iters=n_it)
+    res = {"tf1_names": len(tf_vars), "convert_s": conv_s, "patterns_not_hit": missed,
+           "launches": launches, "wall_s": wall, "kernels": checks}
+    return res, synth, launches
+
+
+def tooling_cache(root):
+    """(c) ``enable_compilation_cache`` in two child processes on one fresh
+    directory: the first builds every kernel and the native assembler
+    there, the second finds them and starts no compiler."""
+    import shutil
+
+    from tacotron_tpu_torch import runtime
+    cache = os.path.join(root, "kernels")
+    shutil.rmtree(cache, ignore_errors=True)
+    runs = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-c", CACHE_CHILD, ROOT, cache], capture_output=True,
+                           text=True, timeout=600, cwd=ROOT)
+        require(p.returncode == 0, f"cache child {i} exits 0\n{p.stdout}{p.stderr}")
+        runs.append(json.loads(p.stdout.strip().splitlines()[-1]))
+        runs[-1]["process_s"] = time.perf_counter() - t0
+        log(f"  (c) enable_compilation_cache child {i}: {len(runs[-1]['started'])} compilers "
+            f"started, {len(runs[-1]['after'])} libraries in {runs[-1]['dir']}; build "
+            f"{runs[-1]['seconds']:.2f} s, the process {runs[-1]['process_s']:.2f} s")
+    n_libs = len(runtime.KERNEL_SOURCES) + 1        # and the native assembler
+    first, second = runs
+    require(first["dir"] == cache and not first["before"] and len(first["after"]) == n_libs
+            and len(first["started"]) == n_libs, f"the first child built the {n_libs} libraries "
+            f"in the cache directory, one compiler each")
+    require(second["before"] == second["after"] == first["after"] and not second["started"],
+            "the second child found them and started no compiler")
+    return runs
+
+
+def tooling_time(report, synth):
+    """(c) ``force`` and ``time_fn`` of a [main]-shaped call (B 8, 500
+    steps, GL 1000), beside this script's own timing of one call."""
+    from tacotron_tpu_torch.utils.profiling import force, time_fn
+    call = lambda: synth(PROMPTS, seed=1)
+    t0 = time.perf_counter()
+    out = call()
+    own = time.perf_counter() - t0
+    forced = force(out)
+    per_call = time_fn(call, iters=2, warmup=1)
+    rows = len(PROMPTS) * synth.cfg.model.max_decode_steps
+    log(f"  (c) time_fn: {per_call * 1e3:.1f} ms a call (1 warm, 2 timed); this script's "
+        f"perf_counter around one call {own * 1e3:.1f} ms; [main]'s timed call "
+        f"{report['main']['wall_s'] * 1e3:.1f} ms; force(out) {forced:.4f} (the alignments: "
+        f"{rows} softmax rows); {report['card']}")
+    require(abs(forced / rows - 1) <= 1e-4, f"force reads the first leaf (the alignments), "
+            f"{rows} rows summing to 1")
+    return {"time_fn_s": per_call, "own_s": own, "force": forced}
+
+
+def tooling_capture(report, root):
+    """(c) ``cli.train --profile-port`` on [train-cli]'s corpus at
+    full_1chip, r 5, the fused energy, f32, B 32, ``TOOLING["cli_steps"]``
+    steps, the launch counts set to 0 just before: a client thread asks for
+    ``capture_steps`` steps once ``capture_after`` are done, then, while the
+    window is open, for another capture, which is refused. The trace's
+    device events of K1 and K2 equal the captured steps' decoder steps (the
+    loader's schedule replayed); the run's launches its steps'. -> (the
+    results, the run's launches)."""
+    import shutil
+    import socket
+    import threading
+
+    from tacotron_tpu_torch import runtime
+    from tacotron_tpu_torch.cli import train as train_cli
+    from tacotron_tpu_torch.config import Config
+
+    c = TOOLING
+    data = os.path.join(ROOT, "build", "chip_smoke_train", "data")
+    require(os.path.exists(os.path.join(data, "index.json")), f"[train-cli]'s data in {data}")
+    run = os.path.join(root, "run")
+    shutil.rmtree(run, ignore_errors=True)
+    port = free_port()
+    replies = {}
+
+    def client():
+        try:
+            deadline = time.time() + 900
+            while time.time() < deadline:
+                try:
+                    st = http_get(port, "/status", timeout=10)[1]
+                except OSError:
+                    st = {"step": None}
+                if st["step"] is not None and st["step"] >= c["capture_after"]:
+                    break
+                time.sleep(0.01)
+            first = threading.Thread(target=lambda: replies.update(
+                capture=http_get(port, f"/capture?steps={c['capture_steps']}")), daemon=True)
+            first.start()
+            while first.is_alive() and http_get(port, "/status")[1]["state"] != "open":
+                time.sleep(0.005)
+            replies["while_open"] = http_get(port, "/capture?steps=1")
+            first.join(900)
+        except Exception as e:      # reported by the main thread's checks
+            replies["client_error"] = repr(e)
+
+    t = threading.Thread(target=client, daemon=True)
+    t.start()
+    argv = ["--data-dir", data, "--run-dir", run, "--preset", "full_1chip", "--set", "model.r=5",
+            "--set", "model.attention_energy=fused", "--batch-size", "32", "--summary-every", "1",
+            "--checkpoint-every", "1000", "--steps", str(c["cli_steps"]),
+            "--profile-port", str(port)]
+    log(f"  (c) cli.train {' '.join(argv)}")
+    runtime.LAUNCHES.clear()
+    lines, secs = run_cli(train_cli.main, argv)
+    launches = {k: v for k, v in runtime.LAUNCHES.items() if v}
+    t.join(60)
+    for ln in lines:
+        log(f"  (c) cli.train: {ln}")
+    require(not t.is_alive() and "client_error" not in replies, f"the client finished "
+            f"({replies.get('client_error')})")
+    require(json.loads(lines[-1]) == {"done": True, "step": c["cli_steps"]},
+            f"the run exits normally at step {c['cli_steps']} ({secs:.2f} s in the process)")
+    with socket.socket() as s:
+        require(s.connect_ex(("127.0.0.1", port)) != 0, f"nothing listens on {port} after the run")
+    code, reply = replies["capture"]
+    log(f"  (c) capture reply {code}: {reply}; the request while the window was open: "
+        f"{replies['while_open']}")
+    require(code == 200 and reply["trace_dir"] == os.path.join(run, "trace")
+            and len(reply["files"]) == 1, "the capture's reply names its trace")
+    first, last = reply["steps"]
+    require(last - first + 1 == c["capture_steps"] and first > c["capture_after"],
+            f"the capture spans {c['capture_steps']} steps after step {c['capture_after']} "
+            f"({first}-{last})")
+    require(replies["while_open"][0] == 409, "a request while the window is open is refused")
+    cfg = Config.from_json(open(os.path.join(run, "config.json")).read())
+    require(cfg.model.tf_decoder == "scan" and not cfg.model.remat_decoder,
+            "scan decoder, no remat: one K1 and one K2 per decoder step")
+    n_dec = loader_schedule(data, cfg, c["cli_steps"])
+    want = {"attn_energy_fwd": sum(n_dec), "attn_energy_bwd": sum(n_dec)}
+    require(launches == want, f"the run's launches {launches} = its decoder steps {n_dec}")
+    t0 = time.perf_counter()
+    with open(os.path.join(reply["trace_dir"], reply["files"][0])) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    found = {k: [e for e in kern if k in e["name"]] for k in ("energy_fwd", "energy_bwd")}
+    in_window = sum(n_dec[first - 1:last])
+    log(f"  (c) the trace: {os.path.getsize(os.path.join(reply['trace_dir'], reply['files'][0]))} "
+        f"bytes, {len(events)} events ({time.perf_counter() - t0:.2f} s to read), {len(kern)} "
+        f"device kernels; energy_fwd {len(found['energy_fwd'])}, energy_bwd "
+        f"{len(found['energy_bwd'])}, {sum(e['dur'] for e in found['energy_fwd']):.1f} / "
+        f"{sum(e['dur'] for e in found['energy_bwd']):.1f} us; the captured steps' decoder steps "
+        f"{n_dec[first - 1:last]}")
+    require(all(len(v) == in_window and all("<float, true>" in e["name"] for e in v)
+                for v in found.values()), f"the trace holds {in_window} f32 K1 and {in_window} "
+            f"K2 device events, one per decoder step of steps {first}-{last}")
+    return ({"seconds_in_process": secs, "reply": reply, "while_open": replies["while_open"],
+             "launches": launches, "decoder_steps": n_dec, "trace_events": len(events),
+             "kernel_events": {k: len(v) for k, v in found.items()}}, launches)
+
+
+def phase_tooling(report, cfg, vocab):
+    """[tooling] the port's utils on the card: (a) the roofline's whole-step
+    shares, (b) TF1-named weights converted into a synthesis through K3 and
+    K4 bf16, (c) the compilation cache, ``force`` / ``time_fn``, and a live
+    capture of ``cli.train`` through K1/K2. -> each kernel's launches."""
+    log("[tooling] utils/roofline, utils/tf1_converter and utils/profiling on the card")
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "chip_smoke_tooling")
+    rep = report["tooling"] = {"card": report["card"]}
+    rep["roofline"] = tooling_roofline(report)
+    rep["tf1"], synth, synth_launches = tooling_tf1(cfg, vocab)
+    rep["time_fn"] = tooling_time(report, synth)
+    del synth
+    rep["cache"] = tooling_cache(root)
+    rep["capture"], train_launches = tooling_capture(report, root)
+    rep["seconds"] = time.perf_counter() - t0
+    log(f"  [tooling] {rep['seconds']:.1f} s")
+    return {"decode_loop": synth_launches["decode_loop"],
+            "griffin_lim_bf16": synth_launches["griffin_lim"],
+            "attn_energy_fwd": train_launches["attn_energy_fwd"],
+            "attn_energy_bwd": train_launches["attn_energy_bwd"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -3154,6 +3619,7 @@ def main(argv=None) -> int:
         phase_cli(report, cfg, vocab)
         cli_launches = phase_train_cli(report)
         dp_launches = phase_dp(report)
+        tooling_launches = phase_tooling(report, cfg, vocab)
         for k in kernels:
             require(k["launches"] > 0, f"{k['name']} launched on its path ({k['launches']})")
             if k["name"] in cli_launches:
@@ -3164,6 +3630,10 @@ def main(argv=None) -> int:
                 k["dp_launches"] = dp_launches[k["name"]]
                 require(all(n > 0 for n in k["dp_launches"]), f"{k['name']} launched on every "
                         f"rank of [dp] ({k['dp_launches']})")
+            if k["name"] in tooling_launches:
+                k["tooling_launches"] = tooling_launches[k["name"]]
+                require(k["tooling_launches"] > 0, f"{k['name']} launched on [tooling]'s path "
+                        f"({k['tooling_launches']})")
         report["kernels"] = kernels
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)

@@ -27,12 +27,25 @@ size was set explicitly, each process loads its shard of it, only process
 process), every process checks after a resume that all start from the same
 step, and ``--debug-sync`` checks the batch shapes every step and the step
 and the shards' distinct content at the summary cadence. ``--device-cache``
-is refused with more than one process. ``--profile-port`` is refused
-(ROADMAP.md Queue 1, item 8). ``--debug-nans`` turns on autograd's anomaly
-mode, which raises where a backward function returns NaN, and raises
-FloatingPointError on a step whose metrics are not finite; JAX's
-``jax_debug_nans`` also checks every forward operation, which has no torch
-counterpart.
+is refused with more than one process. ``--debug-nans`` turns on
+autograd's anomaly mode, which raises where a backward function returns
+NaN, and raises FloatingPointError on a step whose metrics are not finite;
+JAX's ``jax_debug_nans`` also checks every forward operation, which has no
+torch counterpart.
+
+Live capture: with ``--profile-port PORT`` the run serves HTTP on
+``127.0.0.1:PORT`` (``utils/profiling.start_server``, the counterpart of
+JAX's profiler server) until it ends. ``curl
+'127.0.0.1:PORT/capture?steps=N'`` traces the next N training steps into
+``RUN_DIR/trace`` (a ``*.pt.trace.json``, as ``--trace-steps`` writes) and
+answers, once the trace is written, with a JSON object naming the
+directory, the first and last step and the files; ``/status`` says whether
+a capture is pending or open and the step reached. The profiler starts and
+stops on the training thread, at step boundaries. A request while a
+capture is pending or open, or for fewer than 1 step, gets an error reply
+and the run goes on. JAX starts a server on every process; here process I
+serves at PORT + I, so that several processes on one host do not collide,
+and each prints its address to stderr.
 """
 
 from __future__ import annotations
@@ -45,7 +58,6 @@ import os
 import time
 
 PLATFORMS = {"cpu": "cpu", "gpu": "cuda"}
-REFUSED = {"profile_port": "item 8"}
 
 
 def main(argv=None):
@@ -89,15 +101,13 @@ def main(argv=None):
                         "--set model.tf_decoder=hoisted "
                         "--set model.compute_dtype=bfloat16")
     p.add_argument("--profile-port", type=int, default=0,
-                   help="not ported: refused (ROADMAP.md Queue 1, item 8)")
+                   help="serve live capture on 127.0.0.1:PORT (+ the process id): "
+                        "GET /capture?steps=N traces the next N steps into "
+                        "RUN_DIR/trace; 0 = off")
     p.add_argument("--trace-steps", default=None, metavar="FIRST:LAST",
                    help="capture a torch.profiler trace spanning these steps "
                         "(inclusive) into RUN_DIR/trace, e.g. --trace-steps 40:45")
     args = p.parse_args(argv)
-    for name, item in REFUSED.items():
-        if getattr(args, name) not in (None, False, 0):
-            p.error(f"--{name.replace('_', '-')} is not ported: it waits for "
-                    f"ROADMAP.md Queue 1, {item}")
 
     import sys
 
@@ -119,6 +129,7 @@ def main(argv=None):
     from tacotron_tpu_torch.train import checkpoint, create_train_state, make_train_step
     from tacotron_tpu_torch.utils import SummaryWriter, profiling
 
+    profiling.enable_compilation_cache()
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True, check_nan=True)
     trace_first = trace_last = -1
@@ -202,12 +213,26 @@ def main(argv=None):
     step = start_step
     eval_synth = None
     prof = None
+    window_end = -1       # the last step of the open trace window
+    live = None           # (first step, trace files before) of an open live capture
+    server = None
     try:
+        if args.profile_port:
+            server = profiling.start_server(args.profile_port + multihost.process_index())
+            print(f"profile server: http://{server.host}:{server.port}/capture?steps=N "
+                  f"(process {multihost.process_index()})", file=sys.stderr)
         while step < cfg.train.max_steps:
+            # a live capture opens at a step boundary on this thread; a
+            # request made while the --trace-steps window is open waits for it
+            if server is not None and (n := server.poll(step, idle=prof is None)):
+                os.makedirs(trace_dir, exist_ok=True)
+                live = (step + 1, set(os.listdir(trace_dir)))
+                prof, window_end = profiling.start_trace(trace_dir), step + n
             # >= not ==: a resume can land inside (or past) the window; the
             # profiler handle keeps start and stop paired either way
             if trace_first >= 0 and step + 1 >= trace_first and prof is None:
-                prof = profiling.start_trace(trace_dir)
+                prof, window_end = profiling.start_trace(trace_dir), trace_last
+                trace_first = -1          # one window per run
             b, (arrays, _pinned) = next(it)
             if args.debug_sync:
                 # shapes every step (one 8-byte all-gather: a bucket
@@ -222,11 +247,15 @@ def main(argv=None):
             if args.debug_nans and not all(math.isfinite(float(v)) for v in metrics.values()):
                 raise FloatingPointError(f"step {step}: metrics not finite: "
                                          f"{ {k: float(v) for k, v in metrics.items()} }")
-            if prof is not None and step >= trace_last:
+            # a window that extends past max_steps is written at the last step
+            if prof is not None and (step >= window_end or step >= cfg.train.max_steps):
                 profiling.stop_trace(prof)
                 prof = None
-                trace_first = -1          # one window per run
                 print(f"trace written: {trace_dir}")
+                if live is not None:
+                    server.finish({"trace_dir": trace_dir, "steps": [live[0], step],
+                                   "files": sorted(set(os.listdir(trace_dir)) - live[1])})
+                    live = None
             frames_since += b.mel.shape[0] * b.mel.shape[1] * mesh.data_size
 
             if step % cfg.train.summary_every == 0:
@@ -265,12 +294,11 @@ def main(argv=None):
                     writer.flush()
     finally:
         stream.close()
+        if server is not None:
+            server.close()
         if args.debug_nans:
             torch.autograd.set_detect_anomaly(False)
 
-    if prof is not None:   # the window extended past max_steps: still write it
-        profiling.stop_trace(prof)
-        print(f"trace written: {trace_dir}")
     checkpoint.save(ckpt_dir, step, state, cfg.train)
     writer.close()
     print(json.dumps({"done": True, "step": step}))

@@ -1,9 +1,11 @@
 """ctypes bindings and the g++ build of the native batch assembler.
 
 The library is built at first use from ``native/batcher.cpp`` into
-``build/tacotron_tpu_torch/`` beside the package (``runtime.BUILD_DIR``),
-under a name that carries a hash of the source, so an edited source is
-rebuilt and the package's own directory is never written. The compiler
+``BUILD_DIR`` (``runtime``'s: ``build/tacotron_tpu_torch/`` beside the
+package, unless ``utils.profiling.enable_compilation_cache`` points both
+elsewhere; read when the library is looked up), under a name that
+carries a hash of the source, so an edited source is rebuilt and the
+package's own directory is never written. The compiler
 writes a temporary file that is then renamed into place, so processes that
 build at the same time do not see a half-written library. A failed build
 raises with the compiler's output: there is no fallback here (a caller

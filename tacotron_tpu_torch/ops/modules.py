@@ -209,6 +209,17 @@ class BatchNorm(nn.Module):
         return xf.mean(axes), (xf * xf).mean(axes)
 
 
+def conv_bank_group_bounds(k: int, groups: int) -> list[tuple[int, int]]:
+    """Contiguous width-range partition of the packed conv bank: group
+    (lo, hi] is built as one width-hi conv with (hi-lo)*channels outputs.
+    The JAX package's bank splits this way; ``ConvBank`` here always packs
+    one group, so the function serves the roofline accounting
+    (``utils/roofline.py``) only."""
+    g = max(1, min(groups, k))
+    bounds = [round(i * k / g) for i in range(g + 1)]
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
 class ConvBank(nn.Module):
     """K parallel SAME convs of widths 1..K, each ``channels`` wide, then a
     per-width batch norm and ReLU, concatenated on the channel axis.

@@ -4,9 +4,10 @@ hand-written CUDA kernels.
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``. The build
 happens at first use, from the package's sources only, into
-``build/tacotron_tpu_torch/`` beside the package; the library name carries a
-hash of the sources, so an edited source is rebuilt. ``build()`` starts one
-``nvcc`` per source, all at once.
+``BUILD_DIR`` (by default ``build/tacotron_tpu_torch/`` beside the package;
+``utils.profiling.enable_compilation_cache`` points it elsewhere); the
+library name carries a hash of the sources, so an edited source is rebuilt.
+``build()`` starts one ``nvcc`` per source, all at once.
 
 ``LAUNCHES`` counts kernel launches by kernel name; each wrapper adds to it
 where it launches its kernel, and nowhere else.
@@ -26,7 +27,9 @@ import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR.parent / "build" / "tacotron_tpu_torch"
+DEFAULT_BUILD_DIR = PACKAGE_DIR.parent / "build" / "tacotron_tpu_torch"
+# read when a library is looked up or built, not when a module is imported
+BUILD_DIR = DEFAULT_BUILD_DIR
 KERNEL_SOURCES = ("attn_energy", "decode_loop", "griffin_lim", "probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")

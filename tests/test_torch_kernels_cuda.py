@@ -785,3 +785,56 @@ def test_train_cli_two_steps_launch_k1_k2(card_data, tmp_path):
     assert json.loads(lines[-1]) == {"done": True, "step": 2}
     losses = [json.loads(ln)["total_loss"] for ln in lines if ln.startswith('{"step"')]
     assert len(losses) == 2 and all(v == v for v in losses)
+
+
+@pytest.mark.cuda
+def test_profile_port_captures_a_fused_energy_step(card_data, tmp_path, monkeypatch):
+    """``cli.train --profile-port``: a capture of one step holds the device
+    events of K1 and K2, one of each per decoder step of that step."""
+    import ast
+    import contextlib
+    import glob
+    import io
+    import json
+    import socket
+    import threading
+    import time
+    import urllib.request
+    from tacotron_tpu_torch.cli import train as train_cli
+    from tacotron_tpu_torch.utils import profiling
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    replies, start = [], profiling.start_server
+
+    def ask():
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/capture?steps=1", timeout=300) as r:
+            replies.append(json.loads(r.read()))
+
+    def start_and_ask(p):
+        # the request is pending before the first step
+        server = start(p)
+        t = threading.Thread(target=ask, daemon=True)
+        t.start()
+        while server.status()["state"] == "idle" and t.is_alive():
+            time.sleep(0.001)
+        return server
+
+    monkeypatch.setattr(profiling, "start_server", start_and_ask)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train_cli.main(["--data-dir", str(card_data / "data"), "--run-dir", str(tmp_path / "run"),
+                        "--preset", "tiny_cpu", "--batch-size", "4", "--num-buckets", "1",
+                        "--steps", "2", "--summary-every", "1", "--profile-port", str(port),
+                        "--set", "model.attention_energy=fused"])
+    lines = buf.getvalue().strip().splitlines()
+    assert json.loads(lines[-1]) == {"done": True, "step": 2}
+    bucket = ast.literal_eval(lines[0].removeprefix("buckets: "))[0]
+    n_dec = bucket[1] // get_config("tiny_cpu").model.r
+    assert len(replies) == 1 and replies[0]["steps"] == [1, 1]
+    (path,) = glob.glob(str(tmp_path / "run" / "trace" / "*.pt.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert sum("energy_fwd" in k for k in kernels) == n_dec
+    assert sum("energy_bwd" in k for k in kernels) == n_dec

@@ -22,9 +22,9 @@ the CPU, in process (``main(argv)``), at ``tiny_cpu`` with a small STFT
 * The port CLI's own lines, checkpoints, ``--trace-steps`` (a trace file
   and its line), ``--eval-every`` (audio and alignment summaries),
   ``--device-cache`` (the same losses as the native assembler),
-  ``--debug-nans`` (a NaN in the data raises), the refused multi-process
-  and profiler flags (exit 2, naming the ROADMAP item), and both CLIs
-  raising without a card and without ``--platform cpu``.
+  ``--debug-nans`` (a NaN in the data raises), and both CLIs raising
+  without a card and without ``--platform cpu``. ``--profile-port`` is
+  tested in ``tests/test_torch_profiling.py``.
 * ``SummaryWriter`` in both of its forms: tensorboardX, and plain files
   when tensorboardX (or matplotlib, or PIL) does not import.
 """
@@ -188,17 +188,6 @@ def test_debug_nans_raises_on_nan_data(work, tmp_path):
         _run(train_cli.main, ["--data-dir", str(data), "--run-dir", str(tmp_path / "run"),
                               "--steps", "1", "--platform", "cpu", "--debug-nans", *TRAIN])
     assert not torch.is_anomaly_enabled()
-
-
-@pytest.mark.parametrize("flags,item", [(["--profile-port", "9012"], "item 8")])
-def test_refused_flags_exit_2_naming_the_item(tmp_path, capsys, flags, item):
-    with pytest.raises(SystemExit) as e:
-        train_cli.main(["--data-dir", str(tmp_path), "--run-dir", str(tmp_path / "r"),
-                        "--platform", "cpu", *flags])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert f"ROADMAP.md Queue 1, {item}" in err and flags[0] in err
-    assert not (tmp_path / "r").exists()
 
 
 @pytest.mark.parametrize("cli", ["preprocess", "train", "train_device_cache"])
