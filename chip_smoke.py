@@ -74,11 +74,30 @@ Phases, in order; any failure raises and exits non-zero:
    reaches beside the f32 mode's;
 8. the training path: ``create_train_state`` + ``train_step`` at the
    full_1chip widths (hoisted teacher-forced decoder, fused energy, remat,
-   f32) on B 32, T_in 128, T_out 400: one warm step, then 3 timed steps
-   with the launch counts set to 0 just before them; step milliseconds,
+   f32) on B 32, T_in 128, T_out 400: one warm step, then 2 timed eager
+   steps with the launch counts set to 0 just before them; step milliseconds,
    train frames per second, peak memory and a forward / backward /
    optimizer split; the device's busy share of one profiled step; the
    same steps through the plain energy, interleaved with the fused ones;
+   then [train-graph]: ``make_train_step``'s graphed step (one CUDA graph
+   per batch shape) at the same recipe: (a) 3 graphed steps after the
+   shape's eager first one, against eager ``train_step``s from the same
+   seeded state, bit for bit under deterministic convolutions and index
+   reductions (losses, grad norms, alignments, weights, gradients, Adam's
+   moments and counts, batch statistics, the generator), after printing
+   which gradients two eager steps from one state differ in with torch's
+   default algorithms; (b) the last of those Adam updates (capturable: f32
+   bias corrections on the device) against optax's formula in f64,
+   within ADAM_F64_OF_LR of the LR; (c) a new step under the default
+   algorithms: its graph's nodes, K1 400 and K2 200 kernel nodes, capture
+   and instantiate seconds and pool bytes, and one replay of that graph
+   against an eager ``train_step`` from a copy of its state by [dp]'s
+   common-state rule, the alignments within GRAPH_ALIGN_ATOL; (d) 5 replays and 3 eager steps
+   in turns, each ending in its loss read back, the launch counts set to 0
+   just before them (K1 400 and K2 200 per replay), one replay under the
+   profiler (device busy share, K1/K2 device time per launch), ``mfu`` and
+   ``mfu_device_busy``; (e) T_out 200, which gets a graph of its own, then
+   T_out 400's graph again;
 9. K1's and K2's time at that path's shapes beside the plain version, the
    bound, the floor (an empty kernel launched on the same grid and
    clusters, ``probe.probe_empty``) and each one's device time per launch
@@ -88,11 +107,15 @@ Phases, in order; any failure raises and exits non-zero:
    apart by the kept tanh (S B T_in A 4 bytes) within 25%;
 10. [train-bf16] bench.py's training recipe (compute_dtype="bfloat16",
    hoisted, remat, fused energy) at the same widths and batch, as 8: one
-   warm and 5 timed steps, the profiled step (400 bf16 K1 and 200 bf16 K2
+   warm and 2 timed steps, the profiled step (400 bf16 K1 and 200 bf16 K2
    kernels, one per call), the plain energy interleaved, f32 parameters and Adam
    moments; on one set of weights and dropout masks the loss through the
    plain energy beside the fused one and the mel against the f32 model's
-   (JAX's drift rule); then bf16 K1's and K2's time at that path's shapes;
+   (JAX's drift rule); [train-graph-bf16], [train-graph] in bf16; then bf16
+   K1's and K2's time at that path's shapes; K1's and K2's rows count their
+   launches over [train-graph]'s timed replays (``eager_launches``:
+   [train]'s eager steps'), with their nodes in the graph and device time
+   per launch inside the profiled replay;
 11. [main-bf16] ``Synthesizer(fused=True)`` at synth_gl1000 with
    compute_dtype="bfloat16" (K3 on bf16-computed keys, Griffin-Lim 100
    iterations to keep the script short): a warm and a timed call, and the
@@ -114,7 +137,12 @@ Phases, in order; any failure raises and exits non-zero:
    features held against the CPU's at CLI_FEATURE_TOL), ``cli.train.main``
    at r 5 with the fused energy, B 32: 20 f32 steps (scan decoder, native
    assembler, a trace of steps 12-13, an eval at step 20: K4 bf16), then
-   the resume to step 30 in bf16 with hoisted + remat and the device cache;
+   the resume to step 30 in bf16 with hoisted + remat and the device cache,
+   both through the graphed step (one eager step and then a graph per
+   bucket shape; each step timed by CUDA events that a wrapper around the
+   step the CLI builds records on either side of it, read after the run,
+   so the CLI's loop runs unsynchronised: frames/s of eager, capturing and
+   replayed steps, and each graph's nodes, capture seconds and pool bytes);
    each run's K1, K2 and K4 launches equal to what its steps' buckets (the
    loader's schedule replayed), decoder form, remat and eval give, the
    losses finite, the checkpoint restored bit for bit, the device cache's
@@ -166,8 +194,10 @@ Phases, in order; any failure raises and exits non-zero:
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -253,8 +283,27 @@ MAIN_BF16_GL_ITERS = 100
 # steps and interleaved rounds (fused, xla, xla, fused) per compute dtype: the
 # f32 path, measured the longest, is cut to keep the whole script short
 TRAIN_B, TRAIN_T_IN, TRAIN_T_OUT = 32, 128, 400
-TRAIN_STEPS = {"float32": 3, "bfloat16": 5}
+TRAIN_STEPS = {"float32": 2, "bfloat16": 2}
 TRAIN_ROUNDS = {"float32": 1, "bfloat16": 3}
+# [train-graph]: make_train_step's graphed step at [train]'s recipe. "compare":
+# graphed steps held bit for bit against eager ones from one state, after the
+# shape's first (eager) step; "turns": the timed calls, G a replay and E an
+# eager train_step on a state of its own, each ending in its loss read back;
+# "t_out_2": the second shape's T_out. Bit for bit under deterministic
+# convolutions and index reductions: with torch's default algorithms two
+# eager f32 steps from one state already differ (the phase prints where)
+TRAIN_GRAPH = {"compare": 3, "turns": "GEGGEGGE", "t_out_2": 200}
+# [train-graph] (c): the measured graph, captured with torch's default
+# algorithms, against an eager train_step from a copy of its state (weights,
+# batch statistics, Adam's moments and count, the dropout generator): one
+# replay, held by [dp]'s common-state rule (dp_hold: losses rel DP_LOSS_RTOL,
+# gradients 1e-4 of their peak, updated weights where Adam's step is well
+# conditioned, statistics) and the alignments within this
+GRAPH_ALIGN_ATOL = 1e-5
+# [train-graph] (b): one capturable Adam update (f32, bias corrections on the
+# device) against optax's formula in f64 on the same moments and clipped
+# gradients: every updated weight within this share of the update's LR
+ADAM_F64_OF_LR = 1e-3
 
 # [train-cli]: the corpus of the trained-weights recipe (scripts/r5_evidence_run.sh:
 # 256 utterances of 20 characters, 0.06 s each +-30%), B 32, 20 f32 steps then a
@@ -1276,6 +1325,74 @@ def capture_energy_inputs(model, batch, gen):
     return seen[0]
 
 
+@contextlib.contextmanager
+def graphed_steps():
+    """A list that receives, for each ``GraphedTrainStep`` that
+    ``make_train_step`` returns while the context is open (``cli.train``
+    builds one), (the step, its calls): each call's kind ("eager": the
+    shape's first step, "capture": its second, which captures and replays,
+    "replay"), its padded frames and two CUDA events recorded on the
+    caller's stream on either side of it. Nothing synchronises: the CLI's
+    loop runs as a user's does, and a call's seconds are read after the run
+    (``cli_graph_report``), on the device's timeline from the start event
+    to the end event."""
+    from tacotron_tpu_torch import train as train_pkg
+    from tacotron_tpu_torch.train.step import GraphedTrainStep
+    made = []
+    inner = train_pkg.make_train_step
+
+    def spy(*args, **kwargs):
+        fn = inner(*args, **kwargs)
+        if not isinstance(fn, GraphedTrainStep):
+            return fn
+        calls = []
+        made.append((fn, calls))
+
+        def timed(state, *batch):
+            dev = next(state.model.parameters()).device
+            entry = fn.graphs.get(fn.shape_key(dev, *batch), "new")
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            events[0].record()
+            out = fn(state, *batch)
+            events[1].record()
+            calls.append({"kind": "eager" if entry == "new" else "capture" if entry is None
+                          else "replay", "frames": batch[2].shape[0] * batch[2].shape[1],
+                          "events": events})
+            return out
+
+        return timed
+
+    train_pkg.make_train_step = spy
+    try:
+        yield made
+    finally:
+        train_pkg.make_train_step = inner
+
+
+def cli_graph_report(made, model_cfg) -> dict:
+    """[train-cli]'s graphed step: each shape's graph (``graph_report``) and
+    the steps' frames per second by kind (the first step of each bucket
+    eager, its second capturing)."""
+    require(len(made) == 1, f"cli.train built one graphed step ({len(made)})")
+    fn, calls = made[0]
+    remat = 2 if model_cfg.remat_decoder else 1
+    graphs = [graph_report(e, e.inputs[2].shape[1] // model_cfg.r, remat)
+              for e in fn.graphs.values() if e is not None]
+    for c_ in calls:
+        c_["events"][1].synchronize()
+        c_["s"] = c_["events"][0].elapsed_time(c_.pop("events")[1]) / 1e3
+    rate = {}
+    for kind in ("eager", "capture", "replay"):
+        sel = [c_ for c_ in calls if c_["kind"] == kind]
+        rate[kind] = {"steps": len(sel), "frames_per_s": sum(c_["frames"] for c_ in sel)
+                      / sum(c_["s"] for c_ in sel) if sel else None,
+                      "ms": [round(c_["s"] * 1e3, 3) for c_ in sel]}
+    return {"shapes": len(fn.graphs), "graphs": graphs, "by_kind": rate,
+            "capture_s": [g["capture_s"] for g in graphs],
+            "instantiate_s": [g["instantiate_s"] for g in graphs],
+            "nodes": [g["nodes"] for g in graphs], "pool_bytes": [g["pool_bytes"] for g in graphs]}
+
+
 def check_train_cli_kernels(cfg, ckpt_dir, step, batch, bf16):
     """K1/K2 at [train-cli]'s own inputs: the run's checkpoint ``step``
     restored as the CLI restores it, the loader's first batch and one set of
@@ -1301,11 +1418,7 @@ def check_train_cli_kernels(cfg, ckpt_dir, step, batch, bf16):
     res = {}
     # deterministic convolutions and index reductions, so that the plain
     # energy's run repeats bit for bit and what differs is K1/K2's
-    flags = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
-             torch.is_deterministic_algorithms_warn_only_enabled())
-    torch.backends.cudnn.deterministic = True
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
+    with deterministic():
         for run, energy in (("xla", "xla"), ("xla_again", "xla"), ("fused", "fused")):
             model = Tacotron(dataclasses.replace(cfg.model, attention_energy=energy), device=dev)
             model.load_state_dict(weights)
@@ -1321,9 +1434,6 @@ def check_train_cli_kernels(cfg, ckpt_dir, step, batch, bf16):
                                                torch.Generator(device=dev).manual_seed(7))
             del model
         torch.cuda.synchronize()
-    finally:
-        torch.backends.cudnn.deterministic = flags[0]
-        torch.use_deterministic_algorithms(flags[1], warn_only=flags[2])
     repeat = res["xla"][0] == res["xla_again"][0] and all(
         torch.equal(g, res["xla_again"][1][k]) for k, g in res["xla"][1].items())
     loss_rel = abs(res["fused"][0] - res["xla"][0]) / abs(res["xla"][0])
@@ -1451,10 +1561,13 @@ def phase_train_cli(report):
                       "--set", "model.tf_decoder=hoisted", "--set", "model.remat_decoder=true",
                       "--set", "model.compute_dtype=bfloat16"])):
         runtime.LAUNCHES.clear()
-        lines, secs = run_cli(train_cli.main, base + extra)
+        with graphed_steps() as made:
+            lines, secs = run_cli(train_cli.main, base + extra)
         launches = {k: v for k, v in runtime.LAUNCHES.items() if v}
         summaries = [json.loads(ln) for ln in lines if ln.startswith('{"step"')]
         cfg = Config.from_json(open(os.path.join(run, "config.json")).read())
+        graphs = cli_graph_report(made, cfg.model)
+        del made
         first, last = (c["steps"][0], c["steps"][1]) if name == "bf16" else (0, c["steps"][0])
         n_dec = loader_schedule(data, cfg, last - first)
         remat = 2 if cfg.model.remat_decoder else 1
@@ -1465,9 +1578,21 @@ def phase_train_cli(report):
             want["griffin_lim"] = 3 * 60 * len(evals)
         runs[name] = {"seconds_in_process": secs, "lines": lines[:2] + lines[-1:],
                       "summaries": summaries, "launches": launches, "want_launches": want,
-                      "decoder_steps": n_dec}
+                      "decoder_steps": n_dec, "graphed_step": graphs}
         for ln in lines:
             log(f"  {name}: {ln}")
+        kinds = graphs["by_kind"]
+        log(f"  {name}: the graphed step: {graphs['shapes']} shapes; steps by kind "
+            f"{ {k: v['steps'] for k, v in kinds.items()} }; frames/s eager "
+            f"{kinds['eager']['frames_per_s']}, capture {kinds['capture']['frames_per_s']}, "
+            f"replay {kinds['replay']['frames_per_s']} (CUDA events, the loop unsynchronised); "
+            f"capture s "
+            f"{[round(x, 3) for x in graphs['capture_s']]}, instantiate s "
+            f"{[round(x, 3) for x in graphs['instantiate_s']]}, nodes {graphs['nodes']}, pool "
+            f"GiB {[round(x / 2**30, 3) for x in graphs['pool_bytes']]}; {rep['card']}")
+        require(kinds["replay"]["steps"] > 0 and graphs["shapes"] == len(set(n_dec))
+                == kinds["eager"]["steps"], f"{name}: one eager step and then a graph for each "
+                f"of the run's {len(set(n_dec))} bucket shapes, and replays")
         log(f"  {name}: {secs:.2f} s in the process; launches {launches}; decoder steps per "
             f"training step {n_dec}")
         losses = [s[k] for s in summaries for k in ("mel_loss", "linear_loss", "total_loss")]
@@ -2205,9 +2330,9 @@ def train_config(compute_dtype):
         compute_dtype=compute_dtype))
 
 
-def train_batch(cfg, dev):
+def train_batch(cfg, dev, t_out=TRAIN_T_OUT):
     """The training path's batch, as bench.py makes it."""
-    b, t_in, t_out = TRAIN_B, TRAIN_T_IN, TRAIN_T_OUT
+    b, t_in = TRAIN_B, TRAIN_T_IN
     g = torch.Generator().manual_seed(0)
     batch = [torch.randint(1, 60, (b, t_in), generator=g),
              torch.full((b,), t_in), torch.rand(b, t_out, cfg.model.n_mels, generator=g),
@@ -2322,7 +2447,7 @@ def phase_train(report, compute_dtype="float32"):
            "losses": [first] + losses, "warm_s": warm_s,
            "launches": launches, "launches_per_step": per_step}
     report[key] = rep
-    rep["profile"] = prof = profile_step(state, batch, cfg, med)
+    rep["profile"] = prof = profile_step(lambda: train_step(state, *batch, cfg=cfg), med)
     rep["roofline"] = train_roofline(cfg, med, prof["device_busy_ms"], report["card"])
     kinds = prof["energy_kernels"]
     mode = "__nv_bfloat16" if bf16 else "float"
@@ -2410,13 +2535,11 @@ def compare_energy_forms(state, batch, cfg, pairs: int):
     return out
 
 
-def profile_step(state, batch, cfg, step_ms):
-    """One training step under torch.profiler: the kernels' device time,
-    its share of the unprofiled median step (the device's busy share), and
-    the kernels with the most device time."""
-    from tacotron_tpu_torch.train import train_step
-    rows = sorted(device_kernels(lambda: train_step(state, *batch, cfg=cfg)).items(),
-                  key=lambda r: -r[1][0])
+def profile_step(step, step_ms):
+    """One training step (``step()``) under torch.profiler: the kernels'
+    device time, its share of the unprofiled median step (the device's busy
+    share), and the kernels with the most device time."""
+    rows = sorted(device_kernels(step).items(), key=lambda r: -r[1][0])
     busy = sum(ms for _, (ms, _) in rows)
     launches = sum(n for _, (_, n) in rows)
     energy, energy_ms = {}, {}
@@ -2434,6 +2557,246 @@ def profile_step(state, batch, cfg, step_ms):
             "busy_share_of_median_step": busy / step_ms, "energy_kernels": energy,
             "energy_kernels_ms": energy_ms,
             "top": [{"name": k, "ms": ms, "count": n} for k, (ms, n) in rows[:30]]}
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's deterministic convolutions and torch's deterministic index
+    reductions while the context is open (a warning, not an error, where an
+    operation has none), the previous flags after."""
+    flags = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = flags[0]
+        torch.use_deterministic_algorithms(flags[1], warn_only=flags[2])
+
+
+def step_tensors(state) -> dict:
+    """Copies of every tensor a training step updates, by kind and name,
+    and the dropout generator's state."""
+    m, opt = state.model, state.opt
+    out = {}
+    for k, p_ in m.named_parameters():
+        out[f"param {k}"], out[f"grad {k}"] = p_.detach().clone(), p_.grad.clone()
+        out.update({f"adam {slot} {k}": t.clone() for slot, t in opt.state[p_].items()})
+    out.update({f"buffer {k}": b_.clone() for k, b_ in m.named_buffers()})
+    out["generator"] = state.generator.get_state()
+    return out
+
+
+def graph_report(entry, n_dec, k1_per_step=2) -> dict:
+    """One captured step's nodes (``utils.profiling.graph_nodes``), its K1
+    and K2 kernel nodes and the launches a replay adds, its capture and
+    instantiate seconds and pool bytes; K1 held to ``k1_per_step`` nodes per
+    decoder step (2 with remat: forward + recompute) and K2 to 1."""
+    from tacotron_tpu_torch.utils.profiling import graph_nodes
+    nodes = graph_nodes(entry.graph)
+    out = {"nodes": sum(nodes.values()),
+           "kernel_nodes": sum(n for k, n in nodes.items() if not k.startswith("<")),
+           "other_nodes": {k: n for k, n in nodes.items() if k.startswith("<")},
+           "k1_nodes": sum(n for k, n in nodes.items() if "energy_fwd" in k),
+           "k2_nodes": sum(n for k, n in nodes.items() if "energy_bwd" in k),
+           "launches_per_replay": dict(entry.launches), "capture_s": entry.capture_s,
+           "instantiate_s": entry.instantiate_s, "pool_bytes": entry.pool_bytes}
+    k1 = k1_per_step * n_dec
+    require(out["k1_nodes"] == k1 and out["k2_nodes"] == n_dec
+            and out["launches_per_replay"] == {"attn_energy_fwd": k1, "attn_energy_bwd": n_dec},
+            f"the graph holds {k1} K1 and {n_dec} K2 kernel nodes ({n_dec} decoder steps), "
+            f"and a replay adds as many to runtime.LAUNCHES")
+    return out
+
+
+def adam_against_f64(before, state, train_cfg, count):
+    """(b) update ``count`` (0-based) of the capturable Adam: the weights,
+    moments and clipped gradients after it (``state``) against optax's
+    formula in f64 from ``before`` (``step_tensors`` before the update) ->
+    the largest gaps, the weights' over the update's LR."""
+    from tacotron_tpu_torch.train.schedule import learning_rate
+    b1, b2 = train_cfg.adam_b1, train_cfg.adam_b2
+    lr, t = learning_rate(train_cfg, count), count + 1
+    gap = {"param": 0.0, "exp_avg": 0.0, "exp_avg_sq": 0.0}
+    for k, p_ in state.model.named_parameters():
+        g = p_.grad.double()
+        m0, v0 = before[f"adam exp_avg {k}"].double(), before[f"adam exp_avg_sq {k}"].double()
+        st = state.opt.state[p_]
+        want = before[f"param {k}"].double() - adam_move(g, m0, v0, t, lr, train_cfg)
+        gap["param"] = max(gap["param"], float((p_.detach().double() - want).abs().max()))
+        gap["exp_avg"] = max(gap["exp_avg"], float(
+            (st["exp_avg"].double() - (b1 * m0 + (1 - b1) * g)).abs().max()))
+        gap["exp_avg_sq"] = max(gap["exp_avg_sq"], float(
+            (st["exp_avg_sq"].double() - (b2 * v0 + (1 - b2) * g * g)).abs().max()))
+    gap.update(lr=lr, count=t, param_of_lr=gap["param"] / lr)
+    return gap
+
+
+def phase_train_graph(report, compute_dtype="float32"):
+    """[train-graph] / [train-graph-bf16]: ``make_train_step``'s graphed step
+    (``GraphedTrainStep``) at [train]'s recipe in ``compute_dtype``. (a) one
+    eager first step, then TRAIN_GRAPH["compare"] graphed steps against as
+    many eager ``train_step``s from the same seeded state, bit for bit under
+    deterministic(): losses, grad norms, alignments every step, then the
+    weights, gradients, Adam's moments and counts, batch statistics and the
+    generator's state (f32: first, with the default algorithms, where two
+    eager steps from one state differ); (b) the last of those updates against
+    optax's formula in f64; (c) the graph's K1/K2 kernel nodes, nodes, capture
+    and instantiate seconds and pool bytes, and one replay held against an
+    eager ``train_step`` from a copy of the state (``dp_hold``); (d) replays and eager steps in
+    turns (TRAIN_GRAPH["turns"]), the launch counts set to 0 just before and
+    each replay's read, one replay under the profiler, the roofline; (e) a
+    second shape (T_out TRAIN_GRAPH["t_out_2"]) with a graph of its own, then
+    the first shape's graph again. -> K1/K2's launches over the timed replays,
+    their graph nodes and device time per launch inside the replay."""
+    from tacotron_tpu_torch import runtime
+    from tacotron_tpu_torch.train import create_train_state, make_train_step, train_step
+    from tacotron_tpu_torch.train.step import GraphedTrainStep
+
+    dev = torch.device("cuda")
+    bf16 = compute_dtype == "bfloat16"
+    tag, key = ("[train-graph-bf16]", "train_graph_bf16") if bf16 else ("[train-graph]", "train_graph")
+    cfg = train_config(compute_dtype)
+    b, t_out, c = TRAIN_B, TRAIN_T_OUT, TRAIN_GRAPH
+    n_dec = t_out // cfg.model.r
+    batch = train_batch(cfg, dev)
+    rep = report[key] = {"card": report["card"]}
+    log(f"{tag} make_train_step at [train]'s recipe ({compute_dtype}, B {b}, T_in {TRAIN_T_IN}, "
+        f"T_out {t_out}): one CUDA graph per shape after its eager first step")
+    t_phase = time.perf_counter()
+    if not bf16:
+        pair = [create_train_state(cfg, seed=0) for _ in range(2)]
+        pair = [train_step(st, *batch, cfg=cfg)[0] for st in pair]
+        torch.cuda.synchronize()
+        grads = [dict(st.model.named_parameters()) for st in pair]
+        differ = [k for k in grads[0] if not torch.equal(grads[0][k].grad, grads[1][k].grad)]
+        rep["eager_twice_default_algorithms"] = differ
+        log(f"  two eager steps from one state, torch's default algorithms: {len(differ)} of "
+            f"{len(grads[0])} gradients differ: {differ[:8]}")
+        del pair, grads
+
+    with deterministic():
+        graphed, eager = create_train_state(cfg, seed=0), create_train_state(cfg, seed=0)
+        step = make_train_step(cfg)
+        require(isinstance(step, GraphedTrainStep), "make_train_step on the card is a GraphedTrainStep")
+        steps = []
+        for i in range(1 + c["compare"]):
+            if i == c["compare"]:
+                before = step_tensors(graphed)
+            graphed, m_g, a_g = step(graphed, *batch)
+            eager, m_e, a_e = train_step(eager, *batch, cfg=cfg)
+            steps.append({"graphed": i > 0, "loss": float(m_g["total_loss"]),
+                          "grad_norm": float(m_g["grad_norm"]),
+                          "equal": all(torch.equal(m_g[k], m_e[k]) for k in m_e)
+                          and torch.equal(a_g, a_e)})
+        g_t, e_t = step_tensors(graphed), step_tensors(eager)
+        differ = [k for k in e_t if not torch.equal(g_t[k], e_t[k])]
+        rep["compare"] = {"steps": steps, "tensors": len(e_t), "tensors_differ": differ}
+        log(f"  (a) {steps}; {len(e_t)} tensors after the run, {len(differ)} differ {differ[:6]}")
+        require(all(s_["equal"] for s_ in steps), f"(a) every step's losses, grad norm and "
+                f"alignments bit-equal, graphed ({c['compare']} steps) against eager")
+        require(not differ, "(a) weights, gradients, Adam's moments and counts, batch statistics "
+                "and the generator's state bit-equal after the run")
+        rep["adam_f64"] = gap = adam_against_f64(before, graphed, cfg.train, graphed.step - 1)
+        del before, g_t, e_t
+        log(f"  (b) update {gap['count']} (LR {gap['lr']:.3g}) against optax's formula in f64: "
+            f"weights {gap['param']:.3e} ({gap['param_of_lr']:.3e} of the LR), exp_avg "
+            f"{gap['exp_avg']:.3e}, exp_avg_sq {gap['exp_avg_sq']:.3e}")
+        require(gap["param_of_lr"] <= ADAM_F64_OF_LR, f"(b) every weight within {ADAM_F64_OF_LR} "
+                f"of the LR of optax's update in f64")
+    # the deterministic algorithms' graph is not the one users run: a new
+    # step, with torch's default algorithms, captures the measured graph
+    step = make_train_step(cfg)
+    for _ in range(2):
+        t0 = time.perf_counter()
+        graphed, m, _ = step(graphed, *batch)
+        float(m["total_loss"])
+        rep.setdefault("first_steps_ms", []).append((time.perf_counter() - t0) * 1e3)
+    entry = step.graphs[next(iter(step.graphs))]
+    rep["graph"] = graph_report(entry, n_dec)
+    gr = rep["graph"]
+    log(f"  (c) a new step with the default algorithms: the eager first step "
+        f"{rep['first_steps_ms'][0]:.1f} ms, the second (capture, instantiate, replay) "
+        f"{rep['first_steps_ms'][1]:.1f} ms; the graph: {gr['nodes']} nodes "
+        f"({gr['kernel_nodes']} kernels, {gr['other_nodes']}), K1 {gr['k1_nodes']}, K2 "
+        f"{gr['k2_nodes']}; capture {gr['capture_s']:.3f} s, instantiate "
+        f"{gr['instantiate_s']:.3f} s, pool {gr['pool_bytes'] / 2**30:.3f} GiB")
+    m_ = graphed.model
+    prev = {"params": {k: host_copy(p_.detach()) for k, p_ in m_.named_parameters()},
+            "stats": {k: host_copy(b_) for k, b_ in m_.named_buffers()},
+            "opt": host_copy(graphed.opt.state_dict())}
+    gen = graphed.generator.get_state()
+    graphed, got = dp_run(graphed, step, batch, 1)
+    want = dp_restart(cfg, batch, prev, gen)
+    rep["replay_vs_eager"] = dp_hold(
+        "(c) one replay of that graph against train_step from a copy of its state",
+        {**got["steps"][0], "metrics": got["metrics"][0]},
+        {**want["steps"][0], "metrics": want["metrics"][0]}, prev, cfg.train)
+    align = float((got["alignments"][0] - want["alignments"][0]).abs().max())
+    rep["replay_vs_eager"].update(alignments=align, metrics=(got["metrics"][0],
+                                                             want["metrics"][0]))
+    require(align <= GRAPH_ALIGN_ATOL, f"(c) the replay's alignments within {GRAPH_ALIGN_ATOL} "
+            f"of train_step's ({align:.3e})")
+    del prev, got, want
+
+    ms = {"G": [], "E": []}
+    runtime.LAUNCHES.clear()
+    graph_launches = collections.Counter()
+    for kind in c["turns"]:
+        counts = collections.Counter(runtime.LAUNCHES)
+        t0 = time.perf_counter()
+        if kind == "G":
+            graphed, m, _ = step(graphed, *batch)
+        else:
+            eager, m, _ = train_step(eager, *batch, cfg=cfg)
+        loss = float(m["total_loss"])
+        ms[kind].append((time.perf_counter() - t0) * 1e3)
+        require(np.isfinite(loss), f"{kind} loss finite")
+        if kind == "G":
+            graph_launches.update(runtime.LAUNCHES)
+            graph_launches.subtract(counts)
+    graph_launches = dict(+graph_launches)
+    n_g = len(ms["G"])
+    med, med_e = float(np.median(ms["G"])), float(np.median(ms["E"]))
+    per_replay = {k: v / n_g for k, v in graph_launches.items()}
+    require(per_replay == {"attn_energy_fwd": 2 * n_dec, "attn_energy_bwd": n_dec},
+            f"(d) each of {n_g} replays counted {2 * n_dec} K1 and {n_dec} K2 launches")
+    rep.update(replay_ms=ms["G"], eager_ms=ms["E"], replay_ms_median=med, eager_ms_median=med_e,
+               train_frames_per_s=b * t_out / (med / 1e3),
+               eager_frames_per_s=b * t_out / (med_e / 1e3), launches=graph_launches)
+    log(f"  (d) in turns {c['turns']}: replay ms {[round(x, 3) for x in ms['G']]} (median "
+        f"{med:.3f}), eager ms {[round(x, 3) for x in ms['E']]} (median {med_e:.3f}); train "
+        f"frames/s {rep['train_frames_per_s']:.1f} graphed, {rep['eager_frames_per_s']:.1f} "
+        f"eager; {report['card']}")
+    rep["profile"] = prof = profile_step(lambda: step(graphed, *batch), med)
+    rep["roofline"] = train_roofline(cfg, med, prof["device_busy_ms"], report["card"])
+    mode = "__nv_bfloat16" if bf16 else "float"
+    in_graph = {d: prof["energy_kernels_ms"][f"energy_{d}<{mode}, true>"]
+                / prof["energy_kernels"][f"energy_{d}<{mode}, true>"] for d in ("fwd", "bwd")}
+    log(f"  K1/K2 in the profiled replay: {prof['energy_kernels']}; device us per launch "
+        f"{ {d: round(v * 1e3, 3) for d, v in in_graph.items()} }")
+
+    t2 = c["t_out_2"]
+    batch2 = train_batch(cfg, dev, t_out=t2)
+    losses = []
+    for bt in (batch2, batch2, batch):
+        graphed, m, _ = step(graphed, *bt)
+        losses.append(float(m["total_loss"]))
+    entries = [e_ for e_ in step.graphs.values() if e_ is not None]
+    require(len(step.graphs) == 2 and len(entries) == 2 and all(np.isfinite(losses)),
+            f"(e) T_out {t2} got a graph of its own, then T_out {t_out}'s replayed ({losses})")
+    rep["second_shape"] = graph_report(step.graphs[next(
+        k for k in step.graphs if k[3][0][1] == t2)], t2 // cfg.model.r)
+    rep["seconds"] = time.perf_counter() - t_phase
+    log(f"  (e) T_out {t2}: {rep['second_shape']['nodes']} nodes, capture "
+        f"{rep['second_shape']['capture_s']:.3f} s, pool "
+        f"{rep['second_shape']['pool_bytes'] / 2**30:.3f} GiB; {tag} {rep['seconds']:.1f} s")
+    del step, graphed, eager
+    return {"launches": graph_launches, "graph_nodes": {"attn_energy_fwd": gr["k1_nodes"],
+                                                        "attn_energy_bwd": gr["k2_nodes"]},
+            "ms_in_graph": {"attn_energy_fwd": in_graph["fwd"],
+                            "attn_energy_bwd": in_graph["bwd"]}}
 
 
 def whole_step_share(flops, ms, kind):
@@ -2483,9 +2846,13 @@ def synth_roofline(cfg, t_in, frames, gl_iters, wall_s, card):
             "peak": H100_BF16["name"], "tflops": tflops, "mfu": mfu}
 
 
-def phase_train_timing(report, state, batch, launches):
+def phase_train_timing(report, state, batch, launches, graph):
     """K1/K2 at the training path's shapes, in the mode of the state's
-    model: keys and q are that model's (bf16 under bf16 compute)."""
+    model: keys and q are that model's (bf16 under bf16 compute). Each row's
+    ``launches`` are the graphed step's over [train-graph]'s timed replays
+    (``graph``, ``phase_train_graph``'s result), beside its graph nodes and
+    device time per launch inside the replay; ``eager_launches`` are
+    [train]'s timed eager steps'."""
     from tacotron_tpu_torch.ops.attn_energy import (WARPS, attention_energy_reference,
                                                     energy_bwd, energy_bwd_reference, energy_fwd,
                                                     fwd_grid, plan_of)
@@ -2573,10 +2940,14 @@ def phase_train_timing(report, state, batch, launches):
     steps = TRAIN_STEPS[m.cfg.compute_dtype]
     per_step = {k: launches.get(k, 0) / steps for k in ("attn_energy_fwd", "attn_energy_bwd")}
     shape = f"B {b} T_in {t} A {a} {'bf16' if bf16 else 'f32'}"
+    gpath = "[train-graph-bf16]" if bf16 else "[train-graph]"
     k1 = {"name": "attn_energy_fwd" + sfx, "route": "cuda",
           "source": "tacotron_tpu_torch/csrc/attn_energy.cu",
           "replaces": "tacotron_tpu/ops/pallas/attn_energy.py:63",
-          "launches": launches.get("attn_energy_fwd", 0), "path": path,
+          "launches": graph["launches"].get("attn_energy_fwd", 0), "path": gpath,
+          "eager_launches": launches.get("attn_energy_fwd", 0), "eager_path": path,
+          "graph_nodes": graph["graph_nodes"]["attn_energy_fwd"],
+          "ms_in_graph": graph["ms_in_graph"]["attn_energy_fwd"],
           "max_abs_err": errs["e"][0],
           "ms": f_ms, "plain_ms": fp_ms, "bound_ms": fb[0], "bound_by": fb[1],
           "library_ms": None, "shape": shape, "call_ms": call_ms["fwd"],
@@ -2586,7 +2957,10 @@ def phase_train_timing(report, state, batch, launches):
     k2 = {"name": "attn_energy_bwd" + sfx, "route": "cuda",
           "source": "tacotron_tpu_torch/csrc/attn_energy.cu",
           "replaces": "tacotron_tpu/ops/pallas/attn_energy.py:69",
-          "launches": launches.get("attn_energy_bwd", 0), "path": path,
+          "launches": graph["launches"].get("attn_energy_bwd", 0), "path": gpath,
+          "eager_launches": launches.get("attn_energy_bwd", 0), "eager_path": path,
+          "graph_nodes": graph["graph_nodes"]["attn_energy_bwd"],
+          "ms_in_graph": graph["ms_in_graph"]["attn_energy_bwd"],
           "max_abs_err": max(errs[n][0] for n in ("dkeys", "dq", "dv")),
           "ms": b_ms, "plain_ms": bp_ms, "bound_ms": bb[0], "bound_by": bb[1],
           "library_ms": None, "shape": shape, "call_ms": call_ms["bwd"],
@@ -2597,8 +2971,11 @@ def phase_train_timing(report, state, batch, launches):
     for k in (k1, k2):
         log(f"  {k['name']}: {k['ms'] * 1e3:.2f} us per launch, {k['ms_per_step']:.3f} ms per "
             f"step on the device; {k['ms_in_step'] * 1e3:.2f} us per launch in the profiled "
-            f"step (plain {k['plain_ms'] * 1e3:.2f} us, bound {k['bound_ms'] * 1e3:.2f} us by "
-            f"{k['bound_by']}, floor {k['floor_ms'] * 1e3:.2f} us, library none)")
+            f"eager step, {k['ms_in_graph'] * 1e3:.2f} us in the profiled replay (plain "
+            f"{k['plain_ms'] * 1e3:.2f} us, bound {k['bound_ms'] * 1e3:.2f} us by "
+            f"{k['bound_by']}, floor {k['floor_ms'] * 1e3:.2f} us, library none); "
+            f"{k['launches']} launches over {gpath}'s timed replays, {k['graph_nodes']} nodes "
+            f"in its graph")
     return [k1, k2]
 
 
@@ -2691,15 +3068,16 @@ def dp_run(state, step_fn, arrays, n_steps, keep=True):
     the last step, and unsharded) the Adam state after it."""
     from tacotron_tpu_torch.parallel.sharding import full_tensor
     m = state.model
-    out = {"metrics": [], "ms": [], "digests": [], "steps": []}
+    out = {"metrics": [], "ms": [], "digests": [], "steps": [], "alignments": []}
     for i in range(n_steps):
         gen = state.generator.get_state()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, metrics, _ = step_fn(state, *arrays)
+        state, metrics, align = step_fn(state, *arrays)
         metrics = {k: float(v) for k, v in metrics.items()}
         out["ms"].append((time.perf_counter() - t0) * 1e3)
         out["metrics"].append(metrics)
+        out["alignments"].append(host_copy(align))
         rec = {"grads": {k: host_copy(full_tensor(m, k, p.grad)) for k, p in m.named_parameters()},
                "params": {k: host_copy(full_tensor(m, k, p.detach()))
                           for k, p in m.named_parameters()},
@@ -2714,18 +3092,23 @@ def dp_run(state, step_fn, arrays, n_steps, keep=True):
 
 
 def dp_restart(cfg, batch, prev, gen):
-    """One one-process step on ``batch`` from the state after another run's
-    step (``prev``: its ``dp_run`` record; None: the seeded start) and from
-    its dropout generator state ``gen`` -> that step's ``dp_run``."""
-    from tacotron_tpu_torch.train import create_train_state, make_train_step
+    """One eager ``train_step`` on ``batch`` from the state after another
+    run's step (``prev``: its ``dp_run`` record; None: the seeded start)
+    and from its dropout generator state ``gen`` -> that step's
+    ``dp_run``."""
+    from tacotron_tpu_torch.train import create_train_state, train_step
     state = create_train_state(cfg, seed=0, device=batch[0].device)
     if prev is not None:
         state.model.load_state_dict({**prev["params"], **prev["stats"]})
-        # a copy: Adam keeps the loaded step counts and advances them in place
-        state.opt.load_state_dict(host_copy(prev["opt"]))
+        # a copy: Adam keeps the loaded step counts and advances them in place;
+        # the groups keep their own LR tensors on the card (the copy's are the host's)
+        saved = host_copy(prev["opt"])
+        for group, live in zip(saved["param_groups"], state.opt.param_groups):
+            group["lr"] = live["lr"]
+        state.opt.load_state_dict(saved)
         state = state._replace(step=int(prev["opt"]["state"][0]["step"]))
     state.generator.set_state(gen)
-    return dp_run(state, make_train_step(cfg), batch, 1)[1]
+    return dp_run(state, functools.partial(train_step, cfg=cfg), batch, 1)[1]
 
 
 def adam_move(g, m0, v0, t, lr, tc):
@@ -3609,11 +3992,14 @@ def main(argv=None) -> int:
         phase_lowp_convergence(report, fast_cfg.audio, mag_main)
         del mag_main, mag_fast
         state, batch, train_launches = phase_train(report)
-        kernels = phase_train_timing(report, state, batch, train_launches) + kernels
+        graph = phase_train_graph(report)
+        kernels = phase_train_timing(report, state, batch, train_launches, graph) + kernels
         del state
         phase_train_save_attn(report)
         state, batch, train_launches = phase_train(report, "bfloat16")
-        kernels = kernels[:2] + phase_train_timing(report, state, batch, train_launches) + kernels[2:]
+        graph = phase_train_graph(report, "bfloat16")
+        kernels = (kernels[:2] + phase_train_timing(report, state, batch, train_launches, graph)
+                   + kernels[2:])
         del state
         phase_main_bf16(report, cfg, vocab, mel_main)
         phase_cli(report, cfg, vocab)

@@ -5,8 +5,11 @@
         [--coordinator HOST:PORT --num-processes N --process-id I] [--debug-sync]
 
 Reads a data directory written by either package's preprocessing and
-trains with ``train_step`` on the card, or on the CPU with ``--platform
-cpu``; without a card and without that flag it raises. The config is the
+trains with ``make_train_step``'s step: on one card one CUDA graph per
+bucket shape (each bucket's first step eager, then its graph replayed, as
+JAX compiles its step per bucket), on the CPU (``--platform cpu``) and on
+several processes the eager ``train_step``; without a card and without
+that flag it raises. The config is the
 preset's, with the vocabulary size and feature widths taken from the data
 and ``--set`` overrides on top; it is written to ``RUN_DIR/config.json``.
 
@@ -31,7 +34,10 @@ is refused with more than one process. ``--debug-nans`` turns on
 autograd's anomaly mode, which raises where a backward function returns
 NaN, and raises FloatingPointError on a step whose metrics are not finite;
 JAX's ``jax_debug_nans`` also checks every forward operation, which has no
-torch counterpart.
+torch counterpart. Anomaly mode cannot be captured in a CUDA graph, so
+under ``--debug-nans`` every step runs the eager ``train_step``.
+``--trace-steps`` and ``--profile-port`` trace graphed steps as they run:
+the profiler records the kernels a graph replays by name.
 
 Live capture: with ``--profile-port PORT`` the run serves HTTP on
 ``127.0.0.1:PORT`` (``utils/profiling.start_server``, the counterpart of
@@ -52,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -126,7 +133,8 @@ def main(argv=None):
     from tacotron_tpu_torch.config import apply_overrides, get_config
     from tacotron_tpu_torch.data.loader import DataLoader, Dataset, device_prefetch, put_batch
     from tacotron_tpu_torch.parallel import make_mesh
-    from tacotron_tpu_torch.train import checkpoint, create_train_state, make_train_step
+    from tacotron_tpu_torch.train import (checkpoint, create_train_state, make_train_step,
+                                          train_step)
     from tacotron_tpu_torch.utils import SummaryWriter, profiling
 
     profiling.enable_compilation_cache()
@@ -155,6 +163,8 @@ def main(argv=None):
                                   n_mels=ds.mels.shape[1]),
     )
     cfg = apply_overrides(cfg, args.overrides)
+    if args.num_buckets:      # the loader's buckets, and the graphed step's cap on shapes
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, num_buckets=args.num_buckets))
 
     mesh = make_mesh(cfg.mesh, platform)
     device = mesh.device
@@ -185,7 +195,7 @@ def main(argv=None):
     # model group (tensor parallelism) share theirs
     loader = DataLoader(
         ds, batch_size=cfg.train.batch_size // mesh.data_size,
-        num_buckets=args.num_buckets or cfg.data.num_buckets, r=cfg.model.r,
+        num_buckets=cfg.data.num_buckets, r=cfg.model.r,
         seed=cfg.train.seed, process_index=mesh.data_index,
         process_count=mesh.data_size, device_cache=args.device_cache, device=device,
     )
@@ -201,7 +211,10 @@ def main(argv=None):
     # directory that a process does not share it would restart at step 0
     multihost.assert_same_step(start_step)
 
-    step_fn = make_train_step(cfg, mesh)
+    # a graph per bucket shape on one card (the shapes the loader's buckets
+    # give, cfg.data.num_buckets at most); anomaly mode is not capturable
+    step_fn = (functools.partial(train_step, cfg=cfg, mesh=mesh) if args.debug_nans
+               else make_train_step(cfg, mesh))
     writer = SummaryWriter(os.path.join(args.run_dir, "tb"), enabled=multihost.is_primary())
     trace_dir = os.path.join(args.run_dir, "trace")
 

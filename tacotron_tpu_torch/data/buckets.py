@@ -2,9 +2,10 @@
 
 The port's own copy of the JAX package's ``data/buckets.py`` (numpy only).
 A few buckets are chosen from the length histogram; each bucket is one
-padded (text_len, n_frames) shape, with n_frames a multiple of r. The port
-compiles nothing per shape, but the same buckets give the same batches as
-the JAX package's loader.
+padded (text_len, n_frames) shape, with n_frames a multiple of r. The same
+buckets give the same batches as the JAX package's loader, and on the card
+each bucket's shape gets one captured CUDA graph of the training step
+(``train.step.GraphedTrainStep``), as JAX compiles its step per bucket.
 """
 
 from __future__ import annotations

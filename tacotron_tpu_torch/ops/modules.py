@@ -105,7 +105,10 @@ class BatchShard(NamedTuple):
 
 def dropout_keep(shape, rate: float, generator, device):
     """The keep mask (bool) that ``dropout`` draws for an input of
-    ``shape``, from a ``torch.Generator`` (or None) or a ``BatchShard``."""
+    ``shape``, from a ``torch.Generator`` (or None) or a ``BatchShard``.
+    Inside a CUDA graph the generator must be registered with the graph
+    (``CUDAGraph.register_generator_state``, as ``train.step`` does): each
+    replay then draws the masks an eager call would and advances it alike."""
     if isinstance(generator, BatchShard):
         n = shape[0]
         u = torch.rand((n * generator.count, *shape[1:]), generator=generator.generator,

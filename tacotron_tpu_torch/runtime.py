@@ -10,7 +10,10 @@ library name carries a hash of the sources, so an edited source is rebuilt.
 ``build()`` starts one ``nvcc`` per source, all at once.
 
 ``LAUNCHES`` counts kernel launches by kernel name; each wrapper adds to it
-where it launches its kernel, and nowhere else.
+where it launches its kernel, and nowhere else. A call captured into a
+CUDA graph launches nothing: the graphed training step
+(``train.step.GraphedTrainStep``) takes its capture's counts back and adds
+them again on every replay, which launches those kernels.
 """
 
 from __future__ import annotations

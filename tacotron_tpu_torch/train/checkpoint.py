@@ -213,10 +213,14 @@ def restore(ckpt_dir: str, state: TrainState, train_cfg: TrainConfig,
     adam = tree["opt_state"][str(1 if train_cfg.grad_clip_norm is not None else 0)]
     count = int(adam["count"])
     mu, nu = from_flax(adam["mu"])[0], from_flax(adam["nu"])[0]
+    # new tensors: a graphed step (``make_train_step``) sees that its
+    # graphs no longer point at the state's and captures again
     opt.state.clear()
     if count > 0:
         for name, p in model.named_parameters():
-            opt.state[p] = {"step": torch.tensor(float(count), dtype=torch.float32),
+            # on the parameter's device, as a capturable Adam keeps it
+            opt.state[p] = {"step": torch.tensor(float(count), dtype=torch.float32,
+                                                 device=p.device),
                             "exp_avg": local_slice(model, name, mu[name]).to(p.device),
                             "exp_avg_sq": local_slice(model, name, nu[name]).to(p.device)}
 

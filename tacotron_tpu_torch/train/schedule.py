@@ -4,12 +4,21 @@ Port of the JAX package's ``train/schedule.py``, which chains optax's
 ``clip_by_global_norm``, ``scale_by_adam`` and a piecewise-constant
 learning rate. Here one update is ``apply_gradients``:
 
-1. clip by the global norm with optax's rule: ``g / norm * max`` when
-   ``norm >= max``, else ``g`` (``torch.nn.utils.clip_grad_norm_`` divides
-   by ``norm + 1e-6`` and is not that rule);
-2. ``torch.optim.Adam``, whose update equals optax's ``scale_by_adam``
-   (eps outside the square root, both bias corrections), with the group's
-   ``lr`` set for this update.
+1. ``set_learning_rate``: the group's ``lr`` for this update;
+2. ``clip_and_step``: clip by the global norm with optax's rule: ``g /
+   norm * max`` when ``norm >= max``, else ``g``
+   (``torch.nn.utils.clip_grad_norm_`` divides by ``norm + 1e-6`` and is
+   not that rule), then ``torch.optim.Adam``, whose update equals optax's
+   ``scale_by_adam`` (eps outside the square root, both bias corrections).
+
+On CUDA the optimizer is built for CUDA graphs (``capturable=True``): its
+``lr`` is a 0-d f32 tensor on the device, which ``set_learning_rate``
+fills in place, outside any graph and with no host synchronisation, and
+Adam's step count and bias corrections live on the device too. Eager and
+graphed steps then run the same update. Its bias corrections are f32 on
+the device where the CPU's are the host's doubles, so the two differ in
+the last bits. torch allows ``capturable`` only on accelerators: on the
+CPU ``lr`` stays a float.
 """
 
 from __future__ import annotations
@@ -59,14 +68,37 @@ def clip_by_global_norm_(grads, max_norm: float, norm: torch.Tensor | None = Non
 
 
 def make_optimizer(params, cfg: TrainConfig) -> torch.optim.Adam:
-    return torch.optim.Adam(params, lr=lr_values(cfg)[0],
-                            betas=(cfg.adam_b1, cfg.adam_b2), eps=cfg.adam_eps)
+    """Adam with optax's hyperparameters; capturable, with a device ``lr``,
+    when the parameters are on CUDA."""
+    params = list(params)
+    dev = params[0].device
+    lr = lr_values(cfg)[0]
+    capturable = dev.type == "cuda"
+    opt = torch.optim.Adam(params, lr=torch.tensor(lr, device=dev) if capturable else lr,
+                           betas=(cfg.adam_b1, cfg.adam_b2), eps=cfg.adam_eps,
+                           capturable=capturable)
+    # torch warns once when a capturable Adam steps outside a graph; the
+    # eager step does so on purpose (the graph's first step of each shape,
+    # and the plain version that the graph is held against)
+    opt._warned_capturable_if_run_uncaptured = True
+    return opt
 
 
-def apply_gradients(opt: torch.optim.Adam, cfg: TrainConfig, count: int,
-                    norm: torch.Tensor | None = None) -> torch.Tensor:
-    """Clip, set the LR of update ``count`` and take one Adam step on the
-    ``.grad`` of ``opt``'s parameters. Returns the global norm before
+def set_learning_rate(opt: torch.optim.Adam, cfg: TrainConfig, count: int) -> None:
+    """The LR of update ``count`` into every group: a device ``lr`` is
+    filled in place (a captured step reads that tensor), a float replaced."""
+    lr = learning_rate(cfg, count)
+    for group in opt.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+def clip_and_step(opt: torch.optim.Adam, cfg: TrainConfig,
+                  norm: torch.Tensor | None = None) -> torch.Tensor:
+    """Clip and take one Adam step on the ``.grad`` of ``opt``'s
+    parameters at the groups' current LR. Returns the global norm before
     clipping: ``norm`` when given (a sharded model's, which no rank can
     take alone), else ``global_norm`` of the gradients."""
     grads = [p.grad for group in opt.param_groups for p in group["params"]]
@@ -74,8 +106,12 @@ def apply_gradients(opt: torch.optim.Adam, cfg: TrainConfig, count: int,
         norm = global_norm(grads)
     if cfg.grad_clip_norm is not None:
         clip_by_global_norm_(grads, cfg.grad_clip_norm, norm)
-    lr = learning_rate(cfg, count)
-    for group in opt.param_groups:
-        group["lr"] = lr
     opt.step()
     return norm
+
+
+def apply_gradients(opt: torch.optim.Adam, cfg: TrainConfig, count: int,
+                    norm: torch.Tensor | None = None) -> torch.Tensor:
+    """Set the LR of update ``count``, then ``clip_and_step``."""
+    set_learning_rate(opt, cfg, count)
+    return clip_and_step(opt, cfg, norm)

@@ -8,6 +8,15 @@ returns it with the update count advanced. ``cfg.model.compute_dtype``
 "bfloat16" runs the products in bf16 (``ops/modules.py``) while the
 parameters, their gradients and the Adam moments stay f32, as in JAX.
 
+JAX compiles its step once per bucket shape (``jax.jit`` with the state
+donated). The port's counterpart is ``GraphedTrainStep``, which
+``make_train_step`` returns in one process: on a CUDA device each shape's
+first step runs eagerly, later steps of that shape replay one captured
+CUDA graph; a state on the CPU runs the eager step.
+``train_step`` stays the eager function, as JAX's ``train_step`` stays the
+pure function that ``jax.jit`` wraps, and is the plain version that the
+graph is held against.
+
 Data and tensor parallelism (``make_train_step(cfg, mesh)``): every rank
 runs this step on its shard of the batch, and the step is that of the
 global batch, as JAX's GSPMD step is one program whatever the mesh:
@@ -21,6 +30,8 @@ group.
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import functools
 import time
 from typing import NamedTuple
@@ -28,13 +39,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tacotron_tpu_torch import runtime
 from tacotron_tpu_torch.config import Config
 from tacotron_tpu_torch.models.tacotron import Tacotron
 from tacotron_tpu_torch.parallel import collectives
 from tacotron_tpu_torch.parallel.sharding import shard_model
 from tacotron_tpu_torch.runtime import resolve_device
 from tacotron_tpu_torch.train.loss import tacotron_loss
-from tacotron_tpu_torch.train.schedule import apply_gradients, make_optimizer
+from tacotron_tpu_torch.train.schedule import clip_and_step, make_optimizer, set_learning_rate
 from tacotron_tpu_torch.weights import init_params
 
 STAGES = ("forward", "backward", "optimizer")
@@ -114,10 +126,34 @@ def _reduce_gradients(params, group) -> None:
 
 
 def make_train_step(cfg: Config, mesh=None):
-    """``train_step`` bound to ``cfg`` and ``mesh`` (None: one process), the
-    counterpart of JAX's jitted step. The state must come from
-    ``create_train_state(..., mesh=mesh)``."""
+    """The counterpart of JAX's jitted step, for states from
+    ``create_train_state(cfg, ..., mesh=mesh)``. Called as ``step(state,
+    text, text_len, mel_gt, linear_gt, frame_len) -> (state, metrics,
+    alignments)``, it is:
+
+    * in one process (``mesh`` None, or a mesh of one process without a
+      process group, as ``cli.train`` makes it): a ``GraphedTrainStep``,
+      which runs one CUDA graph per batch shape for a state on the card and
+      the eager ``train_step`` for a state on the CPU (there is no graph
+      there);
+    * on a mesh with a process group (data or tensor parallelism):
+      ``train_step`` bound to ``cfg`` and ``mesh``, eager. gloo's
+      collectives go through host copies, which no graph can capture.
+    """
+    if mesh is None or (mesh.data_group is None and mesh.model_group is None):
+        return GraphedTrainStep(cfg, mesh)
     return functools.partial(train_step, cfg=cfg, mesh=mesh)
+
+
+def _check_state(state: TrainState, cfg: Config, mesh) -> torch.device:
+    """-> the state's device; raises on a state built for another model or mesh."""
+    model = state.model
+    if model.cfg != cfg.model:
+        raise ValueError("cfg.model differs from the configuration the state's model was built with")
+    if getattr(model, "mesh", None) is not mesh:
+        raise ValueError("the state was not created for this mesh: "
+                         "create_train_state(cfg, seed, mesh=mesh)")
+    return next(model.parameters()).device
 
 
 def train_step(state: TrainState, text, text_len, mel_gt, linear_gt, frame_len,
@@ -131,12 +167,19 @@ def train_step(state: TrainState, text, text_len, mel_gt, linear_gt, frame_len,
     optimizer milliseconds. With ``mesh`` the batch is this rank's shard
     and the metrics are the global batch's; every rank must call it.
     """
+    _check_state(state, cfg, mesh)
+    set_learning_rate(state.opt, cfg.train, state.step)
+    metrics, alignments = _forward_backward_update(
+        state, text, text_len, mel_gt, linear_gt, frame_len, cfg, mesh, stage_ms)
+    return state._replace(step=state.step + 1), metrics, alignments
+
+
+def _forward_backward_update(state, text, text_len, mel_gt, linear_gt, frame_len,
+                             cfg: Config, mesh, stage_ms: bool = False):
+    """``train_step`` at the LR already set: what a CUDA graph captures (no
+    host synchronisation, no host-side state but ``p.grad``). -> (metrics,
+    alignments)."""
     model, opt = state.model, state.opt
-    if model.cfg != cfg.model:
-        raise ValueError("cfg.model differs from the configuration the state's model was built with")
-    if getattr(model, "mesh", None) is not mesh:
-        raise ValueError("the state was not created for this mesh: "
-                         "create_train_state(cfg, seed, mesh=mesh)")
     dev = next(model.parameters()).device
     text, text_len = text.to(dev), text_len.to(dev)
     mel_gt = mel_gt.to(dev, torch.float32)
@@ -163,8 +206,158 @@ def train_step(state: TrainState, text, text_len, mel_gt, linear_gt, frame_len,
             norm = _sharded_norm(model, [(k, p.grad) for k, p in model.named_parameters()])
     clock.mark("backward")
     metrics = {k: v.detach() for k, v in metrics.items()}
-    metrics["grad_norm"] = apply_gradients(opt, cfg.train, state.step, norm)
+    metrics["grad_norm"] = clip_and_step(opt, cfg.train, norm)
     clock.mark("optimizer")
     if stage_ms:
         metrics["stage_ms"] = clock.ms()
-    return state._replace(step=state.step + 1), metrics, out.alignments.detach()
+    return metrics, out.alignments.detach()
+
+
+def _state_tensors(state: TrainState) -> tuple:
+    """What a graph reads and writes in place in ``state``, by address: the
+    parameters, buffers, Adam's state and LR tensors, and the generator."""
+    opt = state.opt
+    tensors = [*state.model.parameters(), *state.model.buffers(),
+               *(t for st in opt.state.values() for t in st.values()
+                 if isinstance(t, torch.Tensor)),
+               *(g["lr"] for g in opt.param_groups if isinstance(g["lr"], torch.Tensor))]
+    return (id(state.generator), *(t.data_ptr() for t in tensors))
+
+
+@dataclasses.dataclass
+class CapturedStep:
+    """One shape's captured step and what a replay reads and returns."""
+
+    graph: torch.cuda.CUDAGraph
+    inputs: list                      # static batch tensors (None: no frame_len)
+    metrics: dict                     # 0-d tensors the graph writes
+    alignments: torch.Tensor
+    grads: list                       # each parameter's .grad as the graph writes it
+    launches: collections.Counter     # runtime.LAUNCHES of one replay
+    capture_s: float                  # host seconds to record the graph
+    instantiate_s: float              # host seconds to instantiate it
+    pool_bytes: int                   # the private memory pool's growth during capture
+
+
+class GraphedTrainStep:
+    """``train_step`` as one CUDA graph per batch shape (``shape_key``), the
+    counterpart of JAX's step jitted per bucket shape, on one CUDA device.
+    A state on the CPU runs ``train_step`` itself: no graph, no shape.
+
+    The first step of a shape runs eagerly on the step's own stream: it is
+    a real step, and it fills every lazy cache (Adam's state, K1/K2's
+    library, residency table and K2's counter for that stream, cuBLAS's and
+    cuDNN's workspaces). The next step of that shape captures the graph
+    (``torch.cuda.graph``, thread-local capture mode, a private memory pool
+    per shape, the dropout generator registered so that each replay draws
+    the masks an eager step would) and replays it; later steps copy their
+    batch into the graph's static inputs and replay. The LR is filled in
+    before each replay (``set_learning_rate``) and the host ``step``
+    advances as ``train_step``'s does. ``metrics`` and ``alignments`` come
+    back as clones, so a caller may keep them past the next step.
+
+    A replay runs what ``train_step`` runs: with deterministic algorithms
+    (``torch.use_deterministic_algorithms``) it is bit-equal to it on the
+    same state; with torch's defaults, as two eager steps do, it may differ
+    in the last bits of atomically summed gradients. Graphs point
+    at the state's tensors: when they are not those the graphs were
+    captured on (a ``checkpoint.restore``, which replaces Adam's state, or
+    another state), every graph is dropped and each shape's next step runs
+    eagerly again. At most ``cfg.data.num_buckets`` shapes are served (the
+    loader's buckets); another shape raises. A failed capture raises.
+
+    ``runtime.LAUNCHES``: the capture's wrapper calls launch nothing, so
+    their counts are taken back and added again on every replay.
+    ``graphs`` maps each shape seen to its ``CapturedStep`` (None after the
+    shape's eager first step).
+    """
+
+    def __init__(self, cfg: Config, mesh=None):
+        self.cfg, self.mesh = cfg, mesh
+        self.max_shapes = cfg.data.num_buckets
+        self.graphs: dict = {}
+        self._stream = None
+        self._bound = None            # _state_tensors of the state the graphs point at
+
+    def shape_key(self, device, text, text_len, mel_gt, linear_gt, frame_len) -> tuple:
+        """What one captured graph is valid for: the device and the shapes
+        and dtypes of the batch (``frame_len`` None apart from any tensor).
+        ``cfg`` is fixed per step and the state's model is checked against
+        it, so it is no part of the key. Raises on a new shape past
+        ``max_shapes``."""
+        def sig(x):
+            return None if x is None else (tuple(x.shape), x.dtype)
+
+        key = (torch.device(device),
+               *(sig(x) for x in (text, text_len, mel_gt, linear_gt, frame_len)))
+        if key not in self.graphs and len(self.graphs) >= self.max_shapes:
+            raise ValueError(f"a graphed step serves at most cfg.data.num_buckets = "
+                             f"{self.max_shapes} batch shapes; this is another one: "
+                             f"{key[1:]}")
+        return key
+
+    def __call__(self, state: TrainState, text, text_len, mel_gt, linear_gt, frame_len):
+        dev = _check_state(state, self.cfg, self.mesh)
+        batch = (text, text_len, mel_gt, linear_gt, frame_len)
+        if dev.type != "cuda":
+            return train_step(state, *batch, cfg=self.cfg, mesh=self.mesh)
+        if _state_tensors(state) != self._bound:
+            self.graphs.clear()
+        key = self.shape_key(dev, *batch)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=dev)
+        cur = torch.cuda.current_stream(dev)
+        self._stream.wait_stream(cur)      # the batch's copies, made on the caller's stream
+        with torch.cuda.stream(self._stream):
+            if key not in self.graphs:
+                set_learning_rate(state.opt, self.cfg.train, state.step)
+                metrics, alignments = _forward_backward_update(state, *batch, self.cfg,
+                                                               self.mesh)
+                self.graphs[key] = None
+            else:
+                if self.graphs[key] is None:
+                    self.graphs[key] = self._capture(state, batch)
+                metrics, alignments = self._replay(state, self.graphs[key], batch)
+        cur.wait_stream(self._stream)
+        self._bound = _state_tensors(state)
+        return state._replace(step=state.step + 1), metrics, alignments
+
+    def _capture(self, state: TrainState, batch) -> CapturedStep:
+        dev = next(state.model.parameters()).device
+        inputs = [None if x is None else torch.empty_like(x, device=dev) for x in batch]
+        _copy_into(inputs, batch)
+        before = collections.Counter(runtime.LAUNCHES)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)     # its nodes stay readable
+        graph.register_generator_state(state.generator)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, stream=self._stream, capture_error_mode="thread_local"):
+            reserved = torch.cuda.memory_reserved(dev)
+            metrics, alignments = _forward_backward_update(state, *inputs, self.cfg, self.mesh)
+        t1 = time.perf_counter()
+        pool = torch.cuda.memory_reserved(dev) - reserved
+        graph.instantiate()
+        launches = collections.Counter(runtime.LAUNCHES)
+        launches.subtract(before)
+        launches = +launches
+        runtime.LAUNCHES.subtract(launches)     # recorded, not launched
+        return CapturedStep(graph, inputs, metrics, alignments,
+                            [p.grad for p in state.model.parameters()], launches,
+                            t1 - t0, time.perf_counter() - t1, pool)
+
+    def _replay(self, state: TrainState, entry: CapturedStep, batch):
+        _copy_into(entry.inputs, batch)
+        set_learning_rate(state.opt, self.cfg.train, state.step)
+        entry.graph.replay()
+        runtime.LAUNCHES.update(entry.launches)
+        for p, g in zip(state.model.parameters(), entry.grads):
+            p.grad = g
+        return ({k: v.clone() for k, v in entry.metrics.items()},
+                entry.alignments.clone())
+
+
+def _copy_into(static, batch) -> None:
+    """``batch`` into a graph's static inputs (None, an absent ``frame_len``,
+    is part of the shape key, so both sides agree on it)."""
+    for dst, src in zip(static, batch):
+        if dst is not None:
+            dst.copy_(src, non_blocking=True)

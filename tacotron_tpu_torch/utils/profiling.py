@@ -21,11 +21,16 @@ The port of the JAX package's ``utils/profiling.py``, function for function:
   shared directory lets processes and checkouts reuse them. XLA's minimum
   compile time for an entry to be cached has no counterpart: every library
   is kept.
+* ``graph_nodes(graph)``: what a captured CUDA graph holds, node by node
+  (the port's own: JAX has no graphs). A capture records every launch, so
+  this count cannot miss a kernel as the profiler can miss a ~1 us one.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import ctypes
 import json
 import os
 import threading
@@ -247,3 +252,53 @@ def time_fn(fn, *args, iters: int = 10, warmup: int = 2) -> float:
         out = fn(*args)
     force(out)
     return (time.time() - t0) / iters
+
+
+# CUgraphNodeType values of the driver API other than 0 (a kernel)
+_NODE_TYPES = {1: "<memcpy>", 2: "<memset>", 3: "<host>", 4: "<graph>", 5: "<empty>",
+               6: "<event wait>", 7: "<event record>", 10: "<mem alloc>", 11: "<mem free>"}
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """The driver's ``CUDA_KERNEL_NODE_PARAMS_v2`` (CUDA 12)."""
+    _fields_ = [("func", ctypes.c_void_p), *((f, ctypes.c_uint) for f in (
+        "gridDimX", "gridDimY", "gridDimZ", "blockDimX", "blockDimY", "blockDimZ",
+        "sharedMemBytes")), ("kernelParams", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+        ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def graph_nodes(graph: torch.cuda.CUDAGraph) -> collections.Counter:
+    """{name: count} of the nodes of a graph captured with
+    ``torch.cuda.CUDAGraph(keep_graph=True)``: kernel nodes by their
+    function's (mangled) name, through the driver API
+    (``cuGraphKernelNodeGetParams``, ``cuFuncGetName``; CUDA 12.3), the
+    others by type, e.g. ``<memset>``. Raises on a driver error."""
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(err, what):
+        if err != 0:
+            raise RuntimeError(f"{what}: CUDA driver error {err}")
+
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    out: collections.Counter = collections.Counter()
+    kind, params, name = ctypes.c_int(), _KernelNodeParams(), ctypes.c_char_p()
+    for node in nodes:
+        node = ctypes.c_void_p(node)
+        check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value != 0:
+            out[_NODE_TYPES.get(kind.value, f"<type {kind.value}>")] += 1
+            continue
+        check(cu.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(params)),
+              "cuGraphKernelNodeGetParams")
+        if params.func:
+            check(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(params.func)),
+                  "cuFuncGetName")
+        else:
+            check(cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(params.kern)),
+                  "cuKernelGetName")
+        out[name.value.decode()] += 1
+    return out
