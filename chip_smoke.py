@@ -71,7 +71,28 @@ Phases, in order; any failure raises and exits non-zero:
    bf16 mode against its plain version as [main] runs it (1000 iterations,
    momentum 0) and on a speech-like magnitude of that shape (9 and 10
    iterations); the magnitude error that the bf16 mode of Griffin-Lim
-   reaches beside the f32 mode's;
+   reaches beside the f32 mode's; then [synth-graph], [main]'s path
+   through its CUDA graph (one per shape: a shape's first call eager, its
+   second captures): (a) under
+   deterministic algorithms, calls of seeds 1, 2, 1 (eager, capture +
+   replay, replay) each bit-equal to an eager call of its seed; (b) a new
+   Synthesizer under torch's default algorithms, the one timed: its
+   graph's nodes, K3's one and K4's 3000 kernel nodes, capture and
+   instantiate seconds and pool bytes, one replay held against the eager
+   call of its seed (SYNTH_GRAPH's rule), K4 held against its plain
+   version on the replay's own spectrogram (GL_PATH); (c) 5 replays and 3
+   eager calls in turns, the launch counts set to 0 just before (one K3 and
+   3000 K4 per replay): medians, spreads, audio-s/s; (d) one replay under
+   the profiler (the device's busy share); K3 held against its plain
+   version on the graph's own encoder outputs; then [fast-graph]:
+   [synth-graph]'s (a)-(d) on [fast]'s path and its graphs
+   (preamble, decode_while's chunk of 8 steps replayed until the device
+   says done, post-net, one Griffin-Lim graph per t_gl) with the preset's
+   threshold (no exit: 63 chunks) and with the derived one (the exit after
+   step 6: one chunk, t_gl 64; every call at seed 1, the seed the
+   threshold was derived on), the decode alone (the chunk graph's
+   replays, host clock) beside the eager calls' decode stage, and (e) the
+   decode alone at chunk sizes 4, 8, 16, 32 and 64;
 8. the training path: ``create_train_state`` + ``train_step`` at the
    full_1chip widths (hoisted teacher-forced decoder, fused energy, remat,
    f32) on B 32, T_in 128, T_out 400: one warm step, then 2 timed eager
@@ -120,7 +141,8 @@ Phases, in order; any failure raises and exits non-zero:
    compute_dtype="bfloat16" (K3 on bf16-computed keys, Griffin-Lim 100
    iterations to keep the script short): a warm and a timed call, and the
    mel's drift from [main]'s f32 mel, printed, not held (500 feed-previous
-   steps on random weights may diverge);
+   steps on random weights may diverge); then its graph and an f32 one at
+   the same depth (GL 100), 3 replays of each in turns;
 12. [cli] the synthesis CLI at synth_gl1000: a run directory with the
    port's checkpoint of seeded random weights (restored and held equal),
    then ``cli.synthesize.main`` on 2 prompts with ``--fused`` (one K3 and
@@ -300,6 +322,22 @@ TRAIN_GRAPH = {"compare": 3, "turns": "GEGGEGGE", "t_out_2": 200}
 # gradients 1e-4 of their peak, updated weights where Adam's step is well
 # conditioned, statistics) and the alignments within this
 GRAPH_ALIGN_ATOL = 1e-5
+# [synth-graph] / [fast-graph]: the Synthesizer's graphs (one shape's eager
+# first call, then its capture). "compare": the seeds of the calls held bit
+# for bit against eager calls under deterministic algorithms (eager,
+# capture + replay, replay of the first seed again); "turns": the timed
+# calls, G a replay and E an eager call (stage_ms=True) of the same shape
+# and seed, each ending with its outputs on the host. The graph that is
+# timed is captured with torch's default algorithms and held against the
+# eager call of its seed: bit for bit where it is, else the mel, linear and
+# alignments within GRAPH_SYNTH_ATOL, the end frames, steps done and t_gl
+# equal, and the waveform by GL_PATH's rules on the graph's own linear
+# spectrogram (Griffin-Lim multiplies any difference 3-10x an iteration at
+# the spectrogram's floor: the waveform at depth says nothing of the graph)
+SYNTH_GRAPH = {"compare": (1, 2, 1), "turns": "GEGGEGGE"}
+# [fast-graph] (e): decode_while's chunk sizes timed (the decode alone, graphed)
+CHUNK_SWEEP = (4, 8, 16, 32, 64)
+GRAPH_SYNTH_ATOL = 1e-5
 # [train-graph] (b): one capturable Adam update (f32, bias corrections on the
 # device) against optax's formula in f64 on the same moments and clipped
 # gradients: every updated weight within this share of the update's LR
@@ -1056,6 +1094,299 @@ def phase_main(report, cfg, vocab):
     return synth, out, launches, mag, res["f32"], (f32_ms, stages)
 
 
+def synth_graph_report(synth) -> dict:
+    """Every captured graph of ``synth``'s one shape: its nodes, K3 and K4
+    kernel nodes (K4: both products and the overlap-add), the launches a
+    replay adds to ``runtime.LAUNCHES``, capture and instantiate seconds
+    and its memory pool's bytes."""
+    from tacotron_tpu_torch.utils.profiling import graph_nodes
+    (entry,) = synth.graphs.values()
+    out = {}
+    for name, g in entry.captured():
+        nodes = graph_nodes(g.graph)
+        out[name] = {
+            "nodes": sum(nodes.values()),
+            "kernel_nodes": sum(n for k, n in nodes.items() if not k.startswith("<")),
+            "other_nodes": {k: n for k, n in nodes.items() if k.startswith("<")},
+            "k3_nodes": sum(n for k, n in nodes.items() if "decode_loop_kernel" in k),
+            "k4_nodes": sum(n for k, n in nodes.items() if "gl_wgmma" in k or "gl_ola_frame" in k),
+            "launches_per_replay": dict(g.launches), "capture_s": g.capture_s,
+            "instantiate_s": g.instantiate_s, "pool_bytes": g.pool_bytes}
+        log(f"    graph {name}: {out[name]['nodes']} nodes ({out[name]['kernel_nodes']} kernels, "
+            f"{out[name]['other_nodes']}), K3 {out[name]['k3_nodes']}, K4 "
+            f"{out[name]['k4_nodes']}; capture {g.capture_s:.3f} s, instantiate "
+            f"{g.instantiate_s:.3f} s, pool {g.pool_bytes / 2**20:.1f} MiB")
+    return out
+
+
+def synth_outputs_equal(got, want) -> dict:
+    """{output: bit-equal} of two Synthesizer calls."""
+    return {k: bool(np.array_equal(got[k], want[k]))
+            for k in ("mel", "linear", "alignments", "wavs", "end_frames")}
+
+
+def synth_graph_phase(report, key, tag, cfg, p, bs, vocab, fused, seeds=SYNTH_GRAPH["compare"]):
+    """One Synthesizer path through its graphs, at ``cfg`` on PROMPTS. (a)
+    under deterministic(): calls of ``seeds`` (eager, capture + replay,
+    replay) each bit-equal to an eager call of its seed;
+    (b) a new Synthesizer with torch's default algorithms, the one timed:
+    its first call (eager) and second (capture + replay) timed, its graphs'
+    nodes, K3/K4 nodes, seconds and pool bytes, one replay held against
+    the eager call of its seed (SYNTH_GRAPH's rule), and K4 held against its
+    plain version on the replay's own spectrogram (GL_PATH); (c) replays
+    and eager calls in turns (SYNTH_GRAPH["turns"]), the launch counts set
+    to 0 just before and read after each replay: medians and spreads,
+    audio-s/s and trimmed audio-s/s; (d) one replay under the profiler: the
+    device's busy share; on the split path the decode alone (the chunk
+    graph's replays until the device says done, host clock). -> (the phase's
+    results, K3/K4 launches over the timed replays, the timed Synthesizer)."""
+    from tacotron_tpu_torch import runtime
+    from tacotron_tpu_torch.dsp.audio import spectrogram_magnitude
+    from tacotron_tpu_torch.infer.synthesize import Synthesizer
+
+    dev = torch.device("cuda")
+    acfg, r = cfg.audio, cfg.model.r
+    gl_iters = acfg.griffin_lim_iters
+    kw = {}
+    rep = report[key] = {"card": report["card"]}
+    t_phase = time.perf_counter()
+    with deterministic():
+        graphed, eager = (Synthesizer(cfg, p, bs, vocab, fused=fused) for _ in range(2))
+        calls = []
+        for seed in seeds:
+            got = graphed(PROMPTS, seed=seed, **kw)
+            want = eager(PROMPTS, seed=seed, stage_ms=True, **kw)
+            calls.append({"seed": seed, "graphed": got["graphed"],
+                          "equal": synth_outputs_equal(got, want)})
+        del graphed, eager, got, want
+    rep["compare_deterministic"] = calls
+    log(f"  (a) deterministic algorithms, seeds {seeds}: {calls}")
+    require([c["graphed"] for c in calls] == [False, True, True]
+            and all(all(c["equal"].values()) for c in calls),
+            f"(a) {tag}: eager, capture + replay, replay, each bit-equal to an eager call of its "
+            f"seed")
+
+    synth = Synthesizer(cfg, p, bs, vocab, fused=fused)
+    first = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = synth(PROMPTS, seed=1, **kw)
+        first.append((time.perf_counter() - t0) * 1e3)
+    rep["first_calls_ms"] = first
+    log(f"  (b) default algorithms: the eager first call {first[0]:.1f} ms, the second "
+        f"(capture, instantiate, replay) {first[1]:.1f} ms")
+    rep["graphs"] = synth_graph_report(synth)
+    want = synth(PROMPTS, seed=1, stage_ms=True, **kw)
+    eq = synth_outputs_equal(out, want)
+    err = {k: float(np.abs(out[k] - want[k]).max()) for k in ("mel", "linear", "alignments")}
+    t_gl = [x["wavs"].shape[1] // acfg.hop_length + 1 for x in (out, want)]
+    steps = [steps_done_of(x["mel"], r) for x in (out, want)]
+    rep["replay_vs_eager"] = {"equal": eq, "max_abs_err": err, "t_gl": t_gl,
+                              "steps_done": steps, "atol": GRAPH_SYNTH_ATOL}
+    log(f"  the replay against the eager call of its seed: bit-equal {eq}; max abs err {err}; "
+        f"t_gl {t_gl}, steps done {steps}")
+    require(all(e <= GRAPH_SYNTH_ATOL for e in err.values()) and eq["end_frames"]
+            and t_gl[0] == t_gl[1] and steps[0] == steps[1],
+            f"(b) {tag}: the timed graph's mel, linear and alignments within "
+            f"{GRAPH_SYNTH_ATOL} of eager, end frames, t_gl and steps done equal")
+    mag = spectrogram_magnitude(torch.from_numpy(out["linear"][:, :t_gl[0]]).to(dev), acfg)
+    rep["griffin_lim_on_the_replay"] = check_k4_at(
+        f"{tag} griffin_lim bf16 on the replay's spectrogram (B {mag.shape[0]}, F "
+        f"{mag.shape[1]})", mag, acfg, gl_iters)
+
+    ms = {"G": [], "E": []}
+    runtime.LAUNCHES.clear()
+    launches = collections.Counter()
+    for kind in SYNTH_GRAPH["turns"]:
+        counts = collections.Counter(runtime.LAUNCHES)
+        t0 = time.perf_counter()
+        res = synth(PROMPTS, seed=1, stage_ms=kind == "E", **kw)
+        ms[kind].append((time.perf_counter() - t0) * 1e3)
+        require(res["graphed"] == (kind == "G"), f"(c) {kind} call graphed {res['graphed']}")
+        if kind == "G":
+            launches.update(runtime.LAUNCHES)
+            launches.subtract(counts)
+        else:
+            rep.setdefault("eager_stage_ms", []).append(res["stage_ms"])
+    launches = dict(+launches)
+    n_g = len(ms["G"])
+    med, med_e = float(np.median(ms["G"])), float(np.median(ms["E"]))
+    secs, trimmed = res["audio_seconds"], res["trimmed_audio_seconds"]
+    rep.update(replay_ms=ms["G"], eager_ms=ms["E"], replay_ms_median=med, eager_ms_median=med_e,
+               replay_ms_spread=(min(ms["G"]), max(ms["G"])),
+               eager_ms_spread=(min(ms["E"]), max(ms["E"])),
+               audio_seconds=secs, trimmed_audio_seconds=trimmed,
+               audio_seconds_per_s=secs / (med / 1e3),
+               trimmed_audio_seconds_per_s=trimmed / (med / 1e3),
+               eager_audio_seconds_per_s=secs / (med_e / 1e3),
+               steps_done=steps_done_of(res["mel"], r), launches=launches,
+               launches_per_replay={k: v / n_g for k, v in launches.items()})
+    log(f"  (c) in turns {SYNTH_GRAPH['turns']}: replay ms {[round(x, 2) for x in ms['G']]} "
+        f"(median {med:.2f}), eager ms {[round(x, 2) for x in ms['E']]} (median {med_e:.2f}); "
+        f"audio-s/s {rep['audio_seconds_per_s']:.2f} graphed, "
+        f"{rep['eager_audio_seconds_per_s']:.2f} eager; trimmed audio-s/s "
+        f"{rep['trimmed_audio_seconds_per_s']:.2f} graphed; steps done {rep['steps_done']}; "
+        f"launches per replay {rep['launches_per_replay']}; {report['card']}")
+    want_launches = {"griffin_lim": 3 * gl_iters,
+                     **({"decode_loop": 1} if fused else {})}
+    require(rep["launches_per_replay"] == want_launches,
+            f"(c) {tag}: each of {n_g} replays counted {want_launches}")
+    rows = sorted(device_kernels(lambda: synth(PROMPTS, seed=1, **kw)).items(),
+                  key=lambda x: -x[1][0])
+    busy = sum(v[0] for _, v in rows)
+    rep["profile"] = {"device_busy_ms": busy, "busy_share_of_median_replay": busy / med,
+                      "kernel_launches": sum(v[1] for _, v in rows),
+                      "top": [{"name": k, "ms": v[0], "count": v[1]} for k, v in rows[:15]]}
+    log(f"  (d) one replay under the profiler: device busy {busy:.2f} ms = "
+        f"{100 * busy / med:.1f}% of the median replay")
+    for k, (m_, n_) in rows[:6]:
+        log(f"    {m_:9.3f} ms  {n_:6.0f}x  {k[:90]}")
+    if synth.split:
+        rep["decode_ms"], rep["decode_chunks"] = graphed_decode_ms(synth, cfg.model.max_decode_steps)
+        log(f"  (d) the decode alone, graphed: {[round(x, 2) for x in rep['decode_ms']]} ms, "
+            f"{rep['decode_chunks']} chunks (the eager calls' decode stage: "
+            f"{[round(x['decode'], 2) for x in rep['eager_stage_ms']]} ms)")
+    rep["seconds"] = time.perf_counter() - t_phase
+    log(f"  {tag} {rep['seconds']:.1f} s")
+    nodes = {"decode_loop": sum(x["k3_nodes"] for x in rep["graphs"].values()),
+             "griffin_lim": sum(x["k4_nodes"] for x in rep["graphs"].values())}
+    return rep, launches, nodes, synth
+
+
+def graphed_decode_ms(synth, n_steps, reps=3):
+    """The early-exit decode alone through a split-path Synthesizer's graphs
+    (its one shape captured, seed 1): the preamble replayed, then the host
+    clock around the chunk graph's replays until the device says done. ->
+    (ms of each rep, chunks run)."""
+    from tacotron_tpu_torch import runtime
+    from tacotron_tpu_torch.infer.early_exit import run_until_done
+
+    (entry,) = synth.graphs.values()
+    g, ms = entry.model, []
+
+    def chunk():
+        runtime.replay_graph(g["chunk"])
+        return g["chunk"].outputs
+
+    with torch.cuda.stream(synth._stream), torch.no_grad():
+        for _ in range(reps):
+            synth._gen.manual_seed(1)
+            runtime.replay_graph(g["preamble"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            chunks = run_until_done(chunk, n_steps, g["preamble"].outputs.chunk)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, chunks
+
+
+def chunk_sweep(cfg, p, bs, vocab, steps):
+    """(e) ``decode_while``'s chunk size: for each of CHUNK_SWEEP a
+    Synthesizer made with that ``DECODE_CHUNK``, its eager call and its
+    capture, then the decode alone (``graphed_decode_ms``) and one whole
+    replayed call, its steps done held to ``steps``. -> {chunk: results}."""
+    from tacotron_tpu_torch.infer import early_exit
+    from tacotron_tpu_torch.infer.synthesize import Synthesizer
+
+    out, default = {}, early_exit.DECODE_CHUNK
+    try:
+        for k in CHUNK_SWEEP:
+            early_exit.DECODE_CHUNK = k
+            synth = Synthesizer(cfg, p, bs, vocab)
+            for _ in range(2):
+                synth(PROMPTS, seed=1)
+            ms, chunks = graphed_decode_ms(synth, cfg.model.max_decode_steps)
+            t0 = time.perf_counter()
+            res = synth(PROMPTS, seed=1)
+            call = (time.perf_counter() - t0) * 1e3
+            require(res["graphed"] and steps_done_of(res["mel"], cfg.model.r) == steps,
+                    f"(e) chunk {k}: a replayed call, {steps} steps done")
+            out[k] = {"decode_ms": ms, "decode_ms_median": float(np.median(ms)), "chunks": chunks,
+                      "call_ms": call, "steps_done": steps_done_of(res["mel"], cfg.model.r)}
+            log(f"  (e) chunk {k:2d}: the decode alone {[round(x, 2) for x in ms]} ms over "
+                f"{chunks} chunks, the replayed call {call:.2f} ms")
+            del synth
+    finally:
+        early_exit.DECODE_CHUNK = default
+    return out
+
+
+def phase_synth_graph(report, cfg, vocab):
+    """[synth-graph]: [main]'s path, ``Synthesizer(fused=True)`` at
+    synth_gl1000 B 8 (GL 1000, bf16 kernel), through its one graph
+    (``synth_graph_phase``), then K3 held against its plain version on the
+    graph's own encoder outputs (the deterministic eager encoder at the
+    call's seed, which (a) holds bit-equal to the graph's). -> K3/K4
+    launches over the timed replays and their graph nodes."""
+    from tacotron_tpu_torch.models.tacotron import length_mask
+    from tacotron_tpu_torch.ops.decode_loop import pack_decoder_weights
+    from tacotron_tpu_torch.weights import split_state
+
+    log("[synth-graph] Synthesizer(fused=True), synth_gl1000, B 8, 500 steps, GL 1000: one CUDA "
+        "graph per shape after its eager first call")
+    p, bs = split_state(full_model(cfg, torch.device("cuda")))
+    rep, launches, nodes, synth = synth_graph_phase(report, "synth_graph", "[synth-graph]", cfg,
+                                                    p, bs, vocab, fused=True)
+    require(nodes == {"decode_loop": 1, "griffin_lim": 3 * cfg.audio.griffin_lim_iters},
+            f"[synth-graph]: the graph holds K3's one node and K4's 3 per iteration ({nodes})")
+    rep["roofline"] = synth_roofline(cfg, synth.encode_texts(PROMPTS)[0].shape[1],
+                                     cfg.model.max_decode_steps * cfg.model.r,
+                                     cfg.audio.griffin_lim_iters, rep["replay_ms_median"] / 1e3,
+                                     report["card"])
+    text, lengths = synth.encode_texts(PROMPTS)
+    with deterministic(), torch.no_grad():
+        synth._gen.manual_seed(1)
+        memory = synth.model.encoder(text, lengths, synth._gen)
+        keys = synth.model.memory_proj(memory)
+    rep["decode_on_the_graph_inputs"] = check_k3_at(
+        "[synth-graph]'s", memory, keys, length_mask(text.shape[1], lengths),
+        pack_decoder_weights(synth.model.decoder.cell), cfg.model.max_decode_steps)
+    del synth
+    return {"launches": launches, "graph_nodes": nodes}
+
+
+def phase_fast_graph(report, vocab, cfg):
+    """[fast-graph]: [fast]'s path, ``Synthesizer`` at synth_fast B 8
+    (early exit, trim, GL 100 at momentum 0.99), through its graphs
+    (``synth_graph_phase``): with the preset's threshold (no exit on random
+    weights: 63 chunks of 8 steps, Griffin-Lim on every frame) and with
+    [fast]'s derived threshold (the exit after step 6: one chunk, t_gl 64);
+    for each, (e) the decode alone at each chunk size of CHUNK_SWEEP
+    (``chunk_sweep``). -> K4 launches over the timed replays and its graph
+    nodes."""
+    from tacotron_tpu_torch.weights import split_state
+
+    thr = report["fast"]["derived_threshold"]["silence_threshold"]
+    p, bs = split_state(full_model(cfg, torch.device("cuda")))
+    launches, nodes = collections.Counter(), collections.Counter()
+    # the derived threshold sits just above seed 1's first steps' peaks, so
+    # only seed 1 is sure to exit there: its calls all take that seed
+    for label, key, c, seeds in (
+            ("no exit", "fast_graph", cfg, SYNTH_GRAPH["compare"]),
+            ("exit at step 6", "fast_graph_exit",
+             cfg.replace(infer=dataclasses.replace(cfg.infer, silence_threshold=thr)), (1, 1, 1))):
+        tag = f"[fast-graph] {label}"
+        log(f"{tag}: Synthesizer, synth_fast, B 8, silence threshold "
+            f"{c.infer.silence_threshold}: preamble, chunk, post-net and Griffin-Lim graphs")
+        rep, l_, n_, synth = synth_graph_phase(report, key, tag, c, p, bs, vocab, fused=False,
+                                               seeds=seeds)
+        rep["chunk_sweep"] = chunk_sweep(c, p, bs, vocab, rep["steps_done"])
+        launches.update(l_)
+        nodes.update(n_)
+        fast = report["fast"]["preset_threshold" if key == "fast_graph" else "derived_threshold"]
+        require(rep["steps_done"] == fast["steps_done"],
+                f"{tag}: the replays' steps done equal [fast]'s eager call's "
+                f"({fast['steps_done']})")
+        require(sorted(rep["graphs"]) == sorted(
+                    ["preamble", "chunk", "postnet", f"griffin_lim t_gl {fast['t_gl']}"])
+                and rep["graphs"][f"griffin_lim t_gl {fast['t_gl']}"]["k4_nodes"]
+                == 3 * c.audio.griffin_lim_iters,
+                f"{tag}: preamble, chunk, post-net and one Griffin-Lim graph (t_gl "
+                f"{fast['t_gl']}, K4's {3 * c.audio.griffin_lim_iters} nodes)")
+        del synth
+    return {"launches": dict(launches), "graph_nodes": dict(nodes)}
+
+
 def phase_main_bf16(report, cfg, vocab, mel_f32):
     """[main-bf16]: [main]'s call with compute_dtype="bfloat16" on the same
     seed-0 weights, prompts and dropout seed; the counts set to 0 just
@@ -1101,10 +1432,36 @@ def phase_main_bf16(report, cfg, vocab, mel_f32):
     log(f"  mel drift from [main]'s f32 mel (printed, not held): mean {drift['mean_abs']:.5f} "
         f"(f32 mean magnitude {drift['f32_mean_abs']:.5f}), max {drift['max_abs']:.5f}, max over "
         f"the first 50 steps {drift['first_50_steps_max_abs']:.5f}")
+    graphed = main_bf16_graphed(cfg, vocab, synth, n_it, report["card"])
     report["main_bf16"] = {"stage_ms": out["stage_ms"], "wall_s": wall, "warm_s": warm_s,
                            "gl_iters": n_it, "audio_seconds": out["audio_seconds"],
                            "audio_seconds_per_s": aps, "launches": launches,
-                           "mel_drift_from_f32": drift}
+                           "mel_drift_from_f32": drift, "graphed": graphed}
+
+
+def main_bf16_graphed(cfg, vocab, synth16, n_it, card):
+    """[main-bf16] through its graph, in turns with [main]'s f32 model at the
+    same Griffin-Lim depth: each Synthesizer's eager first call and capture
+    (``synth16`` has had its eager call), then 3 replays of each in turns.
+    -> the replays' ms by compute dtype."""
+    from tacotron_tpu_torch.infer.synthesize import Synthesizer
+    from tacotron_tpu_torch.weights import split_state
+
+    f32 = Synthesizer(cfg, *split_state(full_model(cfg, torch.device("cuda"))), vocab, fused=True)
+    for s_ in (f32, f32, synth16):
+        s_(PROMPTS, seed=1, gl_iters=n_it)
+    ms = {"float32": [], "bfloat16": []}
+    for _ in range(3):
+        for name, s_ in (("float32", f32), ("bfloat16", synth16)):
+            t0 = time.perf_counter()
+            out = s_(PROMPTS, seed=1, gl_iters=n_it)
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            require(out["graphed"], f"the {name} call replayed its graph")
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    log(f"  graphed, GL {n_it}, in turns: f32 replay ms {[round(x, 2) for x in ms['float32']]} "
+        f"(median {med['float32']:.2f}), bf16 {[round(x, 2) for x in ms['bfloat16']]} (median "
+        f"{med['bfloat16']:.2f}); {card}")
+    return {"replay_ms": ms, "replay_ms_median": med}
 
 
 def phase_cli(report, cfg, vocab):
@@ -1209,11 +1566,9 @@ def check_synth_kernels(where, tag, cfg, p, bs, vocab, texts, runs, gl_iters=Non
     bf16 ulp of the magnitude's peak, then as GL_PATH sets out (depth: the
     run's ``gl_iters``, by default its config's). -> the errors."""
     from tacotron_tpu_torch.dsp.audio import spectrogram_magnitude
-    from tacotron_tpu_torch.dsp.fused_gl import gl_spectrum_reference, griffin_lim_spectrum
     from tacotron_tpu_torch.infer.synthesize import Synthesizer
     from tacotron_tpu_torch.models.tacotron import length_mask
-    from tacotron_tpu_torch.ops.decode_loop import (cluster_plan, decode_loop,
-                                                    decode_loop_reference, pack_decoder_weights)
+    from tacotron_tpu_torch.ops.decode_loop import pack_decoder_weights
 
     dev = torch.device("cuda")
     synth = Synthesizer(cfg, p, bs, vocab, fused=True)
@@ -1224,10 +1579,32 @@ def check_synth_kernels(where, tag, cfg, p, bs, vocab, texts, runs, gl_iters=Non
         # the Synthesizer's own draws: the encoder's from the call's generator
         memory = m.encoder(text, lengths, torch.Generator(device=dev).manual_seed(0))
         keys = m.memory_proj(memory)
-    w = pack_decoder_weights(m.decoder.cell)
+    out = check_k3_at(where, memory, keys, mask, pack_decoder_weights(m.decoder.cell),
+                      cfg.model.max_decode_steps)
+    b = memory.shape[0]
+    for name, c, fused in runs:
+        acfg = c.audio
+        # the run's spectrogram: the same call up to Griffin-Lim, which the
+        # kernel is then held on at the run's shape
+        res = Synthesizer(c, p, bs, vocab, fused=fused)(texts, seed=0, gl_iters=1)
+        t_gl = res["wavs"].shape[1] // acfg.hop_length + 1
+        mag = spectrogram_magnitude(torch.from_numpy(res["linear"][:, :t_gl]).to(dev), acfg)
+        label = (f"{tag} {name}: griffin_lim bf16 (B {b}, F {t_gl}, momentum {acfg.gl_momentum})")
+        out[f"griffin_lim_bf16_{name}"] = {
+            "t_gl": t_gl, **check_k4_at(label, mag, acfg, gl_iters or acfg.griffin_lim_iters)}
+    return out
+
+
+def check_k3_at(where, memory, keys, mask, w, n_path):
+    """K3 against its plain version on a path's encoder outputs: at the
+    cluster size the batch gives it, in both storage modes over 50 steps at
+    K3_TOL, and over the path's ``n_path`` steps in bf16 at MAIN_TOL. ->
+    the errors."""
+    from tacotron_tpu_torch.ops.decode_loop import (cluster_plan, decode_loop,
+                                                    decode_loop_reference)
+
     b, t_in = memory.shape[:2]
     chosen, resident = cluster_plan(memory, keys, w)
-    n_path = cfg.model.max_decode_steps
     log(f"  K3 at {where} inputs (B {b}, T_in {t_in}): cluster size {chosen} (resident "
         f"clusters by size {resident})")
     require(chosen > 1 and resident[chosen] >= b,
@@ -1248,28 +1625,27 @@ def check_synth_kernels(where, tag, cfg, p, bs, vocab, texts, runs, gl_iters=Non
         require(bool(torch.isfinite(kf).all()) and ef <= tf and (ta is None or ea <= ta),
                 f"{name} at {where} inputs finite, within frames {tf}"
                 + ("" if ta is None else f", alignments {ta}"))
-
-    for name, c, fused in runs:
-        acfg = c.audio
-        # the run's spectrogram: the same call up to Griffin-Lim, which the
-        # kernel is then held on at the run's shape
-        res = Synthesizer(c, p, bs, vocab, fused=fused)(texts, seed=0, gl_iters=1)
-        t_gl = res["wavs"].shape[1] // acfg.hop_length + 1
-        mag = spectrogram_magnitude(torch.from_numpy(res["linear"][:, :t_gl]).to(dev), acfg)
-        kw = dict(momentum=acfg.gl_momentum, **gl_kw(acfg))
-        label = (f"{tag} {name}: griffin_lim bf16 (B {b}, F {t_gl}, momentum {acfg.gl_momentum})")
-        with torch.no_grad():
-            first = max(max_err(x, y) for x, y in zip(
-                griffin_lim_spectrum(mag, n_iter=1, **kw),
-                gl_spectrum_reference(mag, n_iter=1, **kw))) / float(mag.max())
-        log(f"  {label}: first iteration max err / magnitude peak {first:.3e}")
-        require(first <= GL_PATH["step_tol"], f"{label}: first iteration within one bf16 ulp "
-                f"({GL_PATH['step_tol']:.2e}) of the magnitude's peak")
-        chk = check_gl_path(label, mag, acfg, lambda n: griffin_lim_spectrum(mag, n_iter=n, **kw),
-                            lambda n: gl_spectrum_reference(mag, n_iter=n, **kw),
-                            gl_iters or acfg.griffin_lim_iters)
-        out[f"griffin_lim_bf16_{name}"] = {"t_gl": t_gl, "first_iteration": first, **chk}
     return out
+
+
+def check_k4_at(label, mag, acfg, n_iter):
+    """K4's bf16 mode, the mode the paths launch, against its plain version
+    on a path's magnitudes ``mag``: its first iteration component by
+    component within one bf16 ulp of the magnitude's peak, then as GL_PATH
+    sets out at depth ``n_iter``. -> the errors."""
+    from tacotron_tpu_torch.dsp.fused_gl import gl_spectrum_reference, griffin_lim_spectrum
+
+    kw = dict(momentum=acfg.gl_momentum, **gl_kw(acfg))
+    with torch.no_grad():
+        first = max(max_err(x, y) for x, y in zip(
+            griffin_lim_spectrum(mag, n_iter=1, **kw),
+            gl_spectrum_reference(mag, n_iter=1, **kw))) / float(mag.max())
+    log(f"  {label}: first iteration max err / magnitude peak {first:.3e}")
+    require(first <= GL_PATH["step_tol"], f"{label}: first iteration within one bf16 ulp "
+            f"({GL_PATH['step_tol']:.2e}) of the magnitude's peak")
+    chk = check_gl_path(label, mag, acfg, lambda n: griffin_lim_spectrum(mag, n_iter=n, **kw),
+                        lambda n: gl_spectrum_reference(mag, n_iter=n, **kw), n_iter)
+    return {"first_iteration": first, **chk}
 
 
 def run_cli(main, argv):
@@ -3991,6 +4367,8 @@ def main(argv=None) -> int:
                                         stream)
         phase_lowp_convergence(report, fast_cfg.audio, mag_main)
         del mag_main, mag_fast
+        graphs = {"synth_graph": phase_synth_graph(report, cfg, vocab),
+                  "fast_graph": phase_fast_graph(report, vocab, fast_cfg)}
         state, batch, train_launches = phase_train(report)
         graph = phase_train_graph(report)
         kernels = phase_train_timing(report, state, batch, train_launches, graph) + kernels
@@ -4008,6 +4386,11 @@ def main(argv=None) -> int:
         tooling_launches = phase_tooling(report, cfg, vocab)
         for k in kernels:
             require(k["launches"] > 0, f"{k['name']} launched on its path ({k['launches']})")
+            counted = {"decode_loop": "decode_loop", "griffin_lim_bf16": "griffin_lim"}
+            for tag, g in graphs.items():
+                if g["launches"].get(counted.get(k["name"])):
+                    k[f"{tag}_launches"] = g["launches"][counted[k["name"]]]
+                    k[f"{tag}_nodes"] = g["graph_nodes"][counted[k["name"]]]
             if k["name"] in cli_launches:
                 k["train_cli_launches"] = cli_launches[k["name"]]
                 require(k["train_cli_launches"] > 0, f"{k['name']} launched on [train-cli]'s "

@@ -39,7 +39,9 @@
 // f32, the context product is formed in T and summed in f32. Dropout uses
 // a counter-based hash keyed by (seed, row, step, layer, unit), evaluated
 // by the unit's owner: keep iff bits < keep * 2^32, scaled by 1/keep; so
-// the masks do not depend on C.
+// the masks do not depend on C. The seed is an int64 in device memory, of
+// which every block reads the low 32 bits once: a caller draws it on the
+// device, inside a CUDA graph too, and no host read comes between.
 #include <algorithm>
 
 #include <cooperative_groups.h>
@@ -264,7 +266,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 decode_loop_kernel(const T* __restrict__ memory, const T* __restrict__ keys,
                    const float* __restrict__ maskbias, DecW<T> w, Dims dm,
-                   uint32_t seed, uint32_t keep_threshold, float keep_scale,
+                   const long long* __restrict__ seed_ptr, uint32_t keep_threshold,
+                   float keep_scale,
                    int dropout, float* __restrict__ frames,
                    float* __restrict__ aligns, int* __restrict__ keep_counts) {
   constexpr int V = tt::Vec<T>::V;
@@ -277,6 +280,7 @@ decode_loop_kernel(const T* __restrict__ memory, const T* __restrict__ keys,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   const Layout L(dm);
+  const uint32_t seed = static_cast<uint32_t>(*seed_ptr);
 
   // Buffers and their writers. "pushed": every block's copy is written by
   // the owners of its slices in one phase, and read by every block after
@@ -538,7 +542,7 @@ cudaLaunchConfig_t launch_config(int blocks, int cluster, size_t smem, cudaStrea
 
 template <typename T>
 cudaError_t launch(const void* memory, const void* keys, const float* maskbias,
-                   const void* const* wp, const Dims& d, int cluster, uint32_t seed,
+                   const void* const* wp, const Dims& d, int cluster, const long long* seed,
                    uint32_t keep_threshold, float keep_scale, int dropout,
                    float* frames, float* aligns, int* keep_counts,
                    cudaStream_t stream) {
@@ -588,12 +592,13 @@ Dims dims_of(const int* dims) {
 // dims: B, T_in, mem_dim, att_dim, n_mels, r, prenet0, prenet1,
 // att_gru_dim, dec_gru_dim, n_steps. weights: the 22 DecoderWeights device
 // pointers in field order. cluster: blocks per batch row, 1..16 (B x
-// cluster blocks). keep_counts may be null. Returns the CUDA error; a
+// cluster blocks). seed: one int64 in device memory (its low 32 bits key
+// the dropout hash). keep_counts may be null. Returns the CUDA error; a
 // cluster size the card cannot place is refused by the launch.
 extern "C" int tt_decode_loop(const void* memory, const void* keys,
                               const float* maskbias, const void* const* weights,
                               const int* dims, int lowp, int cluster,
-                              unsigned int seed, unsigned int keep_threshold,
+                              const long long* seed, unsigned int keep_threshold,
                               float keep_scale, int dropout, float* frames,
                               float* aligns, int* keep_counts, void* stream) {
   if (cluster < 1 || cluster > kMaxCluster) return (int)cudaErrorInvalidValue;

@@ -14,6 +14,11 @@ overlap-add and the window-sum-square division in bf16, with the rounding
 points of the JAX loop. ``gl_iteration`` is the one f32 Griffin-Lim
 iteration of the port (the f32 loop here and the plain version of the f32
 kernels), and with ``lowp`` the plain version of the bf16 kernels.
+
+The DFT bases, windows and window sum-squares are made on the host; each
+reaches a device once, through ``device_constant``, and is kept there. A
+CUDA graph can then capture any of these transforms: a capture cannot copy
+from host memory, and would keep a temporary's address if it could.
 """
 
 from __future__ import annotations
@@ -23,8 +28,31 @@ import functools
 import numpy as np
 import torch
 
+from tacotron_tpu_torch import runtime
 from tacotron_tpu_torch.dsp.stft import (frame_signal, overlap_add,
                                          padded_window, window_sumsquare)
+
+_CONSTANTS: dict = {}
+
+
+def device_constant(name: str, device, make, *, n_fft: int, win_length: int,
+                    hop_length: int | None = None, frames: int | None = None,
+                    dtype: torch.dtype = torch.float32, pieces: int | None = None):
+    """The host tensor ``make()`` on ``device``, made at first use and kept
+    per (name, device, n_fft, win_length, hop_length, frames, dtype,
+    pieces): the parameters that ``make`` reads. ``dtype`` is the dtype the
+    constant was rounded through (``make`` does the rounding), ``pieces``
+    the TF32 pieces it was split into. A CUDA constant is made outside any
+    graph capture (``runtime.fill_outside_capture``): one eager call of a
+    shape fills what its graph reads."""
+    dev = torch.device(device)
+    key = (name, dev, n_fft, win_length, hop_length, frames, dtype, pieces)
+    t = _CONSTANTS.get(key)
+    if t is None:
+        if dev.type == "cuda":
+            runtime.fill_outside_capture(f"the DSP constant {name} ({key[2:]})")
+        t = _CONSTANTS[key] = make().to(dev)
+    return t
 
 
 def live_span(n_fft: int, win_length: int) -> tuple[int, int]:
@@ -70,30 +98,37 @@ def _dot(x, w, lowp: bool):
 
 def stft_mm(y, n_fft: int, hop_length: int, win_length: int, lowp: bool = False):
     """Matmul STFT -> (re, im), each (..., frames, n_bins)."""
-    fwd, _ = dft_matrices(n_fft, win_length)
     lo, hi = live_span(n_fft, win_length)
+    fwd = device_constant("analysis basis, live span", y.device,
+                          lambda: torch.from_numpy(dft_matrices(n_fft, win_length)[0][lo:hi]),
+                          n_fft=n_fft, win_length=win_length)
     frames = frame_signal(y.float(), n_fft, hop_length)[..., lo:hi]
-    out = _dot(frames, torch.from_numpy(fwd[lo:hi]).to(y.device), lowp)
+    out = _dot(frames, fwd, lowp)
     n_bins = n_fft // 2 + 1
     return out[..., :n_bins], out[..., n_bins:]
 
 
 def inv_window_sumsquare(win_length, n_fft, hop_length, n_frames, device):
     """1 / max(window sum-square, 1e-11) over the padded signal, f32."""
-    wss = window_sumsquare(win_length, n_fft, hop_length, n_frames)
-    return torch.from_numpy(
-        (1.0 / np.maximum(wss.astype(np.float32), 1e-11)).astype(np.float32)
-    ).to(device)
+    def make():
+        wss = window_sumsquare(win_length, n_fft, hop_length, n_frames)
+        return torch.from_numpy(
+            (1.0 / np.maximum(wss.astype(np.float32), 1e-11)).astype(np.float32))
+
+    return device_constant("inverse window sum-square", device, make, n_fft=n_fft,
+                           win_length=win_length, hop_length=hop_length, frames=n_frames)
 
 
 def istft_mm(re, im, n_fft: int, hop_length: int, win_length: int,
              length: int | None = None, lowp: bool = False):
     """Matmul iSTFT with window-sum-square OLA; (..., F, n_bins) pair ->
     (..., hop*(F-1)) samples (or ``length``)."""
-    _, bwd = dft_matrices(n_fft, win_length)
     lo, hi = live_span(n_fft, win_length)
     spec = torch.cat([re, im], dim=-1).float()
-    frames_t = _dot(spec, torch.from_numpy(bwd[:, lo:hi]).to(spec.device), lowp)
+    bwd = device_constant("synthesis basis, live span", spec.device,
+                          lambda: torch.from_numpy(dft_matrices(n_fft, win_length)[1][:, lo:hi]),
+                          n_fft=n_fft, win_length=win_length)
+    frames_t = _dot(spec, bwd, lowp)
     frames_t = torch.nn.functional.pad(frames_t, (lo, n_fft - hi))
     n_frames = frames_t.shape[-2]
     pad = n_fft // 2
@@ -151,8 +186,11 @@ def gl_iteration(magnitude, n_fft: int, hop_length: int, win_length: int, lowp: 
     f, nb = mag.shape[-2:]
     lpad, pad = (n_fft - win_length) // 2, n_fft // 2
     fwd_np, bwd_np = dft_matrices(n_fft, win_length)
-    bwd = torch.from_numpy(bwd_np[:, lpad:lpad + win_length]).to(dev).to(sd).float()
-    fwd = torch.from_numpy(fwd_np[lpad:lpad + win_length]).to(dev).to(sd).float()
+    geo = dict(n_fft=n_fft, win_length=win_length, dtype=sd)
+    bwd = device_constant("synthesis basis, window", dev, lambda: torch.from_numpy(
+        bwd_np[:, lpad:lpad + win_length]).to(sd).float(), **geo)
+    fwd = device_constant("analysis basis, window", dev, lambda: torch.from_numpy(
+        fwd_np[lpad:lpad + win_length]).to(sd).float(), **geo)
     inv_wss = inv_window_sumsquare(win_length, n_fft, hop_length, f, dev)
 
     def step(re, im, prev=None, momentum=0.0):
@@ -208,14 +246,18 @@ def gl_spectrum_mm(magnitude, *, n_fft: int, hop_length: int, win_length: int,
     n_bins = n_fft // 2 + 1
     dev = mag.device
     cdtype = torch.bfloat16
-    fwd_np, bwd_np = dft_matrices(n_fft, win_length)
-    fwd, bwd = torch.from_numpy(fwd_np).to(dev), torch.from_numpy(bwd_np).to(dev)
+    geo = dict(n_fft=n_fft, win_length=win_length)
+    fwd = device_constant("analysis basis", dev,
+                          lambda: torch.from_numpy(dft_matrices(n_fft, win_length)[0]), **geo)
+    bwd = device_constant("synthesis basis", dev,
+                          lambda: torch.from_numpy(dft_matrices(n_fft, win_length)[1]), **geo)
     *batch, f, _ = mag.shape
     mag2 = mag.reshape(-1, f, n_bins)
     pad = n_fft // 2
     # the JAX loop's own f32 window sum-square, rounded to bf16 and divided
     # by (not multiplied by its inverse)
-    win = torch.from_numpy(padded_window(win_length, n_fft).astype(np.float32)).to(dev)
+    win = device_constant("padded window", dev, lambda: torch.from_numpy(
+        padded_window(win_length, n_fft).astype(np.float32)), **geo)
     wss = overlap_add((win * win).expand(f, n_fft), hop_length)
     wss = torch.clamp(wss, min=1e-11).to(cdtype)
 

@@ -48,8 +48,8 @@ import numpy as np
 import torch
 
 from tacotron_tpu_torch import runtime
-from tacotron_tpu_torch.dsp.dft import (carrier_dtype, dft_matrices, gl_iterate, gl_iteration,
-                                        inv_window_sumsquare, istft_mm, zero_phase)
+from tacotron_tpu_torch.dsp.dft import (carrier_dtype, device_constant, dft_matrices, gl_iterate,
+                                        gl_iteration, inv_window_sumsquare, istft_mm, zero_phase)
 
 
 def griffin_lim(magnitude, *, n_fft: int, hop_length: int, win_length: int,
@@ -255,9 +255,10 @@ def split_padded_bases(n_fft: int, win_length: int, pieces: int):
 
 
 class _Plan:
-    """Device-side constants and scratch of one kernel call (or of one run
-    of streaming calls on the same magnitude). ``e`` is the interleaved
-    carrier (B*F, padded(2*n_bins)) in the storage type, pad columns zero;
+    """Device-side constants (the bases and the inverse window sum-square,
+    kept per device by ``device_constant``) and scratch of one kernel call
+    (or of one run of streaming calls on the same magnitude). ``e`` is the
+    interleaved carrier (B*F, padded(2*n_bins)) in the storage type, pad columns zero;
     ``work`` the analysis operand (B*F, padded(win)), pad columns zero;
     ``frames`` the synthesis frames (B*F, padded(win)) f32."""
 
@@ -277,12 +278,18 @@ class _Plan:
         self.b = math.prod(batch)
         self.m = self.b * f
         self.mag = magnitude.float().reshape(self.m, nb).contiguous()
-        bwd_np, fwd_np = (padded_bases(n_fft, win_length) if lowp else
-                          split_padded_bases(n_fft, win_length, TF32_PIECES[1]))
+        pieces = None if lowp else TF32_PIECES[1]
+        geo = dict(n_fft=n_fft, win_length=win_length, dtype=sd, pieces=pieces)
+
+        def basis(i):
+            return lambda: torch.from_numpy(
+                padded_bases(n_fft, win_length)[i] if lowp else
+                split_padded_bases(n_fft, win_length, pieces)[i]).to(sd)
+
         self.ld, win = padded(2 * nb), padded(win_length)
         self.work = torch.zeros(self.m, win, device=dev, dtype=sd)
-        self.bwd = torch.from_numpy(bwd_np).to(dev).to(sd)
-        self.fwd = torch.from_numpy(fwd_np).to(dev).to(sd)
+        self.bwd = device_constant("kernel synthesis basis", dev, basis(0), **geo)
+        self.fwd = device_constant("kernel analysis basis", dev, basis(1), **geo)
         self.e = torch.zeros(self.m, self.ld, device=dev, dtype=sd)
         self.invwss = inv_window_sumsquare(win_length, n_fft, hop_length, f, dev)
         self.frames = torch.empty(self.m, win, device=dev)

@@ -66,7 +66,9 @@ def window_sumsquare(win_length: int, n_fft: int, hop_length: int,
 
 
 def _window(win_length: int, n_fft: int, like):
-    return torch.from_numpy(padded_window(win_length, n_fft)).to(like.device, torch.float32)
+    from tacotron_tpu_torch.dsp.dft import device_constant   # dft imports this module
+    return device_constant("padded window", like.device, lambda: torch.from_numpy(
+        padded_window(win_length, n_fft).astype(np.float32)), n_fft=n_fft, win_length=win_length)
 
 
 def stft(y, n_fft: int, hop_length: int, win_length: int, center: bool = True):

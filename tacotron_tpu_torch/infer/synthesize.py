@@ -16,6 +16,17 @@ to the batch's largest detected end frame, rounded up to
 spent on padding. The trimming metadata (end_frames, wav_lengths, trimmed
 audio seconds) is returned whatever the flags.
 
+On one CUDA device a call runs as JAX runs it: each of the JAX
+``Synthesizer``'s jits is a CUDA graph, captured per shape (``Synthesizer``
+says when). The fixed-length path (JAX's ``_synth``) is one graph, text to
+normalised waveform. The split path (``early_exit`` and/or
+``trim_before_gl``; JAX's ``_model`` and ``_gl``) is a preamble graph
+(encoder, keys, mask, packed weights, the zeroed early-exit carry; with
+trimming alone the whole step-by-step decode), ``decode_while``'s chunk
+graph replayed until the device says the batch is done, a post-net graph
+over the full mel buffer with the end frames, then only the (B,) end
+frames reach the host, and one Griffin-Lim graph per trimmed length.
+
 ``mesh=`` (``parallel.make_mesh``) is data-parallel synthesis over the
 processes of the mesh's data axis: every process holds the whole prompt
 list, pads the batch with length-1 rows to a multiple of the data size and
@@ -24,26 +35,34 @@ the step-by-step decode, the post-net and Griffin-Lim (the kernel on the
 card) on its slice, with the dropout masks of the global batch; the
 outputs are all-gathered, so every process returns the whole batch, and
 the pad rows are cut off. As in JAX, the fused decode and early exit /
-trimming (host-driven) are refused on a mesh.
+trimming (host-driven) are refused on a mesh. Mesh synthesis runs eagerly:
+gloo's collectives go through host copies (``parallel/collectives.py``),
+which no graph can capture.
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
+from tacotron_tpu_torch import runtime
 from tacotron_tpu_torch.config import Config
 from tacotron_tpu_torch.data.vocab import Vocab
 from tacotron_tpu_torch.dsp.audio import gl_spectrum, spectrogram_magnitude, spectrum_to_wav
-from tacotron_tpu_torch.infer.early_exit import decode_while, end_frames_device
+from tacotron_tpu_torch.infer.early_exit import WhileDecode, end_frames_device, run_until_done
 from tacotron_tpu_torch.models.tacotron import Tacotron, length_mask
 from tacotron_tpu_torch.ops.decode_loop import decode_loop, pack_decoder_weights
 from tacotron_tpu_torch.parallel.collectives import all_gather_cat
 from tacotron_tpu_torch.runtime import resolve_device
 
 STAGES = ("encoder", "decode", "postnet", "griffin_lim", "istft_inv_preemphasis")
+# shapes whose graphs a Synthesizer keeps; a new shape past them drops the
+# least recently used one's
+GRAPH_SHAPES = 8
 
 
 class _StageClock:
@@ -67,6 +86,28 @@ class _StageClock:
             self._t = now
 
 
+_NO_CLOCK = _StageClock(torch.device("cpu"), False)
+
+
+@dataclasses.dataclass
+class ShapeGraphs:
+    """One shape's graphs. ``model``: each model graph's
+    ``runtime.CapturedGraph`` by name ("synth" on the fixed-length path;
+    "preamble", "chunk" with early exit, "postnet" on the split path), empty
+    until the shape's second call. ``gl``: the split path's Griffin-Lim
+    graph by trimmed length ``t_gl``, None for a length seen once (eagerly).
+    ``inputs``: the static (text, lengths) the graphs read."""
+
+    model: dict = dataclasses.field(default_factory=dict)
+    gl: dict = dataclasses.field(default_factory=dict)
+    inputs: tuple = ()
+
+    def captured(self):
+        """-> [(name, CapturedGraph)] of every graph captured so far."""
+        return [*self.model.items(),
+                *((f"griffin_lim t_gl {t}", g) for t, g in self.gl.items() if g is not None)]
+
+
 class Synthesizer:
     """``Synthesizer(cfg, params, batch_stats, vocab, fused=..., mesh=None,
     device=None)``.
@@ -77,6 +118,30 @@ class Synthesizer:
     bf16, the attention keys included, on every decode path. ``device=None``
     means the mesh's device, else the GPU, and raises when there is none;
     pass ``device="cpu"`` for the plain PyTorch versions.
+
+    On one CUDA device each shape (``shape_key``: the device, B, T_in,
+    ``n_steps``, ``gl_iters``, as JAX's jit cache keys them) runs its first
+    call eagerly on the Synthesizer's own stream: a real call, which fills
+    every lazy cache (the kernels' libraries and residency tables, cuBLAS's
+    and cuDNN's workspaces, the DSP constants). The second call captures
+    the shape's graphs (``runtime.capture_graph``: a private memory pool
+    each, the Synthesizer's CUDA generator registered) and replays them;
+    later calls copy their prompts into the graphs' static inputs and
+    replay. A Griffin-Lim length of the split path is captured likewise at
+    its second sighting. Each call reseeds the generator with ``seed``, so
+    a replay draws the dropout masks (and K3's seed) an eager call with
+    that seed draws. With deterministic algorithms
+    (``torch.use_deterministic_algorithms``) a replay is bit-equal to the
+    eager call. The eager path runs on the CPU, under ``stage_ms=True``
+    (which synchronises at every stage by design) and on a ``mesh``; the
+    returned ``"graphed"`` says whether every stage of the call replayed a
+    graph. A failed capture raises.
+
+    Graphs point at the model's tensors: a ``load_state_dict`` into
+    ``self.model`` copies in place and keeps them; when the tensors'
+    addresses change, every graph is dropped. ``graphs`` maps each shape
+    seen to its ``ShapeGraphs``, at most ``GRAPH_SHAPES`` of them: a new
+    shape past them drops the least recently used one's graphs.
     """
 
     def __init__(self, cfg: Config, params, batch_stats, vocab: Vocab,
@@ -101,10 +166,15 @@ class Synthesizer:
         self.vocab = vocab
         self.fused = fused
         self.mesh = mesh
+        self.split = icfg.early_exit or icfg.trim_before_gl
         self.device = resolve_device(device)
         self.model = Tacotron(cfg.model, device=self.device)
         self.model.load_state_dict({**params, **batch_stats}, strict=True)
         self.model.eval()
+        self.graphs: collections.OrderedDict = collections.OrderedDict()
+        self._gen = torch.Generator(device=self.device)
+        self._stream = None
+        self._bound = None            # addresses of the tensors the graphs read
 
     def encode_texts(self, texts: list[str], pad_to: int | None = None):
         """-> (ids (B, T) int64, lengths (B,)) on the device; T is the longest
@@ -123,86 +193,39 @@ class Synthesizer:
         return (torch.from_numpy(text).to(self.device),
                 torch.from_numpy(lengths).to(self.device))
 
+    def shape_key(self, device, b: int, t_in: int, n_steps: int, gl_iters: int) -> tuple:
+        """What the graphs of one shape are valid for, as JAX's jit cache
+        keys its jits (``cfg`` is fixed per Synthesizer)."""
+        return (torch.device(device), int(b), int(t_in), int(n_steps), int(gl_iters))
+
     @torch.no_grad()
     def __call__(self, texts: list[str], n_steps: int | None = None,
                  gl_iters: int | None = None, seed: int = 0,
                  peak_normalize: bool = True, stage_ms: bool = False):
         """Synthesize a batch. Returns a dict with mel, linear, alignments,
         wavs (B, T_samples), end_frames (first detected-silence frame),
-        wav_lengths (samples), audio_seconds (padded total) and
-        trimmed_audio_seconds, as numpy; with ``stage_ms`` also the
-        milliseconds of each of ``STAGES``."""
-        cfg, m = self.cfg, self.model
-        mcfg, icfg = cfg.model, cfg.infer
-        n_steps = mcfg.max_decode_steps if n_steps is None else n_steps
+        wav_lengths (samples), audio_seconds (padded total),
+        trimmed_audio_seconds, as numpy, and ``graphed``; with ``stage_ms``
+        also the milliseconds of each of ``STAGES``."""
+        cfg = self.cfg
+        n_steps = cfg.model.max_decode_steps if n_steps is None else n_steps
         gl_iters = cfg.audio.griffin_lim_iters if gl_iters is None else gl_iters
-        text, lengths = self.encode_texts(texts)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
         clock = _StageClock(self.device, stage_ms)
-        n_real, mesh = text.shape[0], self.mesh
-        if mesh is not None:
-            # pad to a multiple of the data size with length-1 rows (a real
-            # mask; the rows are cut off below) and keep this rank's slice
-            nd = mesh.data_size
-            pad = -n_real % nd
-            text = torch.cat([text, text.new_zeros(pad, text.shape[1])])
-            lengths = torch.cat([lengths, lengths.new_ones(pad)])
-            per = text.shape[0] // nd
-            lo = mesh.data_index * per
-            text, lengths = text[lo:lo + per], lengths[lo:lo + per]
-            gen = mesh.batch_shard(gen)
-
-        mask = length_mask(text.shape[1], lengths)
-        memory = m.encoder(text, lengths, gen)
-        keys = m.memory_proj(memory)
-        clock.mark("encoder")
-        if self.fused:
-            kernel_seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=gen,
-                                            device=self.device).item())
-            frames, align = decode_loop(
-                memory, keys, mask, pack_decoder_weights(m.decoder.cell),
-                n_steps=n_steps, seed=kernel_seed,
-                dropout=mcfg.prenet_dropout > 0,
-                dropout_rate=mcfg.prenet_dropout, generator=gen)
-            mel = frames.reshape(text.shape[0], n_steps * mcfg.r, mcfg.n_mels)
-        elif icfg.early_exit:
-            # the stop unit is a decoder step = r frames
-            mel, align, _ = decode_while(
-                memory, keys, mask, pack_decoder_weights(m.decoder.cell), gen,
-                n_steps=n_steps, r=mcfg.r, n_mels=mcfg.n_mels,
-                dropout_rate=mcfg.prenet_dropout,
-                silence_threshold=icfg.silence_threshold,
-                min_silence_steps=max(1, -(-icfg.min_silence_frames // mcfg.r)))
+        if self.device.type == "cuda" and self.mesh is None and not stage_ms:
+            res, graphed = self._on_stream(texts, seed, n_steps, gl_iters)
         else:
-            mel, align = m.decoder(memory, keys, mask, n_steps, gen)
-        clock.mark("decode")
-        linear = m.postnet(mel)
-        clock.mark("postnet")
-        gl_in = linear
-        if mesh is None:
-            ends = end_frames_device(mel, threshold=icfg.silence_threshold,
-                                     min_run=icfg.min_silence_frames).cpu().numpy()
-        if icfg.trim_before_gl:
-            q = icfg.gl_length_quantum
-            t_gl = min(int(-(-max(int(ends.max()), q) // q) * q), linear.shape[1])
-            gl_in = linear[:, :t_gl]
-        re, im = gl_spectrum(spectrogram_magnitude(gl_in, cfg.audio), cfg.audio,
-                             gl_iters)
-        clock.mark("griffin_lim")
-        wav = spectrum_to_wav(re, im, cfg.audio)
-        if mesh is not None:
-            if mesh.data_group is not None:
-                mel, linear, align, wav = (all_gather_cat(x, mesh.data_group)
-                                           for x in (mel, linear, align, wav))
-            mel, linear, align, wav = (x[:n_real] for x in (mel, linear, align, wav))
-            ends = end_frames_device(mel, threshold=icfg.silence_threshold,
-                                     min_run=icfg.min_silence_frames).cpu().numpy()
-        if peak_normalize:
-            peak = wav.abs().amax(dim=-1, keepdim=True)
-            wav = wav / torch.clamp(peak, min=1e-3)
+            text, lengths = self.encode_texts(texts)
+            self._gen.manual_seed(seed)
+            if self.mesh is not None:
+                res = self._mesh_call(text, lengths, n_steps, gl_iters, clock)
+            else:
+                res = self._eager(text, lengths, n_steps, gl_iters, clock)
+            graphed = False
+        mel, linear, align, ends, wav, wav_norm = res
+        wav = wav_norm if peak_normalize else wav
         clock.mark("istft_inv_preemphasis")
-
         wav = wav.cpu().numpy()
+        ends = ends.cpu().numpy() if isinstance(ends, torch.Tensor) else ends
         wav_lengths = np.minimum(ends * cfg.audio.hop_length, wav.shape[1])
         out = {
             "mel": mel.cpu().numpy(),
@@ -213,7 +236,229 @@ class Synthesizer:
             "wav_lengths": wav_lengths,
             "audio_seconds": wav.shape[0] * wav.shape[1] / cfg.audio.sample_rate,
             "trimmed_audio_seconds": float(wav_lengths.sum()) / cfg.audio.sample_rate,
+            "graphed": graphed,
         }
         if stage_ms:
             out["stage_ms"] = dict(clock.ms)
         return out
+
+    # ------------------------------------------------- the passes, eager or captured
+
+    def _encode(self, text, lengths, gen):
+        m = self.model
+        memory = m.encoder(text, lengths, gen)
+        return memory, m.memory_proj(memory), length_mask(text.shape[1], lengths)
+
+    def _model_pass(self, text, lengths, gen, n_steps, clock=_NO_CLOCK):
+        """Encoder and the fixed-length decode -> (mel, alignments)."""
+        m, mcfg = self.model, self.cfg.model
+        memory, keys, mask = self._encode(text, lengths, gen)
+        clock.mark("encoder")
+        if self.fused:
+            # drawn on the device, as JAX draws it inside its jit; K3 reads it there
+            seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=gen, device=self.device)
+            frames, align = decode_loop(
+                memory, keys, mask, pack_decoder_weights(m.decoder.cell),
+                n_steps=n_steps, seed=seed, dropout=mcfg.prenet_dropout > 0,
+                dropout_rate=mcfg.prenet_dropout, generator=gen)
+            mel = frames.reshape(text.shape[0], n_steps * mcfg.r, mcfg.n_mels)
+        else:
+            mel, align = m.decoder(memory, keys, mask, n_steps, gen)
+        clock.mark("decode")
+        return mel, align
+
+    def _while_decode(self, text, lengths, gen, n_steps) -> WhileDecode:
+        """Encoder, keys, mask, packed weights and the zeroed carry of the
+        early-exit decode (JAX's ``decode_while``)."""
+        mcfg, icfg = self.cfg.model, self.cfg.infer
+        memory, keys, mask = self._encode(text, lengths, gen)
+        return WhileDecode(
+            memory, keys, mask, pack_decoder_weights(self.model.decoder.cell), gen,
+            n_steps=n_steps, r=mcfg.r, n_mels=mcfg.n_mels, dropout_rate=mcfg.prenet_dropout,
+            silence_threshold=icfg.silence_threshold,
+            # the stop unit is a decoder step = r frames
+            min_silence_steps=max(1, -(-icfg.min_silence_frames // mcfg.r)))
+
+    def _post(self, mel):
+        """-> (linear, end frames (B,) on the device)."""
+        icfg = self.cfg.infer
+        return self.model.postnet(mel), end_frames_device(
+            mel, threshold=icfg.silence_threshold, min_run=icfg.min_silence_frames)
+
+    def _gl(self, linear, gl_iters, clock=_NO_CLOCK):
+        """Griffin-Lim, the final iSTFT and inverse pre-emphasis -> (wav,
+        wav peak-normalised)."""
+        acfg = self.cfg.audio
+        re, im = gl_spectrum(spectrogram_magnitude(linear, acfg), acfg, gl_iters)
+        clock.mark("griffin_lim")
+        wav = spectrum_to_wav(re, im, acfg)
+        return wav, _normalized(wav)
+
+    def _t_gl(self, ends: np.ndarray, frames: int) -> int:
+        """Griffin-Lim's length: with ``trim_before_gl`` the batch's largest
+        end frame rounded up to the quantum, else every frame."""
+        icfg = self.cfg.infer
+        if not icfg.trim_before_gl:
+            return frames
+        q = icfg.gl_length_quantum
+        return min(int(-(-max(int(ends.max()), q) // q) * q), frames)
+
+    def _eager(self, text, lengths, n_steps, gl_iters, clock=_NO_CLOCK):
+        """One call, eagerly -> (mel, linear, alignments, ends, wav, wav
+        peak-normalised)."""
+        gen = self._gen
+        if self.cfg.infer.early_exit:
+            loop = self._while_decode(text, lengths, gen, n_steps)
+            clock.mark("encoder")
+            run_until_done(loop.run_chunk, n_steps, loop.chunk)
+            mel, align = loop.outputs()
+            clock.mark("decode")
+        else:
+            mel, align = self._model_pass(text, lengths, gen, n_steps, clock)
+        linear, ends = self._post(mel)
+        clock.mark("postnet")
+        t_gl = linear.shape[1]
+        if self.split:
+            ends = ends.cpu().numpy()
+            t_gl = self._t_gl(ends, t_gl)
+        return (mel, linear, align, ends, *self._gl(linear[:, :t_gl], gl_iters, clock))
+
+    def _mesh_call(self, text, lengths, n_steps, gl_iters, clock):
+        # pad to a multiple of the data size with length-1 rows (a real
+        # mask; the rows are cut off below) and keep this rank's slice
+        mesh = self.mesh
+        n_real, nd = text.shape[0], mesh.data_size
+        pad = -n_real % nd
+        text = torch.cat([text, text.new_zeros(pad, text.shape[1])])
+        lengths = torch.cat([lengths, lengths.new_ones(pad)])
+        per = text.shape[0] // nd
+        lo = mesh.data_index * per
+        text, lengths = text[lo:lo + per], lengths[lo:lo + per]
+        mel, align = self._model_pass(text, lengths, mesh.batch_shard(self._gen), n_steps, clock)
+        linear = self.model.postnet(mel)
+        clock.mark("postnet")
+        wav, _ = self._gl(linear, gl_iters, clock)
+        if mesh.data_group is not None:
+            mel, linear, align, wav = (all_gather_cat(x, mesh.data_group)
+                                       for x in (mel, linear, align, wav))
+        mel, linear, align, wav = (x[:n_real] for x in (mel, linear, align, wav))
+        icfg = self.cfg.infer
+        ends = end_frames_device(mel, threshold=icfg.silence_threshold,
+                                 min_run=icfg.min_silence_frames)
+        return mel, linear, align, ends, wav, _normalized(wav)
+
+    # ------------------------------------------------------------------ graphs
+
+    def _tensors(self) -> tuple:
+        m = self.model
+        return tuple(t.data_ptr() for t in (*m.parameters(), *m.buffers()))
+
+    def _drop_if_moved(self) -> None:
+        """Drop every graph when the model's tensors are not those the
+        graphs were captured on."""
+        if self._tensors() != self._bound:
+            self.graphs.clear()
+            self._bound = self._tensors()
+
+    def _entry(self, key) -> ShapeGraphs | None:
+        """``key``'s graphs, now the most recently used; None for a shape not
+        seen yet, which gets an empty entry (the least recently used one
+        goes when ``GRAPH_SHAPES`` are kept)."""
+        if key in self.graphs:
+            self.graphs.move_to_end(key)
+            return self.graphs[key]
+        if len(self.graphs) >= GRAPH_SHAPES:
+            self.graphs.popitem(last=False)
+        self.graphs[key] = ShapeGraphs()
+        return None
+
+    def _on_stream(self, texts, seed, n_steps, gl_iters):
+        """One call on the Synthesizer's stream: eager for a shape's first
+        call, else through its graphs -> (outputs, every stage replayed)."""
+        dev = self.device
+        self._drop_if_moved()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=dev)
+        cur = torch.cuda.current_stream(dev)
+        self._stream.wait_stream(cur)
+        with torch.cuda.stream(self._stream):
+            text, lengths = self.encode_texts(texts)
+            key = self.shape_key(dev, *text.shape, n_steps, gl_iters)
+            self._gen.manual_seed(seed)
+            entry = self._entry(key)
+            if entry is None:
+                res = self._eager(text, lengths, n_steps, gl_iters)
+                if self.split:        # this Griffin-Lim length has run eagerly
+                    self.graphs[key].gl[self._t_gl(res[3], res[1].shape[1])] = None
+                graphed = False
+            else:
+                if not entry.model:
+                    self._capture(entry, text, lengths, n_steps, gl_iters)
+                for dst, src in zip(entry.inputs, (text, lengths)):
+                    dst.copy_(src)
+                res, graphed = self._replay(entry, n_steps, gl_iters)
+        cur.wait_stream(self._stream)
+        return res, graphed
+
+    def _capture(self, entry: ShapeGraphs, text, lengths, n_steps, gl_iters):
+        """Capture a shape's model graphs into ``entry``, all of them or
+        (when a capture raises) none."""
+        inputs = (torch.empty_like(text), torch.empty_like(lengths))
+        gen, stream, graphs = self._gen, self._stream, {}
+
+        def capture(name, fn):
+            graphs[name] = runtime.capture_graph(fn, stream, gen)
+            return graphs[name].outputs
+
+        if not self.split:
+            def synth():
+                mel, align = self._model_pass(*inputs, gen, n_steps)
+                linear, ends = self._post(mel)
+                return (mel, linear, align, ends, *self._gl(linear, gl_iters))
+
+            capture("synth", synth)
+        elif self.cfg.infer.early_exit:
+            loop = capture("preamble", lambda: self._while_decode(*inputs, gen, n_steps))
+            capture("chunk", loop.run_chunk)
+
+            def post():
+                mel, align = loop.outputs()
+                return (mel, align, *self._post(mel))
+
+            capture("postnet", post)
+        else:
+            mel, align = capture("preamble", lambda: self._model_pass(*inputs, gen, n_steps))
+            capture("postnet", lambda: (mel, align, *self._post(mel)))
+        entry.inputs, entry.model = inputs, graphs
+
+    def _replay(self, entry: ShapeGraphs, n_steps, gl_iters):
+        g = entry.model
+        if not self.split:
+            runtime.replay_graph(g["synth"])
+            return g["synth"].outputs, True
+        runtime.replay_graph(g["preamble"])
+        if "chunk" in g:
+            chunk = g["chunk"]
+
+            def run_chunk():
+                runtime.replay_graph(chunk)
+                return chunk.outputs
+
+            run_until_done(run_chunk, n_steps, g["preamble"].outputs.chunk)
+        runtime.replay_graph(g["postnet"])
+        mel, align, linear, ends = g["postnet"].outputs
+        ends = ends.cpu().numpy()           # the one host read before Griffin-Lim
+        t_gl = self._t_gl(ends, linear.shape[1])
+        if t_gl not in entry.gl:              # a length's first sighting: eager
+            entry.gl[t_gl] = None
+            return (mel, linear, align, ends, *self._gl(linear[:, :t_gl], gl_iters)), False
+        if entry.gl[t_gl] is None:
+            entry.gl[t_gl] = runtime.capture_graph(
+                lambda: self._gl(linear[:, :t_gl], gl_iters), self._stream)
+        runtime.replay_graph(entry.gl[t_gl])
+        return (mel, linear, align, ends, *entry.gl[t_gl].outputs), True
+
+
+def _normalized(wav):
+    """Each waveform over its peak (at least 1e-3)."""
+    return wav / torch.clamp(wav.abs().amax(dim=-1, keepdim=True), min=1e-3)

@@ -113,21 +113,10 @@ class _FusedEnergy(torch.autograd.Function):
 _LIB = None
 
 
-def _fill_outside_capture(what: str) -> None:
-    """The wrappers' caches (``_LIB``, ``_RESIDENT``, ``_TICKETS``) are
-    filled at first use, which must not fall inside a CUDA graph capture:
-    a counter made there would live in the graph's memory pool. One eager
-    call on the capture stream fills them (``train.step.GraphedTrainStep``
-    runs each shape's first step so)."""
-    if torch.cuda.is_current_stream_capturing():
-        raise RuntimeError(f"{what} is made at first use, not inside a CUDA graph capture: "
-                           f"run one call on the capture stream before capturing")
-
-
 def _lib():
     global _LIB
     if _LIB is None:
-        _fill_outside_capture("the attention-energy library")
+        runtime.fill_outside_capture("the attention-energy library")
         lib = runtime.load("attn_energy")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.tt_attn_energy_fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
@@ -190,7 +179,7 @@ def _resident(dev, bf16: bool) -> dict[int, int]:
     occupancy calculator; cached."""
     key = (_index(dev), bf16)
     if key not in _RESIDENT:
-        _fill_outside_capture("K2's residency table")
+        runtime.fill_outside_capture("K2's residency table")
         counts = {}
         with torch.cuda.device(dev):
             for c in BWD_CLUSTERS:
@@ -216,7 +205,7 @@ def _ticket(dev, stream=None) -> torch.Tensor:
     i = _index(dev)
     s = runtime.stream_ptr(dev) if stream is None else stream.cuda_stream
     if (i, s) not in _TICKETS:
-        _fill_outside_capture("K2's counter for this stream")
+        runtime.fill_outside_capture("K2's counter for this stream")
         with torch.cuda.device(i), torch.cuda.stream(
                 stream or torch.cuda.current_stream(i)):
             _TICKETS[(i, s)] = torch.zeros(1, dtype=torch.int32, device=f"cuda:{i}")

@@ -18,7 +18,10 @@ per SM, each phase of a step split over the cluster (``cluster_slice``);
 Dropout cannot reproduce the TPU's hardware PRNG. The kernel uses a
 counter-based hash keyed by (seed, row, step, layer, unit) and keeps a unit
 iff its 32 bits are below ``keep * 2^32``; the plain version draws from a
-``torch.Generator``. ``dropout_rate=0`` is a true no-op in both.
+``torch.Generator``. ``dropout_rate=0`` is a true no-op in both. The
+kernel reads its seed from device memory, so a seed drawn on the device
+(``torch.randint(..., device=...)``, as JAX draws it inside its jit)
+reaches it without a host read, inside a CUDA graph too.
 """
 
 from __future__ import annotations
@@ -175,23 +178,25 @@ def decode_loop_reference(memory, keys, mask, weights: DecoderWeights, *,
 
 
 def decode_loop(memory, keys, mask, weights: DecoderWeights, *, n_steps: int,
-                seed: int = 0, dropout: bool = True, dropout_rate: float = 0.5,
+                seed=0, dropout: bool = True, dropout_rate: float = 0.5,
                 lowp: bool = True, generator: torch.Generator | None = None,
                 return_keep_counts: bool = False):
     """Run the fused decode. memory (B, T_in, D_mem), keys (B, T_in, A),
     mask (B, T_in) bool or None.
 
     Returns (frames (B, n_steps, r*n_mels) f32, alignments (B, n_steps,
-    T_in) f32). CUDA tensors launch the kernel (dropout keyed by
-    ``seed``; ``return_keep_counts`` adds a third output, (B, n_steps) int32
-    counts of prenet units kept); CPU tensors run ``decode_loop_reference``
-    (dropout from ``generator``, default seeded with ``seed``).
+    T_in) f32). ``seed``: an int, or a one-element int64 tensor on the
+    inputs' device. CUDA tensors launch the kernel (dropout keyed by the
+    seed's low 32 bits, which the kernel reads from device memory;
+    ``return_keep_counts`` adds a third output, (B, n_steps) int32 counts of
+    prenet units kept); CPU tensors run ``decode_loop_reference`` (dropout
+    from ``generator``, default seeded with ``seed``).
     """
     if memory.device.type == "cpu":
         if return_keep_counts:
             raise ValueError("keep counts come from the CUDA kernel only")
         if generator is None:
-            generator = torch.Generator().manual_seed(seed)
+            generator = torch.Generator().manual_seed(int(seed))
         return decode_loop_reference(
             memory, keys, mask, weights, n_steps=n_steps, dropout=dropout,
             dropout_rate=dropout_rate, lowp=lowp, generator=generator)
@@ -237,7 +242,7 @@ def _library():
     lib.tt_decode_loop_resident.argtypes = [vp, ci, ci, vp]
     lib.tt_decode_loop_resident.restype = ci
     lib.tt_decode_loop.argtypes = [vp, vp, vp, vp, vp, ci, ci,
-                                   ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
+                                   vp, ctypes.c_uint32, ctypes.c_float,
                                    ci, vp, vp, vp, vp]
     lib.tt_decode_loop.restype = ci
     return lib
@@ -251,6 +256,7 @@ def _resident(lib, dims, lowp: bool, dev: torch.device) -> dict[int, int]:
     shared memory, by the CUDA occupancy calculator; cached."""
     key = (dev.index, lowp, lib.tt_decode_loop_smem(ctypes.cast(dims, ctypes.c_void_p)))
     if key not in _RESIDENT:
+        runtime.fill_outside_capture("K3's residency table")
         counts = {}
         with torch.cuda.device(dev):
             for c in CLUSTER_SIZES:
@@ -279,7 +285,9 @@ def cluster_plan(memory, keys, weights: DecoderWeights, *, lowp: bool = True):
 def _decode_loop_cuda(memory, keys, mask, weights, *, n_steps, seed, dropout,
                       dropout_rate, lowp, return_keep_counts, _cluster=None):
     """The kernel's launch. ``_cluster`` pins the cluster size (tests and
-    the timing sweep); None takes ``cluster_size``'s."""
+    the timing sweep); None takes ``cluster_size``'s. An int ``seed`` is
+    written to the device by a fill (no copy from the host), so a capture
+    may take one; it is then a constant of the graph."""
     dev = memory.device
     if dev.type != "cuda":
         raise ValueError(f"decode_loop: unsupported device {dev}")
@@ -296,6 +304,13 @@ def _decode_loop_cuda(memory, keys, mask, weights, *, n_steps, seed, dropout,
         t = t.to(sd).contiguous()
         return t if t.data_ptr() % 16 == 0 else t.clone()
 
+    if isinstance(seed, torch.Tensor):
+        if seed.device != dev or seed.dtype != torch.int64 or seed.numel() != 1:
+            raise ValueError(f"decode_loop: the seed tensor must be one int64 on {dev}, got "
+                             f"{seed.numel()} x {seed.dtype} on {seed.device}")
+        seed_t = seed.contiguous()
+    else:
+        seed_t = torch.full((1,), int(seed) & 0xFFFFFFFF, dtype=torch.int64, device=dev)
     mem_s, keys_s = storage(memory), storage(keys)
     w_s = [storage(t) for t in weights]
     maskbias = _maskbias(mask, b, t_in, dev)
@@ -329,7 +344,7 @@ def _decode_loop_cuda(memory, keys, mask, weights, *, n_steps, seed, dropout,
         err = lib.tt_decode_loop(
             mem_s.data_ptr(), keys_s.data_ptr(), maskbias.data_ptr(),
             ctypes.cast(ptrs, vp), ctypes.cast(dims, vp), int(lowp), cluster,
-            seed & 0xFFFFFFFF, threshold, keep_scale, int(use_dropout),
+            seed_t.data_ptr(), threshold, keep_scale, int(use_dropout),
             frames.data_ptr(), aligns.data_ptr(),
             counts.data_ptr() if counts is not None else None,
             runtime.stream_ptr(dev))

@@ -11,9 +11,11 @@ library name carries a hash of the sources, so an edited source is rebuilt.
 
 ``LAUNCHES`` counts kernel launches by kernel name; each wrapper adds to it
 where it launches its kernel, and nowhere else. A call captured into a
-CUDA graph launches nothing: the graphed training step
-(``train.step.GraphedTrainStep``) takes its capture's counts back and adds
-them again on every replay, which launches those kernels.
+CUDA graph launches nothing: ``capture_graph`` takes its capture's counts
+back and ``replay_graph`` adds them again on every replay, which launches
+those kernels. The graphed training step (``train.step.GraphedTrainStep``)
+and the graphed synthesis (``infer.synthesize.Synthesizer``) capture and
+replay through these two.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from dataclasses import dataclass
 from pathlib import Path
 
 import torch
@@ -108,3 +112,61 @@ def check(err: int, what: str) -> None:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def fill_outside_capture(what: str) -> None:
+    """Lazy caches of device state (a library's residency table, K2's
+    counter, the DSP constants) are filled at first use, which must not fall
+    inside a CUDA graph capture: what is made there lives in the graph's
+    memory pool, and a copy from host memory cannot be captured at all. One
+    eager call on the capture stream fills them (the graphed training step
+    and the graphed synthesis run each shape's first call so)."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what} is made at first use, not inside a CUDA graph capture: "
+                           f"run one call on the capture stream before capturing")
+
+
+@dataclass
+class CapturedGraph:
+    """One captured CUDA graph, what its capture returned and its cost."""
+
+    graph: torch.cuda.CUDAGraph
+    outputs: object                   # what the captured function returned
+    launches: collections.Counter     # LAUNCHES of one replay
+    capture_s: float                  # host seconds to record the graph
+    instantiate_s: float              # host seconds to instantiate it
+    pool_bytes: int                   # the private memory pool's growth during capture
+
+
+def capture_graph(fn, stream, generator=None) -> CapturedGraph:
+    """``fn()`` captured on ``stream`` into a CUDA graph with a private
+    memory pool (thread-local capture mode; ``keep_graph=True``, so that
+    ``utils.profiling.graph_nodes`` can read its nodes), ``generator``
+    registered with it so that each replay draws what an eager call at the
+    generator's state would, and advances it alike. The capture's wrapper
+    calls launch nothing: their counts are taken back out of ``LAUNCHES``
+    and kept for ``replay_graph``. A failed capture raises."""
+    before = collections.Counter(LAUNCHES)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    if generator is not None:
+        graph.register_generator_state(generator)
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+        reserved = torch.cuda.memory_reserved(stream.device)
+        outputs = fn()
+    t1 = time.perf_counter()
+    pool = torch.cuda.memory_reserved(stream.device) - reserved
+    graph.instantiate()
+    launches = collections.Counter(LAUNCHES)
+    launches.subtract(before)
+    launches = +launches
+    LAUNCHES.subtract(launches)     # recorded, not launched
+    return CapturedGraph(graph, outputs, launches, t1 - t0, time.perf_counter() - t1, pool)
+
+
+def replay_graph(entry) -> None:
+    """Replay ``entry.graph`` (a ``CapturedGraph``, or a record holding one's
+    ``graph`` and ``launches``) on the current stream, and count the
+    launches it makes. The replay rewrites the capture's outputs in place."""
+    entry.graph.replay()
+    LAUNCHES.update(entry.launches)

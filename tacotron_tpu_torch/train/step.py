@@ -267,7 +267,8 @@ class GraphedTrainStep:
     loader's buckets); another shape raises. A failed capture raises.
 
     ``runtime.LAUNCHES``: the capture's wrapper calls launch nothing, so
-    their counts are taken back and added again on every replay.
+    their counts are taken back and added again on every replay
+    (``runtime.capture_graph``, ``runtime.replay_graph``).
     ``graphs`` maps each shape seen to its ``CapturedStep`` (None after the
     shape's eager first step).
     """
@@ -326,29 +327,18 @@ class GraphedTrainStep:
         dev = next(state.model.parameters()).device
         inputs = [None if x is None else torch.empty_like(x, device=dev) for x in batch]
         _copy_into(inputs, batch)
-        before = collections.Counter(runtime.LAUNCHES)
-        graph = torch.cuda.CUDAGraph(keep_graph=True)     # its nodes stay readable
-        graph.register_generator_state(state.generator)
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph, stream=self._stream, capture_error_mode="thread_local"):
-            reserved = torch.cuda.memory_reserved(dev)
-            metrics, alignments = _forward_backward_update(state, *inputs, self.cfg, self.mesh)
-        t1 = time.perf_counter()
-        pool = torch.cuda.memory_reserved(dev) - reserved
-        graph.instantiate()
-        launches = collections.Counter(runtime.LAUNCHES)
-        launches.subtract(before)
-        launches = +launches
-        runtime.LAUNCHES.subtract(launches)     # recorded, not launched
-        return CapturedStep(graph, inputs, metrics, alignments,
-                            [p.grad for p in state.model.parameters()], launches,
-                            t1 - t0, time.perf_counter() - t1, pool)
+        c = runtime.capture_graph(
+            lambda: _forward_backward_update(state, *inputs, self.cfg, self.mesh),
+            self._stream, state.generator)
+        metrics, alignments = c.outputs
+        return CapturedStep(c.graph, inputs, metrics, alignments,
+                            [p.grad for p in state.model.parameters()], c.launches,
+                            c.capture_s, c.instantiate_s, c.pool_bytes)
 
     def _replay(self, state: TrainState, entry: CapturedStep, batch):
         _copy_into(entry.inputs, batch)
         set_learning_rate(state.opt, self.cfg.train, state.step)
-        entry.graph.replay()
-        runtime.LAUNCHES.update(entry.launches)
+        runtime.replay_graph(entry)
         for p, g in zip(state.model.parameters(), entry.grads):
             p.grad = g
         return ({k: v.clone() for k, v in entry.metrics.items()},

@@ -1,5 +1,6 @@
-"""The graphed training step (``train.step.GraphedTrainStep``) against the
-eager ``train_step`` on the card, at tiny width. Marked ``cuda``: without a
+"""The graphed training step (``train.step.GraphedTrainStep``) and the
+graphed synthesis (``infer.synthesize.Synthesizer``) against their eager
+runs on the card, at tiny width. Marked ``cuda``: without a
 GPU every test skips (a CUDA graph has no CPU mode). This file imports no
 JAX: ``python -m pytest tests/test_torch_graph_cuda.py -m cuda``.
 
@@ -16,20 +17,39 @@ per decoder step, and each replay adds those to ``runtime.LAUNCHES``.
 A resume from the port's checkpoint after graphed steps continues the
 uninterrupted graphed run bit for bit, whether the step restored into is
 a new one or the one that captured graphs before the restore.
+
+Synthesis, dropout on, on the fixed-length path (fused: K3; step by step)
+and the split path (early exit after step 20, inside the third of five
+chunks; early exit that never trips, the last chunk partly past
+``n_steps``; trimming alone; early exit with trimming; a silence
+threshold above every peak, so that the exit and the trim do not depend
+on the dropout masks): four calls of one shape (eager,
+capture, replay, replay; seeds 1, 2, 1, 3) each bit-equal to an eager
+call with its seed, the fixed path's one graph holding K3's one node and
+K4's 3 per iteration, the split path's K4 nodes all in its Griffin-Lim
+graph; the graphs kept through an in-place ``load_state_dict`` (the
+replay then equal to an eager call on the new weights) and dropped when
+a weight's tensor moves.
 """
 
 import collections
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
 from tacotron_tpu_torch import runtime
 from tacotron_tpu_torch.config import get_config
+from tacotron_tpu_torch.data.vocab import Vocab
+from tacotron_tpu_torch.infer import Synthesizer
+from tacotron_tpu_torch.infer.early_exit import DECODE_CHUNK
+from tacotron_tpu_torch.models.tacotron import Tacotron
 from tacotron_tpu_torch.ops.attn_energy import energy_bwd
 from tacotron_tpu_torch.train import checkpoint, create_train_state, make_train_step, train_step
 from tacotron_tpu_torch.train.step import GraphedTrainStep
 from tacotron_tpu_torch.utils.profiling import graph_nodes
+from tacotron_tpu_torch.weights import init_params, split_state
 
 pytestmark = pytest.mark.cuda
 
@@ -184,3 +204,131 @@ def test_capture_does_not_fill_the_energy_caches(dev):
     with pytest.raises(RuntimeError, match="not inside a CUDA graph capture"):
         with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
             energy_bwd(keys, q, v, de)
+
+
+# ------------------------------------------------------------------ synthesis
+
+PROMPTS = ["hello world", "a test of the graphs", "graphs"]
+SYNTH_STEPS, SYNTH_GL = 40, 3          # 40 decoder steps: 5 chunks of 8
+SEEDS = (1, 2, 1, 3)                   # eager, capture + replay, replay, replay
+# every frame silent: the exit comes after min_silence_frames / r = 20 steps
+# and every end frame is 0, whatever the masks
+SILENT = {"silence_threshold": 1e9, "min_silence_frames": 100, "gl_length_quantum": 8}
+SYNTH_PATHS = {
+    "fused": (True, {}),
+    "step": (False, {}),
+    "exit": (False, {"early_exit": True, **SILENT}),
+    "exit_never": (False, {"early_exit": True, "silence_threshold": -1.0}),
+    "trim": (False, {"trim_before_gl": True, **SILENT}),
+    "exit_trim": (False, {"early_exit": True, "trim_before_gl": True, **SILENT}),
+}
+
+
+def _synth_cfg(**infer):
+    base = get_config("tiny_cpu")
+    return base.replace(
+        audio=dataclasses.replace(base.audio, n_fft=512, win_length=400, hop_length=128,
+                                  griffin_lim_iters=SYNTH_GL),
+        model=dataclasses.replace(base.model, vocab_size=40, n_freq=257,
+                                  max_decode_steps=SYNTH_STEPS),
+        infer=dataclasses.replace(base.infer, **infer))
+
+
+def _outputs(out):
+    return {k: out[k] for k in ("mel", "linear", "alignments", "wavs", "end_frames")}
+
+
+@pytest.fixture(scope="module")
+def synth_state(dev):
+    runtime.build(("decode_loop", "griffin_lim"))
+    model = init_params(Tacotron(_synth_cfg().model, device=dev), seed=0)
+    return split_state(model), Vocab.build(PROMPTS)
+
+
+@pytest.fixture(scope="module", params=list(SYNTH_PATHS))
+def synth_calls(synth_state, request):
+    """One path's Synthesizer over SEEDS (graphed) and an eager Synthesizer
+    (``stage_ms=True``) on the same seeds: (name, synthesizer, per call
+    (graphed outputs, eager outputs, launches of the graphed call))."""
+    (p, bs), vocab = synth_state
+    fused, infer = SYNTH_PATHS[request.param]
+    cfg = _synth_cfg(**infer)
+    synth = Synthesizer(cfg, p, bs, vocab, fused=fused)
+    eager = Synthesizer(cfg, p, bs, vocab, fused=fused)
+    calls = []
+    for seed in SEEDS:
+        before = collections.Counter(runtime.LAUNCHES)
+        got = synth(PROMPTS, seed=seed)
+        launches = collections.Counter(runtime.LAUNCHES)
+        launches.subtract(before)
+        want = eager(PROMPTS, seed=seed, stage_ms=True)
+        calls.append((got, want, +launches))
+    return request.param, synth, calls
+
+
+def test_graphed_synthesis_is_bit_equal_to_eager(synth_calls):
+    name, synth, calls = synth_calls
+    assert [got["graphed"] for got, _, _ in calls] == [False, True, True, True]
+    for i, (got, want, _) in enumerate(calls):
+        assert want["graphed"] is False
+        for k, v in _outputs(want).items():
+            assert np.array_equal(got[k], v), (name, i, k)
+    r = calls[0][0]["mel"].shape[1] // SYNTH_STEPS
+    for got, *_ in calls:
+        live = np.abs(got["mel"]).max(axis=(0, 2)) > 0
+        t_gl = got["wavs"].shape[1] // synth.cfg.audio.hop_length + 1
+        exit_step = 20 if name in ("exit", "exit_trim") else SYNTH_STEPS
+        assert live[:exit_step * r].all() and not live[exit_step * r:].any(), name
+        assert t_gl == (8 if "trim" in name else SYNTH_STEPS * r), name
+    # the same seed, the same masks: calls 1 and 3
+    assert all(np.array_equal(calls[0][0][k], calls[2][0][k]) for k in _outputs(calls[0][0]))
+    assert not np.array_equal(calls[0][0]["mel"], calls[1][0]["mel"])
+
+
+def test_synthesis_graphs_hold_k3_and_k4(synth_calls):
+    name, synth, calls = synth_calls
+    fused = synth.fused
+    per_call = {"griffin_lim": 3 * SYNTH_GL, **({"decode_loop": 1} if fused else {})}
+    assert all(launches == per_call for *_, launches in calls), name
+    (entry,) = synth.graphs.values()
+    graphs = dict(entry.captured())
+    want = (["synth"] if not synth.split else
+            ["preamble", *(["chunk"] if synth.cfg.infer.early_exit else []), "postnet",
+             *(f"griffin_lim t_gl {t}" for t in entry.gl)])
+    assert sorted(graphs) == sorted(want)
+    for g_name, g in graphs.items():
+        nodes = graph_nodes(g.graph)
+        k3 = sum(n for k, n in nodes.items() if "decode_loop_kernel" in k)
+        k4 = sum(n for k, n in nodes.items() if "gl_wgmma" in k or "gl_ola_frame" in k)
+        gl = g_name == "synth" or g_name.startswith("griffin_lim")
+        assert (k3, k4) == (int(fused and gl), 3 * SYNTH_GL if gl else 0), (name, g_name, nodes)
+        want = per_call if g_name == "synth" else {"griffin_lim": 3 * SYNTH_GL} if gl else {}
+        assert dict(g.launches) == want, (name, g_name)
+        assert g.capture_s > 0 and g.instantiate_s > 0 and g.pool_bytes >= 0
+    if "chunk" in graphs:
+        assert graphs["preamble"].outputs.chunk == DECODE_CHUNK
+
+
+def test_synthesis_graphs_follow_the_weights(synth_state):
+    (p, bs), vocab = synth_state
+    cfg = _synth_cfg(early_exit=True, trim_before_gl=True, gl_length_quantum=8)
+    synth = Synthesizer(cfg, p, bs, vocab)
+    for seed in (1, 2):
+        synth(PROMPTS, seed=seed)
+    (entry,) = synth.graphs.values()
+    captured = dict(entry.captured())
+    new = {k: v + 0.01 * torch.randn_like(v) if v.is_floating_point() else v
+           for k, v in synth.model.state_dict().items()}
+    synth.model.load_state_dict(new)              # copied in place: the graphs stay
+    got = synth(PROMPTS, seed=4)
+    assert got["graphed"] is True and dict(next(iter(synth.graphs.values())).captured()) == captured
+    eager = Synthesizer(cfg, *split_state(synth.model), vocab)(PROMPTS, seed=4, stage_ms=True)
+    for k, v in _outputs(eager).items():
+        assert np.array_equal(got[k], v), k
+    w = synth.model.postnet.linear_proj.weight
+    w.data = w.data.clone()                       # a weight at a new address
+    again = synth(PROMPTS, seed=4)
+    assert again["graphed"] is False
+    assert [e.captured() for e in synth.graphs.values()] == [[]]
+    for k, v in _outputs(eager).items():
+        assert np.array_equal(again[k], v), k
