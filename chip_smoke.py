@@ -62,7 +62,9 @@ Phases, in order; any failure raises and exits non-zero:
    the Griffin-Lim kernels in both modes each launch's device
    time per iteration (synthesis, overlap-add + frame, analysis, K5's
    pack), the achieved TFLOP/s and
-   share of the bound, the device launches per iteration against
+   share of the bound, the device launches per iteration (the kernel
+   nodes of a CUDA graph captured around one call, ``gl_graph_nodes``: the
+   profiler can drop an event, a graph holds every launch) against
    ``runtime.LAUNCHES``, and a second yardstick at the padded shapes; K4's
    f32 mode against the plain f32 loop as [main] runs it (converging as
    well; its waveform held at least as close to the loop with f64 sums as
@@ -87,7 +89,7 @@ Phases, in order; any failure raises and exits non-zero:
    version on the graph's own encoder outputs; then [fast-graph]:
    [synth-graph]'s (a)-(d) on [fast]'s path and its graphs
    (preamble, decode_while's chunk of 8 steps replayed until the device
-   says done, post-net, one Griffin-Lim graph per t_gl) with the preset's
+   says done, post-net; Griffin-Lim eager at t_gl) with the preset's
    threshold (no exit: 63 chunks) and with the derived one (the exit after
    step 6: one chunk, t_gl 64; every call at seed 1, the seed the
    threshold was derived on), the decode alone (the chunk graph's
@@ -208,7 +210,20 @@ Phases, in order; any failure raises and exits non-zero:
    step 2, a second request while its window is open refused, the trace's
    K1/K2 device events equal to the captured steps' decoder steps; the
    kernel rows of K1, K2 (f32), K3 and K4 bf16 gain ``tooling_launches``;
-16. last line: {"ok": true, "device": {...}}.
+16. [evidence] the evidence runners at the flagship recipe's widths
+   (full_1chip, r 5, char_sec 0.06 with jitter 0.3, text length 20, B 32):
+   ``cli.alignment_run`` on 64 utterances, 40 steps with a save at step
+   30, then a resume from its run directory for 20 more, each run one
+   eager step, one capturing and replays of one graph (CUDA events around
+   each step), the summary at step 60 on the card's name, its alignments
+   re-scored; then ``cli.audio_evidence`` on 2 held-out prompts at GL 100
+   from that run directory: its K4 launches equal to the kernel nodes of
+   its Griffin-Lim call captured again, and K4 held against its plain
+   version on that call's own magnitudes and arguments (the evidence STFT,
+   n_fft 512, 257 bins) as GL_PATH sets out; steps/s and the phase's
+   seconds; K4 bf16's row gains ``evidence_launches`` and
+   ``evidence_max_abs_err``;
+17. last line: {"ok": true, "device": {...}}.
 
 ``--report PATH`` also writes every check and measurement as JSON.
 """
@@ -1079,16 +1094,19 @@ def phase_main(report, cfg, vocab):
             **gl_kw(acfg))))
     f32_launches = runtime.LAUNCHES["griffin_lim"]
     f32_ms = sum(ms for ms, _ in stages.values())
-    dev_launches = sum(n for _, n in stages.values())
+    # the device's count from a captured call's kernel nodes; the profiler only times
+    nodes = gl_graph_nodes(lambda: griffin_lim_spectrum(
+        mag, n_iter=acfg.griffin_lim_iters, momentum=acfg.gl_momentum, lowp=False, **gl_kw(acfg)))
     gl_ms = out["stage_ms"]["griffin_lim"]
     aps_f32 = out["audio_seconds"] / (wall + (f32_ms - gl_ms) / 1e3)
     log(f"  Griffin-Lim stage: bf16 kernel (the default) {gl_ms:.3f} ms, f32 kernel "
         f"{f32_ms:.3f} ms of device time ({f32_launches} launches); with the f32 kernel the "
         f"call would give {aps_f32:.3f} audio_seconds_per_s (timed call less its stage plus "
         f"this)")
-    require(f32_launches == dev_launches == 3 * acfg.griffin_lim_iters and stages["pack"][1] == 0,
-            f"the f32 kernel launched: {dev_launches:.0f} device launches = LAUNCHES "
-            f"{f32_launches} = 3 per iteration")
+    require(f32_launches == nodes["k4"] == nodes["launches"].get("griffin_lim")
+            == 3 * acfg.griffin_lim_iters and nodes["pack"] == 0,
+            f"the f32 kernel launched: {nodes['k4']} kernel nodes of a captured call = LAUNCHES "
+            f"{f32_launches} = 3 per iteration, no pack")
     report["main"].update(griffin_lim_f32_ms=f32_ms, audio_seconds_per_s_f32_gl=aps_f32)
     launches["griffin_lim_f32"] = f32_launches
     return synth, out, launches, mag, res["f32"], (f32_ms, stages)
@@ -1352,8 +1370,8 @@ def phase_fast_graph(report, vocab, cfg):
     weights: 63 chunks of 8 steps, Griffin-Lim on every frame) and with
     [fast]'s derived threshold (the exit after step 6: one chunk, t_gl 64);
     for each, (e) the decode alone at each chunk size of CHUNK_SWEEP
-    (``chunk_sweep``). -> K4 launches over the timed replays and its graph
-    nodes."""
+    (``chunk_sweep``). Griffin-Lim runs eagerly after the graphs. -> K4
+    launches over the timed replays and its graph nodes (none)."""
     from tacotron_tpu_torch.weights import split_state
 
     thr = report["fast"]["derived_threshold"]["silence_threshold"]
@@ -1367,7 +1385,8 @@ def phase_fast_graph(report, vocab, cfg):
              cfg.replace(infer=dataclasses.replace(cfg.infer, silence_threshold=thr)), (1, 1, 1))):
         tag = f"[fast-graph] {label}"
         log(f"{tag}: Synthesizer, synth_fast, B 8, silence threshold "
-            f"{c.infer.silence_threshold}: preamble, chunk, post-net and Griffin-Lim graphs")
+            f"{c.infer.silence_threshold}: preamble, chunk and post-net graphs, Griffin-Lim "
+            f"eager")
         rep, l_, n_, synth = synth_graph_phase(report, key, tag, c, p, bs, vocab, fused=False,
                                                seeds=seeds)
         rep["chunk_sweep"] = chunk_sweep(c, p, bs, vocab, rep["steps_done"])
@@ -1377,12 +1396,10 @@ def phase_fast_graph(report, vocab, cfg):
         require(rep["steps_done"] == fast["steps_done"],
                 f"{tag}: the replays' steps done equal [fast]'s eager call's "
                 f"({fast['steps_done']})")
-        require(sorted(rep["graphs"]) == sorted(
-                    ["preamble", "chunk", "postnet", f"griffin_lim t_gl {fast['t_gl']}"])
-                and rep["graphs"][f"griffin_lim t_gl {fast['t_gl']}"]["k4_nodes"]
-                == 3 * c.audio.griffin_lim_iters,
-                f"{tag}: preamble, chunk, post-net and one Griffin-Lim graph (t_gl "
-                f"{fast['t_gl']}, K4's {3 * c.audio.griffin_lim_iters} nodes)")
+        require(sorted(rep["graphs"]) == ["chunk", "postnet", "preamble"]
+                and not any(g["k4_nodes"] for g in rep["graphs"].values()),
+                f"{tag}: preamble, chunk and post-net graphs, none holding K4 (Griffin-Lim "
+                f"eager at t_gl {fast['t_gl']}, its launches counted in (c))")
         del synth
     return {"launches": dict(launches), "graph_nodes": dict(nodes)}
 
@@ -1628,23 +1645,26 @@ def check_k3_at(where, memory, keys, mask, w, n_path):
     return out
 
 
-def check_k4_at(label, mag, acfg, n_iter):
+def check_k4_at(label, mag, acfg, n_iter, kernel=None, plain=None, over_share=0.0):
     """K4's bf16 mode, the mode the paths launch, against its plain version
     on a path's magnitudes ``mag``: its first iteration component by
     component within one bf16 ulp of the magnitude's peak, then as GL_PATH
-    sets out at depth ``n_iter``. -> the errors."""
+    sets out at depth ``n_iter``. ``kernel(m, n)`` / ``plain(m, n)``: the
+    spectrum after n iterations on m (by default ``griffin_lim_spectrum`` /
+    ``gl_spectrum_reference`` at ``acfg``'s STFT and momentum);
+    ``over_share`` as ``check_gl_steps``'. -> the errors."""
     from tacotron_tpu_torch.dsp.fused_gl import gl_spectrum_reference, griffin_lim_spectrum
 
     kw = dict(momentum=acfg.gl_momentum, **gl_kw(acfg))
+    kernel = kernel or (lambda m, n: griffin_lim_spectrum(m, n_iter=n, **kw))
+    plain = plain or (lambda m, n: gl_spectrum_reference(m, n_iter=n, **kw))
     with torch.no_grad():
-        first = max(max_err(x, y) for x, y in zip(
-            griffin_lim_spectrum(mag, n_iter=1, **kw),
-            gl_spectrum_reference(mag, n_iter=1, **kw))) / float(mag.max())
+        first = max(max_err(x, y) for x, y in zip(kernel(mag, 1), plain(mag, 1))) / float(mag.max())
     log(f"  {label}: first iteration max err / magnitude peak {first:.3e}")
     require(first <= GL_PATH["step_tol"], f"{label}: first iteration within one bf16 ulp "
             f"({GL_PATH['step_tol']:.2e}) of the magnitude's peak")
-    chk = check_gl_path(label, mag, acfg, lambda n: griffin_lim_spectrum(mag, n_iter=n, **kw),
-                        lambda n: gl_spectrum_reference(mag, n_iter=n, **kw), n_iter)
+    chk = check_gl_path(label, mag, acfg, lambda n: kernel(mag, n), lambda n: plain(mag, n),
+                        n_iter, over_share=over_share)
     return {"first_iteration": first, **chk}
 
 
@@ -2411,6 +2431,35 @@ def gl_stages(fn, reps=1):
             for st, pat in GL_STAGES.items()}
 
 
+def gl_graph_nodes(fn) -> dict:
+    """Count the Griffin-Lim kernels of one call of ``fn`` from the kernel
+    nodes of a CUDA graph captured around it (``utils.profiling.graph_nodes``),
+    after an eager call on the capture stream that fills the lazy caches:
+    {"k4": synthesis + overlap-add + analysis nodes, "pack": K5's pack nodes,
+    "launches": what the capture's wrapper calls added to
+    ``runtime.LAUNCHES``}. A graph's nodes are every launch of the call,
+    where torch.profiler can drop a short kernel's event (2,999 of 3,000
+    once); ``runtime.LAUNCHES`` is left as it was."""
+    from tacotron_tpu_torch import runtime
+    from tacotron_tpu_torch.utils.profiling import graph_nodes
+    saved = collections.Counter(runtime.LAUNCHES)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.no_grad():
+        with torch.cuda.stream(stream):
+            fn()
+        g = runtime.capture_graph(fn, stream)
+    torch.cuda.current_stream().wait_stream(stream)
+    nodes = graph_nodes(g.graph)
+    out = {"k4": sum(n for k, n in nodes.items() if "gl_wgmma" in k or "gl_ola_frame" in k),
+           "pack": sum(n for k, n in nodes.items() if "gl_pack" in k),
+           "launches": dict(g.launches)}
+    del g
+    runtime.LAUNCHES.clear()
+    runtime.LAUNCHES.update(saved)
+    return out
+
+
 def ptxas_report(log_text):
     """The ``-Xptxas -v`` build log -> [{kernel, registers, spill_stores,
     spill_loads, static_smem}] per compiled entry function."""
@@ -2482,12 +2531,17 @@ def phase_timing_serving(report, fast_cfg, fast_res, mag_fast, mag_main, main_la
         res["pm"] = gl_spectrum_reference(mag_main, n_iter=m_it, **gl_kw(acfg))
         lib_main = dft_products_ms(mag_main, acfg, 10, torch.bfloat16) / 10
         lib_pad_main = dft_products_ms(mag_main, acfg, 10, torch.bfloat16, padded=True) / 10
-    for label, st, cnt, it in (("[fast]", st_fast, cnt_fast, n_it), ("[main]", st_main, cnt_main,
-                                                                       m_it)):
-        dev_launches = sum(n for _, n in st.values())
-        require(dev_launches == cnt.get("griffin_lim") == 3 * it and st["pack"][1] == 0,
-                f"K4 bf16 at {label}'s shape: {dev_launches:.0f} device launches = LAUNCHES "
-                f"{cnt.get('griffin_lim')} = 3 per iteration")
+    # the device's count from a captured call's kernel nodes; the profiler only times
+    node_counts = {
+        "[fast]": gl_graph_nodes(lambda: griffin_lim_spectrum(mag_fast, **kw)),
+        "[main]": gl_graph_nodes(lambda: griffin_lim_spectrum(mag_main, n_iter=m_it,
+                                                              **gl_kw(acfg)))}
+    for label, cnt, it in (("[fast]", cnt_fast, n_it), ("[main]", cnt_main, m_it)):
+        nodes = node_counts[label]
+        require(nodes["k4"] == cnt.get("griffin_lim") == nodes["launches"].get("griffin_lim")
+                == 3 * it and nodes["pack"] == 0,
+                f"K4 bf16 at {label}'s shape: {nodes['k4']} kernel nodes of a captured call = "
+                f"LAUNCHES {cnt.get('griffin_lim')} = 3 per iteration, no pack")
     k_ms = sum(ms for ms, _ in st_fast.values())
     main_ms = sum(ms for ms, _ in st_main.values())
     chk = check_gl_path(
@@ -2526,7 +2580,7 @@ def phase_timing_serving(report, fast_cfg, fast_res, mag_fast, mag_main, main_la
           "library_ms": lib_ms, "library_padded_ms": lib_pad_ms,
           "shape": f"B {mag_fast.shape[0]} F {mag_fast.shape[1]} iters {n_it} momentum "
                    f"{acfg.gl_momentum} bf16",
-          "ms_per_iteration": k_ms / n_it, "device_launches": sum(n for _, n in st_fast.values()),
+          "ms_per_iteration": k_ms / n_it, "device_launches": node_counts["[fast]"]["k4"],
           "stage_ms_per_iteration": {k: v[0] / n_it for k, v in st_fast.items()},
           "main_shape_ms": main_ms, "main_shape_ms_per_iteration": main_it_ms,
           "main_shape": f"B {mag_main.shape[0]} F {mag_main.shape[1]} iters {m_it} momentum 0 bf16",
@@ -2556,10 +2610,12 @@ def phase_timing_serving(report, fast_cfg, fast_res, mag_fast, mag_main, main_la
         s_lib = dft_products_ms(mag_main, acfg, reps, torch.bfloat16) / reps
         s_lib_pad = dft_products_ms(mag_main, acfg, reps, torch.bfloat16, padded=True) / reps
     s_ms = sum(ms for ms, _ in st5.values())
-    s_n = sum(n for _, n in st5.values())
-    require(s_n == cnt5.get("griffin_lim_step") == 4 * reps and st5["pack"][1] == reps,
-            f"K5: {s_n:.0f} device launches = LAUNCHES {cnt5.get('griffin_lim_step')} = 4 per "
-            f"call, one of them the pack")
+    nodes = gl_graph_nodes(lambda: griffin_lim_spectrum(mag_main, n_iter=reps, inner=1,
+                                                        **gl_kw(acfg)))
+    s_n = nodes["k4"] + nodes["pack"]
+    require(s_n == cnt5.get("griffin_lim_step") == 4 * reps and nodes["pack"] == reps,
+            f"K5: {s_n} kernel nodes of a captured call = LAUNCHES "
+            f"{cnt5.get('griffin_lim_step')} = 4 per call, one of them the pack")
     b5 = gl_bound_bf16(rows_main, nb, win, 1, planar_io=True)
     k5 = {"name": "griffin_lim_step", "route": "cuda",
           "source": "tacotron_tpu_torch/csrc/griffin_lim.cu",
@@ -2586,10 +2642,12 @@ def phase_timing_serving(report, fast_cfg, fast_res, mag_fast, mag_main, main_la
         f_lib = dft_products_ms(mag_main, acfg, reps, torch.float32) / reps
         f_lib_pad = dft_products_ms(mag_main, acfg, reps, torch.float32, padded=True) / reps
     f_ms = sum(ms for ms, _ in st5f.values())
-    f_n = sum(n for _, n in st5f.values())
-    require(f_n == cnt5f.get("griffin_lim_step") == 4 * reps and st5f["pack"][1] == reps,
-            f"K5 f32: {f_n:.0f} device launches = LAUNCHES {cnt5f.get('griffin_lim_step')} = 4 "
-            f"per call, one of them the pack")
+    nodes = gl_graph_nodes(lambda: griffin_lim_spectrum(mag_main, n_iter=reps, inner=1,
+                                                        lowp=False, **gl_kw(acfg)))
+    f_n = nodes["k4"] + nodes["pack"]
+    require(f_n == cnt5f.get("griffin_lim_step") == 4 * reps and nodes["pack"] == reps,
+            f"K5 f32: {f_n} kernel nodes of a captured call = LAUNCHES "
+            f"{cnt5f.get('griffin_lim_step')} = 4 per call, one of them the pack")
     b5f, cores5f = gl_bound_f32(rows_main, nb, win, 1, planar_io=True)
     k5f = {"name": "griffin_lim_step_f32", "route": "cuda",
            "source": "tacotron_tpu_torch/csrc/griffin_lim.cu",
@@ -4315,6 +4373,157 @@ def phase_tooling(report, cfg, vocab):
             "attn_energy_bwd": train_launches["attn_energy_bwd"]}
 
 
+# [evidence]: both evidence runners at the flagship recipe's widths, short
+EVIDENCE = {"n_utts": 64, "steps": (40, 20), "save_every": 30, "prompts": 2, "gl_iters": 100,
+            "char_sec": 0.06, "jitter": 0.3, "text_len": 20, "batch": 32}
+
+
+@contextlib.contextmanager
+def gl_calls():
+    """A list that receives (magnitude, keyword arguments) of every K4 call
+    (``fused_gl._gl_cuda``) while the context is open; the calls run."""
+    from tacotron_tpu_torch.dsp import fused_gl
+    seen, inner = [], fused_gl._gl_cuda
+
+    def spy(magnitude, **kw):
+        seen.append((magnitude.detach().clone(), kw))
+        return inner(magnitude, **kw)
+
+    fused_gl._gl_cuda = spy
+    try:
+        yield seen
+    finally:
+        fused_gl._gl_cuda = inner
+
+
+def phase_evidence(report):
+    """[evidence] ``cli.alignment_run`` at the flagship recipe (full_1chip,
+    r 5, char_sec 0.06 with jitter 0.3, text length 20, B 32) on 64
+    utterances: 40 steps with a save at 30, then a resume from the run
+    directory for 20 more, through the graphed step (each run: one eager
+    step, one capturing, replays); then ``cli.audio_evidence`` on 2 held-out
+    prompts at GL 100 from the run directory, its K4 launches (LAUNCHES)
+    equal to the kernel nodes of its Griffin-Lim call captured again, and
+    K4 on that call's magnitudes and arguments against its plain version
+    (``check_k4_at``). -> each kernel's launches."""
+    import shutil
+
+    from tacotron_tpu_torch import runtime
+    from tacotron_tpu_torch.cli import alignment_run, audio_evidence
+    from tacotron_tpu_torch.config import Config
+    from tacotron_tpu_torch.dsp import fused_gl
+    from tacotron_tpu_torch.dsp.fused_gl import gl_spectrum_reference
+    from tacotron_tpu_torch.train import checkpoint
+    from tacotron_tpu_torch.utils.metrics import alignment_scores
+
+    c = EVIDENCE
+    t_phase = time.perf_counter()
+    log(f"[evidence] cli.alignment_run at full_1chip, r 5, {c['n_utts']} utterances, "
+        f"{c['steps'][0]} + {c['steps'][1]} graphed steps (a resume), then "
+        f"cli.audio_evidence on {c['prompts']} held-out prompts at GL {c['gl_iters']}")
+    root = os.path.join(ROOT, "build", "chip_smoke_evidence")
+    shutil.rmtree(root, ignore_errors=True)
+    out, run = os.path.join(root, "align"), os.path.join(root, "align_work", "run")
+    common = ["--preset", "full_1chip", "--set", "model.r=5", "--n-utts", str(c["n_utts"]),
+              "--char-sec", str(c["char_sec"]), "--char-sec-jitter", str(c["jitter"]),
+              "--text-len", str(c["text_len"]), "--batch-size", str(c["batch"]),
+              "--save-every", str(c["save_every"]), "--log-every", "10", "--out", out,
+              "--save-run", run]
+    rep = report["evidence"] = {"card": report["card"]}
+    train_s, replays, replay_s = 0.0, 0, 0.0
+    for i, n in enumerate(c["steps"]):
+        runtime.LAUNCHES.clear()
+        with graphed_steps() as made:
+            lines, secs = run_cli(alignment_run.main, [
+                *common, "--steps", str(n), *(["--resume-from", run] if i else [])])
+        require(len(made) == 1, f"run {i}: one graphed step")
+        fn, calls = made[0]
+        for c_ in calls:
+            c_["events"][1].synchronize()
+            c_["s"] = c_["events"][0].elapsed_time(c_.pop("events")[1]) / 1e3
+        kinds = [c_["kind"] for c_ in calls]
+        require(kinds == ["eager", "capture"] + ["replay"] * (n - 2),
+                f"run {i}: {n} steps, the first eager, the second capturing, "
+                f"{kinds.count('replay')} replays of one graph")
+        require(not runtime.LAUNCHES, f"run {i}: no hand kernel on the path (attention_energy "
+                f"xla): {dict(runtime.LAUNCHES)}")
+        if i:
+            start = c["steps"][0]
+            require(any(ln == f"resumed from {run} at step {start}" for ln in lines),
+                    f"run {i} resumed at step {start}")
+        replays += kinds.count("replay")
+        replay_s += sum(c_["s"] for c_ in calls if c_["kind"] == "replay")
+        train_s += secs
+        for ln in lines:
+            if ln.startswith("step") or ln.startswith("{"):
+                log(f"  run {i}: {ln}")
+    with open(os.path.join(out, "summary.json")) as f:
+        summary = json.load(f)
+    total = sum(c["steps"])
+    require(summary["steps"] == total and checkpoint.all_steps(os.path.join(run, "ckpt"))
+            == [c["save_every"], c["steps"][0], total],
+            f"summary at step {total}; checkpoints at {c['save_every']}, {c['steps'][0]} and "
+            f"{total}")
+    require(summary["backend"] == torch.cuda.get_device_name(0) and "eval_fwd" in summary["scoring"],
+            f"summary backend {summary['backend']}, scoring by eval_fwd")
+    al = np.load(os.path.join(out, "final_alignments.npy"))
+    diag = float(np.mean([alignment_scores(al[j], summary["text_lens"][j],
+                                           summary["frame_steps"][j])["diag_corr"]
+                          for j in range(len(al))]))
+    require(abs(diag - summary["diag_corr_mean"]) <= 1e-6 and all(
+        np.isfinite([r["total_loss"] for r in summary["curve"]])),
+            f"the saved alignments re-score to the summary ({diag:.4f}); losses finite")
+
+    runtime.LAUNCHES.clear()
+    with gl_calls() as seen:
+        lines, audio_s = run_cli(audio_evidence.main, [
+            "--run-dir", run, "--data-dir", os.path.join(root, "align_work", "data"),
+            "--out", os.path.join(root, "audio"), "--n-prompts", str(c["prompts"]),
+            "--char-sec", str(c["char_sec"]), "--gl-iters", str(c["gl_iters"]),
+            "--no-dropout"])
+    launches = {k: v for k, v in runtime.LAUNCHES.items() if v}
+    for ln in lines:
+        log(f"  audio: {ln}")
+    with open(os.path.join(root, "audio", "summary.json")) as f:
+        audio = json.load(f)
+    require(len(seen) == 1 and len(audio["per_prompt"]) == c["prompts"]
+            and audio["checkpoint_step"] == total, "one Griffin-Lim call, every prompt scored, "
+            f"from the step-{total} checkpoint")
+    mag, kw = seen[0]
+    nodes = gl_graph_nodes(lambda: fused_gl._gl_cuda(mag, **kw))
+    require(launches == {"griffin_lim": 3 * c["gl_iters"]} and nodes["k4"] == 3 * c["gl_iters"]
+            and nodes["pack"] == 0, f"K4 bf16: LAUNCHES {launches} = {nodes['k4']} kernel nodes "
+            f"of its call captured again = 3 per iteration")
+    # K4 at the evidence STFT (n_fft 512, 257 bins) on the call's own
+    # magnitudes and arguments, against its plain version; a model trained
+    # 60 steps gives magnitudes like [train-cli]'s eval, so its steps are
+    # held by GL_EVAL_STEP_SHARE's rule
+    with open(os.path.join(run, "config.json")) as f:
+        acfg = Config.from_json(f.read()).audio
+    require(kw["lowp"] and kw["n_iter"] == c["gl_iters"]
+            and all(kw[k] == v for k, v in gl_kw(acfg).items()),
+            f"K4 bf16 called at the run's STFT ({gl_kw(acfg)}) and GL {c['gl_iters']}: {kw}")
+    k4_kw = {k: v for k, v in kw.items() if k != "n_iter"}
+    rep["griffin_lim_bf16"] = check_k4_at(
+        f"[evidence] griffin_lim bf16 (B {mag.shape[0]}, F {mag.shape[1]}, n_fft "
+        f"{acfg.n_fft})", mag, acfg, c["gl_iters"],
+        kernel=lambda m, n: fused_gl._gl_cuda(m, n_iter=n, **k4_kw),
+        plain=lambda m, n: gl_spectrum_reference(m, n_iter=n, **k4_kw),
+        over_share=GL_EVAL_STEP_SHARE)
+    seconds = time.perf_counter() - t_phase
+    steps_per_s = replays / replay_s
+    rep.update(train_seconds_in_process=train_s, audio_seconds_in_process=audio_s,
+               replays=replays, replay_steps_per_s=steps_per_s, seconds=seconds,
+               launches=launches, k4_nodes=nodes["k4"], diag_corr_mean=diag,
+               k4_max_abs_err=rep["griffin_lim_bf16"]["max_abs_err"],
+               final=summary["final"], char_accuracy_mean=audio["char_accuracy_mean"],
+               magnitude_shape=list(mag.shape))
+    log(f"  [evidence]: {steps_per_s:.2f} steps/s over {replays} replays (CUDA events), "
+        f"training {train_s:.2f} s in process, audio {audio_s:.2f} s, the phase {seconds:.2f} s; "
+        f"{report['card']}")
+    return {"griffin_lim_bf16": launches["griffin_lim"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -4384,6 +4593,7 @@ def main(argv=None) -> int:
         cli_launches = phase_train_cli(report)
         dp_launches = phase_dp(report)
         tooling_launches = phase_tooling(report, cfg, vocab)
+        evidence_launches = phase_evidence(report)
         for k in kernels:
             require(k["launches"] > 0, f"{k['name']} launched on its path ({k['launches']})")
             counted = {"decode_loop": "decode_loop", "griffin_lim_bf16": "griffin_lim"}
@@ -4403,6 +4613,11 @@ def main(argv=None) -> int:
                 k["tooling_launches"] = tooling_launches[k["name"]]
                 require(k["tooling_launches"] > 0, f"{k['name']} launched on [tooling]'s path "
                         f"({k['tooling_launches']})")
+            if k["name"] in evidence_launches:
+                k["evidence_launches"] = evidence_launches[k["name"]]
+                k["evidence_max_abs_err"] = report["evidence"]["k4_max_abs_err"]
+                require(k["evidence_launches"] > 0, f"{k['name']} launched on [evidence]'s path "
+                        f"({k['evidence_launches']})")
         report["kernels"] = kernels
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)

@@ -25,7 +25,8 @@ normalised waveform. The split path (``early_exit`` and/or
 trimming alone the whole step-by-step decode), ``decode_while``'s chunk
 graph replayed until the device says the batch is done, a post-net graph
 over the full mel buffer with the end frames, then only the (B,) end
-frames reach the host, and one Griffin-Lim graph per trimmed length.
+frames reach the host, and Griffin-Lim runs eagerly at the trimmed length
+(``GRAPH_SHAPES`` says why).
 
 ``mesh=`` (``parallel.make_mesh``) is data-parallel synthesis over the
 processes of the mesh's data axis: every process holds the whole prompt
@@ -63,6 +64,14 @@ STAGES = ("encoder", "decode", "postnet", "griffin_lim", "istft_inv_preemphasis"
 # shapes whose graphs a Synthesizer keeps; a new shape past them drops the
 # least recently used one's
 GRAPH_SHAPES = 8
+# The split path's Griffin-Lim (JAX's ``_gl``, jitted per trimmed length
+# ``t_gl``) runs eagerly and keeps no graph: a shape holds only its model
+# graphs, whatever lengths it meets. A graph per length held a private pool
+# of 44 MiB at ``t_gl`` 64 to 472 MiB at 1000 (B 8, n_fft 2048, GL 100),
+# 3,900 MiB after 16 lengths in one shape, to save 15-19 ms of a 103-129
+# ms call of a length seen before (H100 80GB HBM3, 700 W;
+# tools/gl_graph_memory.py, PERF.md sections 5 and 6); a cap on the graphs
+# kept would save it only for lengths that recur before the cap drops them.
 
 
 class _StageClock:
@@ -94,18 +103,15 @@ class ShapeGraphs:
     """One shape's graphs. ``model``: each model graph's
     ``runtime.CapturedGraph`` by name ("synth" on the fixed-length path;
     "preamble", "chunk" with early exit, "postnet" on the split path), empty
-    until the shape's second call. ``gl``: the split path's Griffin-Lim
-    graph by trimmed length ``t_gl``, None for a length seen once (eagerly).
-    ``inputs``: the static (text, lengths) the graphs read."""
+    until the shape's second call. ``inputs``: the static (text, lengths)
+    the graphs read."""
 
     model: dict = dataclasses.field(default_factory=dict)
-    gl: dict = dataclasses.field(default_factory=dict)
     inputs: tuple = ()
 
     def captured(self):
         """-> [(name, CapturedGraph)] of every graph captured so far."""
-        return [*self.model.items(),
-                *((f"griffin_lim t_gl {t}", g) for t, g in self.gl.items() if g is not None)]
+        return list(self.model.items())
 
 
 class Synthesizer:
@@ -127,15 +133,15 @@ class Synthesizer:
     the shape's graphs (``runtime.capture_graph``: a private memory pool
     each, the Synthesizer's CUDA generator registered) and replays them;
     later calls copy their prompts into the graphs' static inputs and
-    replay. A Griffin-Lim length of the split path is captured likewise at
-    its second sighting. Each call reseeds the generator with ``seed``, so
-    a replay draws the dropout masks (and K3's seed) an eager call with
-    that seed draws. With deterministic algorithms
+    replay; the split path's Griffin-Lim runs eagerly after its model
+    graphs, at the length their end frames give. Each call reseeds the
+    generator with ``seed``, so a replay draws the dropout masks (and K3's
+    seed) an eager call with that seed draws. With deterministic algorithms
     (``torch.use_deterministic_algorithms``) a replay is bit-equal to the
     eager call. The eager path runs on the CPU, under ``stage_ms=True``
     (which synchronises at every stage by design) and on a ``mesh``; the
-    returned ``"graphed"`` says whether every stage of the call replayed a
-    graph. A failed capture raises.
+    returned ``"graphed"`` says whether the call replayed the shape's model
+    graphs. A failed capture raises.
 
     Graphs point at the model's tensors: a ``load_state_dict`` into
     ``self.model`` copies in place and keeps them; when the tensors'
@@ -388,8 +394,6 @@ class Synthesizer:
             entry = self._entry(key)
             if entry is None:
                 res = self._eager(text, lengths, n_steps, gl_iters)
-                if self.split:        # this Griffin-Lim length has run eagerly
-                    self.graphs[key].gl[self._t_gl(res[3], res[1].shape[1])] = None
                 graphed = False
             else:
                 if not entry.model:
@@ -449,14 +453,7 @@ class Synthesizer:
         mel, align, linear, ends = g["postnet"].outputs
         ends = ends.cpu().numpy()           # the one host read before Griffin-Lim
         t_gl = self._t_gl(ends, linear.shape[1])
-        if t_gl not in entry.gl:              # a length's first sighting: eager
-            entry.gl[t_gl] = None
-            return (mel, linear, align, ends, *self._gl(linear[:, :t_gl], gl_iters)), False
-        if entry.gl[t_gl] is None:
-            entry.gl[t_gl] = runtime.capture_graph(
-                lambda: self._gl(linear[:, :t_gl], gl_iters), self._stream)
-        runtime.replay_graph(entry.gl[t_gl])
-        return (mel, linear, align, ends, *entry.gl[t_gl].outputs), True
+        return (mel, linear, align, ends, *self._gl(linear[:, :t_gl], gl_iters)), True
 
 
 def _normalized(wav):

@@ -17,7 +17,9 @@ from __future__ import annotations
 import io
 import json
 import os
+import struct
 import sys
+import zlib
 
 import numpy as np
 
@@ -47,6 +49,45 @@ def plot_alignment(alignment: np.ndarray, title: str = "") -> np.ndarray:
     import PIL.Image
 
     return np.asarray(PIL.Image.open(buf).convert("RGB"))
+
+
+# viridis at five points, interpolated linearly between them
+_HEAT = np.array([[68, 1, 84], [59, 82, 139], [33, 145, 140], [94, 201, 98],
+                  [253, 231, 37]], np.float64)
+
+
+def alignment_heatmap(alignment: np.ndarray, width: int = 480) -> np.ndarray:
+    """(dec_steps, T_in) -> HWC uint8 heatmap without matplotlib: decoder
+    steps left to right, encoder positions bottom to top, as
+    ``plot_alignment`` draws them, each cell a block of pixels, the colour
+    scaled to the map's own range."""
+    a = np.asarray(alignment, np.float64)
+    lo, hi = a.min(), a.max()
+    t = (a - lo) / (hi - lo) if hi > lo else np.zeros_like(a)
+    x = t * (len(_HEAT) - 1)
+    i = np.minimum(x.astype(int), len(_HEAT) - 2)
+    rgb = _HEAT[i] + (x - i)[..., None] * (_HEAT[i + 1] - _HEAT[i])
+    img = rgb.transpose(1, 0, 2)[::-1]                # (T_in, dec_steps, 3), origin lower
+    sx = max(1, width // img.shape[1])
+    sy = max(1, (width * 2 // 3) // img.shape[0])
+    return np.repeat(np.repeat(img, sy, axis=0), sx, axis=1).round().astype(np.uint8)
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """An HWC uint8 RGB image as a PNG file, with zlib and struct only."""
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w, c = img.shape
+    if c != 3:
+        raise ValueError(f"write_png: RGB images only, got {c} channels")
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    rows = b"".join(b"\x00" + img[y].tobytes() for y in range(h))   # filter 0 a row
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows, 9)) + chunk(b"IEND", b""))
 
 
 def alignment_scores(align: np.ndarray, text_len: int,

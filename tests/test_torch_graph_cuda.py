@@ -26,10 +26,14 @@ threshold above every peak, so that the exit and the trim do not depend
 on the dropout masks): four calls of one shape (eager,
 capture, replay, replay; seeds 1, 2, 1, 3) each bit-equal to an eager
 call with its seed, the fixed path's one graph holding K3's one node and
-K4's 3 per iteration, the split path's K4 nodes all in its Griffin-Lim
-graph; the graphs kept through an in-place ``load_state_dict`` (the
-replay then equal to an eager call on the new weights) and dropped when
-a weight's tensor moves.
+K4's 3 per iteration, the split path's Griffin-Lim eager (no K4 node in
+its graphs, K4's launches on every call); the graphs kept through an
+in-place ``load_state_dict`` (the replay then equal to an eager call on
+the new weights) and dropped when a weight's tensor moves. The split
+path over six Griffin-Lim lengths, each seen again: each call within
+GRAPH_SYNTH_ATOL of an eager call at the same seed and length, the shape
+holding its model graphs and no other, and the memory the allocator
+holds for graph pools the model graphs' pools, the same after every call.
 """
 
 import collections
@@ -293,17 +297,15 @@ def test_synthesis_graphs_hold_k3_and_k4(synth_calls):
     (entry,) = synth.graphs.values()
     graphs = dict(entry.captured())
     want = (["synth"] if not synth.split else
-            ["preamble", *(["chunk"] if synth.cfg.infer.early_exit else []), "postnet",
-             *(f"griffin_lim t_gl {t}" for t in entry.gl)])
+            ["preamble", *(["chunk"] if synth.cfg.infer.early_exit else []), "postnet"])
     assert sorted(graphs) == sorted(want)
     for g_name, g in graphs.items():
         nodes = graph_nodes(g.graph)
         k3 = sum(n for k, n in nodes.items() if "decode_loop_kernel" in k)
         k4 = sum(n for k, n in nodes.items() if "gl_wgmma" in k or "gl_ola_frame" in k)
-        gl = g_name == "synth" or g_name.startswith("griffin_lim")
+        gl = g_name == "synth"
         assert (k3, k4) == (int(fused and gl), 3 * SYNTH_GL if gl else 0), (name, g_name, nodes)
-        want = per_call if g_name == "synth" else {"griffin_lim": 3 * SYNTH_GL} if gl else {}
-        assert dict(g.launches) == want, (name, g_name)
+        assert dict(g.launches) == (per_call if gl else {}), (name, g_name)
         assert g.capture_s > 0 and g.instantiate_s > 0 and g.pool_bytes >= 0
     if "chunk" in graphs:
         assert graphs["preamble"].outputs.chunk == DECODE_CHUNK
@@ -332,3 +334,51 @@ def test_synthesis_graphs_follow_the_weights(synth_state):
     assert [e.captured() for e in synth.graphs.values()] == [[]]
     for k, v in _outputs(eager).items():
         assert np.array_equal(again[k], v), k
+
+
+class _LengthSet(Synthesizer):
+    """The split path with the Griffin-Lim length set by the caller
+    (``t_gl``), in place of the one a trained model's end frames give
+    (random weights give every call the same)."""
+
+    t_gl = None
+
+    def _t_gl(self, ends, frames):
+        return self.t_gl
+
+
+GRAPH_SYNTH_ATOL = 1e-5       # chip_smoke.py's: a graphed call against an eager one
+# six lengths, each seen again, some more than twice
+GL_ORDER = (8, 16, 24, 32, 40, 48, 8, 16, 24, 32, 40, 48, 24, 8, 40)
+
+
+def _graph_pool_bytes(dev) -> int:
+    """Bytes the caching allocator reserves for CUDA graph pools (every
+    segment outside the default pool), freed or not."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory._snapshot()["segments"]
+               if seg.get("device", dev.index) == dev.index
+               and tuple(seg["segment_pool_id"]) != (0, 0))
+
+
+def test_split_path_keeps_no_gl_graph_over_many_lengths(dev, synth_state):
+    (p, bs), vocab = synth_state
+    cfg = _synth_cfg(trim_before_gl=True)
+    synth, eager = _LengthSet(cfg, p, bs, vocab), _LengthSet(cfg, p, bs, vocab)
+    torch.cuda.empty_cache()
+    base = _graph_pool_bytes(dev)        # the pools of other tests' graphs still alive
+    held = []
+    for i, t in enumerate(GL_ORDER):
+        synth.t_gl = eager.t_gl = t
+        got = synth(PROMPTS, seed=i)
+        want = eager(PROMPTS, seed=i, stage_ms=True)
+        assert got["graphed"] is (i > 0), (i, t)
+        assert got["wavs"].shape[1] == cfg.audio.hop_length * (t - 1)
+        for k, v in _outputs(want).items():
+            np.testing.assert_allclose(got[k], v, atol=GRAPH_SYNTH_ATOL, err_msg=f"{i} {t} {k}")
+        (entry,) = synth.graphs.values()
+        graphs = dict(entry.captured())
+        assert sorted(graphs) == ([] if i == 0 else ["postnet", "preamble"]), (i, t)
+        held.append(_graph_pool_bytes(dev) - base)
+        assert held[-1] <= sum(g.pool_bytes for g in graphs.values()), (i, t, held[-1])
+        del entry, graphs
+    assert held[2:] == [held[1]] * (len(held) - 2), held

@@ -13,10 +13,11 @@ chunk run.
 
 Also: the Synthesizer's shape key, its table of shapes (least recently
 used dropped past ``GRAPH_SHAPES``; every graph dropped when the model's
-tensors move, none after an in-place ``load_state_dict``), ``"graphed":
-False`` on the CPU, the DSP constants' cache (bit-equal to the host
-values, made once, refused inside a capture) and K3's seed given as a
-tensor. What needs the card is in tests/test_torch_graph_cuda.py.
+tensors move, none after an in-place ``load_state_dict``), the split
+path's Griffin-Lim length (the largest end frame rounded up to the
+quantum, within the frames), ``"graphed": False`` on the CPU, the DSP
+constants' cache (bit-equal to the host values, made once, refused inside
+a capture) and K3's seed given as a tensor. What needs the card is in tests/test_torch_graph_cuda.py.
 """
 
 import dataclasses
@@ -213,6 +214,17 @@ def test_shape_table_drops_the_least_recently_used(synth):
     assert list(synth.graphs) == [*keys[4:GRAPH_SHAPES], keys[0], *keys[GRAPH_SHAPES:]]
     assert len(synth.graphs) == GRAPH_SHAPES
     assert synth.graphs[keys[0]].captured() == []
+
+
+@pytest.mark.parametrize("trim, ends, frames, want", [
+    (False, [3, 9], 40, 40),          # no trim: every frame
+    (True, [3, 9], 40, 16),           # the largest end, rounded up to the quantum 8
+    (True, [0, 0], 40, 8),            # at least one quantum
+    (True, [37, 2], 38, 38),          # never past the frames
+])
+def test_gl_length_is_the_largest_end_rounded_up(tiny, trim, ends, frames, want):
+    s = tiny(early_exit=True, trim_before_gl=trim, gl_length_quantum=8)
+    assert s._t_gl(np.array(ends), frames) == want
 
 
 def test_graphs_dropped_when_the_weights_move(synth):
