@@ -48,6 +48,11 @@ Phases, in order; any failure raises and exits non-zero:
    speech-like one (with random weights the one exit any threshold reaches
    is after the first ``min_silence_steps`` steps, every end frame 0), and
    the f32 kernels' steps there against an f64 step (GL_F32_STEP_FACTOR);
+   then (f) the early-exit decode at a threshold that never trips against
+   the fixed decode on the same weights, prenet dropout 0, over calls
+   eager / capture + replay / replay: mel and alignments equal bit for bit,
+   and at a threshold derived by the same rule on that mel the frames up to
+   the exit equal too (``check_exit_vs_fixed``);
 6. [stream] ``griffin_lim(inner=1)``: 100 calls of the streaming kernel at
    B 8, F 1000 in bf16, against K4 and the plain step; [stream-f32] the same
    in f32, bit-equal to K4 f32, and the f32 kernels' steps against an f64
@@ -2192,11 +2197,84 @@ def phase_fast(report, vocab):
         f"iteration, {spread[10]:.3e} after 10")
     chk["f32_wav_err_over_peak_by_iterations"] = spread
     report["checks"]["griffin_lim_bf16_trimmed_shape"] = chk
+    report["checks"]["exit_vs_fixed"] = check_exit_vs_fixed(cfg, p, bs, vocab, min_steps)
     report["fast"] = {"preset_threshold": res1, "derived_threshold": res2,
                       "expected_steps": min_steps}
     mag1 = spectrogram_magnitude(
         torch.from_numpy(out1["linear"][:, :res1["t_gl"]]).to(dev), acfg)
     return cfg, res1, mag1
+
+
+def check_exit_vs_fixed(cfg, p, bs, vocab, min_steps):
+    """[fast] (f): the early-exit decode against the fixed decode on the same
+    weights at full width (B 8, the 8 prompts, 500 steps), prenet dropout 0:
+    a Synthesizer with ``early_exit`` at threshold -1 against one with
+    ``early_exit=False, trim_before_gl=False``, three calls of seed 1 each
+    (eager, capture + replay, replay), the mel and alignments equal bit for
+    bit in every call; then the early exit at a threshold derived from the
+    dropout-0 mel by [fast]'s rule (``exit_threshold``): its frames and
+    alignments up to the exit equal the fixed decode's, zero after. Held
+    under torch's default algorithms, the ones ``Synthesizer`` serves
+    with. -> the gaps and the exit."""
+    from tacotron_tpu_torch.infer.synthesize import Synthesizer
+
+    r, n_steps = cfg.model.r, cfg.model.max_decode_steps
+    model = dataclasses.replace(cfg.model, prenet_dropout=0.0)
+    fixed_cfg = cfg.replace(model=model, infer=dataclasses.replace(
+        cfg.infer, early_exit=False, trim_before_gl=False))
+    exit_cfg = cfg.replace(model=model, infer=dataclasses.replace(cfg.infer,
+                                                                  silence_threshold=-1.0))
+
+    def calls(c):
+        synth = Synthesizer(c, p, bs, vocab)
+        outs = [synth(PROMPTS, seed=1) for _ in range(3)]
+        require([o["graphed"] for o in outs] == [False, True, True],
+                f"[fast] (f) early_exit={c.infer.early_exit}, threshold "
+                f"{c.infer.silence_threshold}: calls eager, capture + replay, replay")
+        return outs
+
+    def gaps(a, b):
+        """Per call: the largest mel and alignment difference, and the first
+        decoder step at which the mels part (None where equal)."""
+        out = []
+        for x, y in zip(a, b):
+            d = np.abs(x["mel"] - y["mel"]).reshape(8, n_steps, -1).max(axis=(0, 2))
+            part = np.nonzero(d > 0)[0]
+            out.append({"mel": float(d.max()),
+                        "alignments": float(np.abs(x["alignments"] - y["alignments"]).max()),
+                        "first_step_apart": int(part[0]) + 1 if len(part) else None})
+        return out
+
+    def equal(a, b):
+        return all(np.array_equal(x[k], y[k]) for x, y in zip(a, b) for k in ("mel", "alignments"))
+
+    log(f"[fast] (f) the early exit at threshold -1 against the fixed decode, prenet dropout 0, "
+        f"B 8, {n_steps} steps, calls eager / capture + replay / replay of seed 1")
+    fixed, early = calls(fixed_cfg), calls(exit_cfg)
+    rep = {"gaps": gaps(early, fixed)}
+    log(f"  largest differences, by call: {rep['gaps']}")
+    require(equal(early, fixed), "[fast] (f) the early exit at threshold -1 is bit-equal to the "
+            "fixed decode in each call, mel and alignments")
+    thr, _ = exit_threshold(fixed[0]["mel"], r, min_steps)
+    exits = calls(exit_cfg.replace(infer=dataclasses.replace(exit_cfg.infer,
+                                                             silence_threshold=thr)))
+    steps = [steps_done_of(o["mel"], r) for o in exits]
+    rep.update(derived_threshold=thr, steps_done=steps, exit_gaps=[
+        {"mel": float(np.abs(o["mel"][:, :s_ * r] - f["mel"][:, :s_ * r]).max()),
+         "alignments": float(np.abs(o["alignments"][:, :s_] - f["alignments"][:, :s_]).max())}
+        for o, f, s_ in zip(exits, fixed, steps)])
+    log(f"  derived threshold {thr:.6f}: steps done {steps}; largest differences up to the exit "
+        f"{rep['exit_gaps']}")
+    require(all(0 < s_ < n_steps for s_ in steps),
+            f"[fast] (f) the derived threshold exits strictly inside (0, {n_steps}): {steps}")
+    require(all(np.array_equal(o["mel"][:, :s_ * r], f["mel"][:, :s_ * r])
+                and np.array_equal(o["alignments"][:, :s_], f["alignments"][:, :s_])
+                and not np.abs(o["mel"][:, s_ * r:]).any()
+                and not np.abs(o["alignments"][:, s_:]).any()
+                for o, f, s_ in zip(exits, fixed, steps)),
+            "[fast] (f) at the derived threshold the frames and alignments up to the exit equal "
+            "the fixed decode's, zero after")
+    return rep
 
 
 def phase_stream(report, mag, acfg):

@@ -6,6 +6,14 @@ feed-previous decode that stops once every utterance of the batch has been
 silent long enough, and ``end_frames`` / ``end_frames_device``, the
 per-utterance end-frame detector used for wav trimming and for the slice
 before Griffin-Lim.
+
+The loop's step, ``while_decoder_step``, is JAX ``decode_while``'s own body
+over the packed decoder weights. Like JAX's, it takes the attention's two
+reductions in the forms of the step-by-step cell (``models/decoder.py``),
+not those of the fused decode's kernel: the scores as a product of the tanh
+with ``v``, the context as an ``einsum`` over the memory. The two decodes
+then run the same operations, and the early exit with a threshold that
+never trips gives the fixed decode's output bit for bit.
 """
 
 from __future__ import annotations
@@ -13,7 +21,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tacotron_tpu_torch.ops.decode_loop import DecoderWeights, packed_decoder_step
+from tacotron_tpu_torch.ops.attention import NEG_INF
+from tacotron_tpu_torch.ops.attn_energy import energy_contract, energy_tanh
+from tacotron_tpu_torch.ops.decode_loop import DecoderWeights
+from tacotron_tpu_torch.ops.gru import gru_cell_step
+from tacotron_tpu_torch.ops.modules import dense, dropout
 
 
 def end_frames(mel: np.ndarray, threshold: float = 0.05,
@@ -45,6 +57,60 @@ def end_frames_device(mel: torch.Tensor, threshold: float = 0.05,
     run_all = (c[:, min_run:] - c[:, :-min_run]) == min_run
     idx = torch.argmax(run_all.int(), dim=1)
     return torch.where(run_all.any(dim=1), idx, torch.full_like(idx, t))
+
+
+def while_decoder_step(memory, keys, mask, w: DecoderWeights, *, dropout_rate: float,
+                       generator: torch.Generator | None):
+    """(initial state, ``step``) of JAX ``decode_while``'s loop body, in f32.
+    ``state, frames, alpha = step(state)`` runs one feed-previous step; the
+    state is (h_att, h0, h1, context, previous frame).
+
+    Every operation is the step-by-step cell's (``DecoderCell`` with the
+    ``"xla"`` energy) on the same parameter tensors: ``dense`` and
+    ``gru_cell_step`` for the prenet, the GRUs and the projections, the
+    scores ``energy_contract(energy_tanh(keys, q), v)``, the context
+    ``einsum("bt,btd->bd", alpha, memory)``. The mask is added as 0 /
+    ``NEG_INF``, as JAX adds it; the cell's ``where`` gives the same
+    alignment. Dropout draws the prenet's two masks per step from
+    ``generator``, as the cell does.
+
+    As in JAX, the step uses the ``"xla"`` energy whatever the model's
+    ``attention_energy``: under ``"fused"`` the fixed decode runs K1 on a
+    CUDA tensor and the two decodes part by K1's summation order. It is f32
+    whatever the compute dtype (JAX's loop runs over the packed f32
+    parameters): bf16 keys are widened, as ``keys + q`` promotes them in JAX,
+    so under bf16 compute it follows JAX's ``decode_while``, not the bf16
+    cell. Nothing in the step reads the host or sizes an allocation from
+    data, so it can be captured in a CUDA graph.
+    """
+    b, t_in, m_dim = memory.shape
+    n_mels = w.p_w0.shape[1]
+    r = w.f_w.shape[0] // n_mels
+    mem, keys = memory.float(), keys.float()
+    v = w.at_v.reshape(-1, 1)
+    bias = torch.where(mask, 0.0, NEG_INF)
+
+    def step(state):
+        h_att, h0, h1, ctx, prev = state
+        x = dropout(torch.relu(dense(prev, w.p_w0, w.p_b0)), dropout_rate, generator)
+        x = dropout(torch.relu(dense(x, w.p_w1, w.p_b1)), dropout_rate, generator)
+        h_att = gru_cell_step(h_att, torch.cat([x, ctx], -1), w.ag_wg, w.ag_bg, w.ag_wc, w.ag_bc)
+        q = dense(h_att, w.at_wq)
+        alpha = torch.softmax(energy_contract(energy_tanh(keys, q), v) + bias, dim=-1)
+        ctx = torch.einsum("bt,btd->bd", alpha, mem)
+        h = dense(torch.cat([h_att, ctx], -1), w.ip_w, w.ip_b)
+        h0 = gru_cell_step(h0, h, w.d0_wg, w.d0_bg, w.d0_wc, w.d0_bc)
+        h = h + h0
+        h1 = gru_cell_step(h1, h, w.d1_wg, w.d1_bg, w.d1_wc, w.d1_bc)
+        h = h + h1
+        frames = dense(h, w.f_w, w.f_b)
+        return (h_att, h0, h1, ctx, frames[:, (r - 1) * n_mels:]), frames, alpha
+
+    dev = memory.device
+    h0 = torch.zeros(b, w.d0_wc.shape[0], device=dev)
+    state = (torch.zeros(b, w.ag_wc.shape[0], device=dev), h0, torch.zeros_like(h0),
+             torch.zeros(b, m_dim, device=dev), torch.zeros(b, n_mels, device=dev))
+    return state, step
 
 
 # decoder steps per chunk: the host reads the exit flag once per chunk. Read
@@ -84,8 +150,8 @@ class WhileDecode:
         chunk = DECODE_CHUNK
         self.n_steps, self.r, self.n_mels, self.chunk = n_steps, r, n_mels, chunk
         self.threshold, self.min_steps = silence_threshold, min_silence_steps
-        self.state, self._step = packed_decoder_step(
-            memory, keys, mask, w, dropout_rate=dropout_rate, lowp=False, generator=generator)
+        self.state, self._step = while_decoder_step(
+            memory, keys, mask, w, dropout_rate=dropout_rate, generator=generator)
         dev = memory.device
         self.silent_run = torch.zeros(b, dtype=torch.int64, device=dev)
         self.slot = torch.zeros(1, dtype=torch.int64, device=dev)
@@ -128,7 +194,8 @@ def decode_while(memory, keys, mask, w: DecoderWeights, generator=None, *,
                  n_steps: int, r: int, n_mels: int, dropout_rate: float = 0.0,
                  silence_threshold: float = 0.05, min_silence_steps: int = 3):
     """Feed-previous decode with silence early exit, in f32 over the packed
-    decoder weights (the step of the fused decode's plain version).
+    decoder weights (``while_decoder_step``: JAX ``decode_while``'s body,
+    the step-by-step cell's operations).
 
     memory (B, T_in, D_mem), keys (B, T_in, attn_dim), mask (B, T_in) bool;
     bf16 keys (bf16 compute) are widened, as JAX's f32 loop promotes them.
@@ -137,7 +204,8 @@ def decode_while(memory, keys, mask, w: DecoderWeights, generator=None, *,
     ``silent_run`` (consecutive steps whose r frames all peak below
     ``silence_threshold``) has reached ``min_silence_steps``; frames and
     alignments past the exit step are zero. ``silence_threshold < 0``
-    never exits and gives the fixed-length decode. Prenet dropout draws
+    never exits and gives the fixed-length decode (``Decoder``'s output
+    bit for bit, with the ``"xla"`` energy in f32). Prenet dropout draws
     from ``generator``.
 
     The loop runs on the device in chunks of ``DECODE_CHUNK`` steps

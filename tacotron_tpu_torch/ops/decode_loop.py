@@ -113,8 +113,11 @@ def packed_decoder_step(memory, keys, mask, weights: DecoderWeights, *,
     prenet (dropout masks from ``generator``), attention GRU, Bahdanau
     attention, input projection, two residual GRUs, r-frame projection,
     with every product input rounded to the storage dtype (bf16 when
-    ``lowp``; f32 storage rounds nothing). The fused decode's plain version
-    and the early-exit decode both loop over it."""
+    ``lowp``; f32 storage rounds nothing), and the attention's reductions
+    in the kernel's forms (the scores summed over the attention width, the
+    context over the memory's time). The fused decode's plain version loops
+    over it; the early-exit decode has a step of its own, in the
+    step-by-step cell's forms (``infer/early_exit.py::while_decoder_step``)."""
     sd = torch.bfloat16 if lowp else torch.float32
     b, t_in, m_dim, n_mels, r = _geometry(memory, keys, weights)
     w = DecoderWeights(*[x.to(sd).float() for x in weights])  # rounded storage

@@ -3,7 +3,9 @@ same weights and encoder outputs (tiny config, prenet dropout 0: JAX's
 per-step PRNG streams cannot be reproduced).
 
 Tolerance: f32 on both sides, atol 1e-5 on frames and alignments [6e-8
-measured]; ``steps_done`` equal.
+measured]; ``steps_done`` equal. Against the port's own step-by-step
+``Decoder`` the early exit is held bit for bit (``torch.equal``), at the
+tiny width and at full_1chip's.
 """
 
 import dataclasses
@@ -20,11 +22,11 @@ from tacotron_tpu.infer.early_exit import decode_while as jax_decode_while
 from tacotron_tpu.models import Tacotron as JaxTacotron
 from tacotron_tpu.models.encoder import Encoder as JaxEncoder
 from tacotron_tpu.ops.pallas.decode_loop import pack_decoder_weights as jax_pack
-from tacotron_tpu_torch.config import Config
+from tacotron_tpu_torch.config import Config, get_config
 from tacotron_tpu_torch.infer.early_exit import decode_while
 from tacotron_tpu_torch.models.tacotron import Tacotron
 from tacotron_tpu_torch.ops.decode_loop import decode_loop_reference, pack_decoder_weights
-from tacotron_tpu_torch.weights import from_flax
+from tacotron_tpu_torch.weights import from_flax, init_params
 
 N_STEPS = 8
 LENGTHS = np.array([9, 6, 4])
@@ -75,6 +77,10 @@ def _assert_same(got, want):
     assert got[2] == int(want[2])
 
 
+def _gap(a, b):
+    return f"largest difference {float((a - b).abs().max()):.3e}"
+
+
 def test_never_trips_equals_the_fixed_length_decode(setup):
     s = setup
     got, want = _both(s, silence_threshold=-1.0)
@@ -83,16 +89,19 @@ def test_never_trips_equals_the_fixed_length_decode(setup):
     b = len(LENGTHS)
     assert got[0].shape == (b, N_STEPS * s["cfg"].r, s["cfg"].n_mels)
     assert got[1].shape == (b, N_STEPS, int(LENGTHS.max()))
-    # ... and the scan decoder of the model, and the fused decode's plain version
+    # ... and bit for bit the scan decoder of the model, whose operations its
+    # step runs (JAX's decode_while takes the cell's forms); the fused
+    # decode's plain version sums the attention in the kernel's forms
     mem, keys, mask = (torch.from_numpy(s[k]) for k in ("memory", "keys", "mask"))
     with torch.no_grad():
         mel, align = s["model"].decoder(mem, keys, mask, N_STEPS, None)
         frames, align_f = decode_loop_reference(mem, keys, mask, s["w"], n_steps=N_STEPS,
                                                 dropout=False, lowp=False)
-    np.testing.assert_allclose(got[0].numpy(), mel.numpy(), atol=1e-5)
-    np.testing.assert_allclose(got[1].numpy(), align.numpy(), atol=1e-5)
-    assert torch.equal(got[0], frames.reshape(b, -1, s["cfg"].n_mels))
-    assert torch.equal(got[1], align_f)
+    assert torch.equal(got[0], mel), _gap(got[0], mel)
+    assert torch.equal(got[1], align), _gap(got[1], align)
+    np.testing.assert_allclose(got[0].numpy(), frames.reshape(b, -1, s["cfg"].n_mels).numpy(),
+                               atol=1e-5)
+    np.testing.assert_allclose(got[1].numpy(), align_f.numpy(), atol=1e-5)
 
 
 @pytest.mark.parametrize("min_silence_steps", [1, 3])
@@ -137,3 +146,42 @@ def test_frame_width_is_checked(setup):
     with pytest.raises(ValueError, match="r \\* n_mels"):
         decode_while(mem, keys, mask, s["w"], n_steps=2, r=s["cfg"].r + 1,
                      n_mels=s["cfg"].n_mels)
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.5])
+def test_full_width_equals_the_decoder_bit_for_bit(dropout):
+    """full_1chip's model from a seed (no JAX), B 3, T_in 40, 6 steps: with a
+    threshold that never trips, ``decode_while`` is ``torch.equal`` to
+    ``model.decoder``, prenet dropout included (both draw the prenet's two
+    masks per step from the generator, in the same order); with one that
+    trips after step 2, the frames and alignments up to the exit are
+    ``torch.equal`` to the decoder's and everything after is zero."""
+    cfg = dataclasses.replace(get_config("full_1chip").model, prenet_dropout=dropout)
+    model = init_params(Tacotron(cfg, device="cpu"), seed=0).eval()
+    lengths = np.array([40, 31, 17])
+    b, t, n_steps = len(lengths), int(lengths.max()), 6
+    rng = np.random.default_rng(4)
+    memory = torch.from_numpy(rng.standard_normal((b, t, cfg.memory_dim)).astype(np.float32))
+    mask = torch.from_numpy(np.arange(t)[None, :] < lengths[:, None])
+    w = pack_decoder_weights(model.decoder.cell)
+    kw = dict(n_steps=n_steps, r=cfg.r, n_mels=cfg.n_mels, dropout_rate=dropout)
+    with torch.no_grad():
+        keys = model.memory_proj(memory)
+        mel, align = model.decoder(memory, keys, mask, n_steps,
+                                   torch.Generator().manual_seed(7))
+        got = decode_while(memory, keys, mask, w, torch.Generator().manual_seed(7),
+                           silence_threshold=-1.0, **kw)
+        assert got[2] == n_steps
+        assert torch.equal(got[0], mel), _gap(got[0], mel)
+        assert torch.equal(got[1], align), _gap(got[1], align)
+        if dropout:
+            return
+        peaks = mel.reshape(b, n_steps, -1).amax(dim=(0, 2))
+        thr = float(peaks[:2].max()) + 1e-3
+        ex = decode_while(memory, keys, mask, w, silence_threshold=thr, min_silence_steps=2,
+                          **kw)
+    assert ex[2] == 2
+    assert torch.equal(ex[0][:, :2 * cfg.r], mel[:, :2 * cfg.r])
+    assert torch.equal(ex[1][:, :2], align[:, :2])
+    assert float(ex[0][:, 2 * cfg.r:].abs().max()) == 0.0
+    assert float(ex[1][:, 2:].abs().max()) == 0.0

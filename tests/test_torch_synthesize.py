@@ -223,6 +223,23 @@ def test_split_path_matches_jax(setup, name, overrides, steps_done, t_gl, ends):
     assert np.abs(got["alignments"][:, steps_done:]).max(initial=0.0) == 0.0
 
 
+@pytest.mark.parametrize("dropout", ["0.0", "0.5"])
+def test_early_exit_path_equals_the_fixed_path(setup, dropout):
+    """The split path's early-exit decode at a threshold that never trips
+    against the fixed path's step-by-step decode, the same weights and seed:
+    the mel and the alignments are equal bit for bit (the early exit's step
+    runs the cell's operations and draws the prenet's dropout masks in the
+    cell's order)."""
+    s = setup
+    fixed = apply_overrides(s["cfg"], [f"model.prenet_dropout={dropout}"])
+    early = apply_overrides(fixed, ["infer.early_exit=true", "infer.silence_threshold=-1"])
+    got, want = (Synthesizer(c, s["params"], s["stats"], s["vocab"], device="cpu")(
+        TEXTS, n_steps=10, seed=3) for c in (early, fixed))
+    assert got["mel"].shape == want["mel"].shape == (2, 10 * s["cfg"].model.r, 80)
+    np.testing.assert_array_equal(got["mel"], want["mel"])
+    np.testing.assert_array_equal(got["alignments"], want["alignments"])
+
+
 @pytest.mark.parametrize("backend,atol", [("mm", 2.0 ** -8), ("fft", 1e-4), ("pallas", 1e-2)])
 def test_gl_backends_match_jax(setup, backend, atol):
     got, want = _pair(setup, [f"audio.gl_backend={backend}"], n_steps=N_STEPS)
