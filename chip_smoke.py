@@ -179,8 +179,19 @@ Phases, in order; any failure raises and exits non-zero:
    K1/K2 (f32 and bf16) and K4 bf16 held against their plain versions on
    the runs' own inputs; the kernel rows gain ``train_cli_launches``;
 14. [dp] the parallel layer (``torch.distributed``) on the one card, kernels
-   built before any rank starts: the data-parallel step at [train]'s width
-   and batch over a 1-rank NCCL group, bit-equal to the plain step; two
+   built before any rank starts: (1) ``make_train_step(cfg, mesh)`` at
+   [train]'s width and batch over a 1-rank NCCL group, graphed: each bucket
+   shape's eager first step, capture and replays bit-equal to the
+   one-process graphed step and to the eager mesh step under deterministic
+   algorithms, K1/K2 on its inputs against their plain versions, then with
+   the default algorithms one replay held against ``train_step`` by
+   dp_hold and replays and eager mesh steps in turns (nodes by kind, the
+   device's busy share); (1b) ``Synthesizer(mesh=...)`` over that group at
+   synth_gl1000 B 8 through its model and Griffin-Lim graphs, within
+   GRAPH_SYNTH_ATOL of the no-mesh graphed call, K4's 3 nodes per
+   iteration, K4 held on the replay's spectrogram, replays in turns with
+   the no-mesh replays and eager mesh calls; the gloo paths below are held
+   eager by the rule (``parallel.collectives.capturable``): two
    gloo ranks of 16 rows against one process on the 32 rows (dropout on, 3
    steps; losses, gradients, parameters and batch statistics as DP_* sets
    out; each rank's K1/K2 launches and step ms); the tensor-parallel step
@@ -191,7 +202,8 @@ Phases, in order; any failure raises and exits non-zero:
    spectrogram); then ``cli.train`` as two processes (--coordinator, the
    per-chip batch, --debug-sync, a checkpoint by process 0 only), their
    resume, and ``cli.synthesize --data-parallel``; the kernel rows of K1,
-   K2 (f32) and K4 bf16 gain ``dp_launches``, one count per rank;
+   K2 (f32) and K4 bf16 gain ``dp_launches``, one count per rank, and
+   ``dp_nccl_graph_launches`` / ``dp_nccl_graph_nodes`` from (1) and (1b);
 15. [tooling] the port's utils on the card: (a) ``utils/roofline.py``'s
    whole-step shares, which [train], [train-bf16] (``train_step_flops`` at
    their shapes with remat, over the median step and the profiled step's
@@ -3101,8 +3113,8 @@ def step_tensors(state) -> dict:
 
 
 def graph_report(entry, n_dec, k1_per_step=2) -> dict:
-    """One captured step's nodes (``utils.profiling.graph_nodes``), its K1
-    and K2 kernel nodes and the launches a replay adds, its capture and
+    """One captured step's nodes (``utils.profiling.graph_nodes``), its K1,
+    K2 and NCCL kernel nodes and the launches a replay adds, its capture and
     instantiate seconds and pool bytes; K1 held to ``k1_per_step`` nodes per
     decoder step (2 with remat: forward + recompute) and K2 to 1."""
     from tacotron_tpu_torch.utils.profiling import graph_nodes
@@ -3112,6 +3124,7 @@ def graph_report(entry, n_dec, k1_per_step=2) -> dict:
            "other_nodes": {k: n for k, n in nodes.items() if k.startswith("<")},
            "k1_nodes": sum(n for k, n in nodes.items() if "energy_fwd" in k),
            "k2_nodes": sum(n for k, n in nodes.items() if "energy_bwd" in k),
+           "nccl_nodes": sum(n for k, n in nodes.items() if "nccl" in k.lower()),
            "launches_per_replay": dict(entry.launches), "capture_s": entry.capture_s,
            "instantiate_s": entry.instantiate_s, "pool_bytes": entry.pool_bytes}
     k1 = k1_per_step * n_dec
@@ -3234,23 +3247,7 @@ def phase_train_graph(report, compute_dtype="float32"):
         f"({gr['kernel_nodes']} kernels, {gr['other_nodes']}), K1 {gr['k1_nodes']}, K2 "
         f"{gr['k2_nodes']}; capture {gr['capture_s']:.3f} s, instantiate "
         f"{gr['instantiate_s']:.3f} s, pool {gr['pool_bytes'] / 2**30:.3f} GiB")
-    m_ = graphed.model
-    prev = {"params": {k: host_copy(p_.detach()) for k, p_ in m_.named_parameters()},
-            "stats": {k: host_copy(b_) for k, b_ in m_.named_buffers()},
-            "opt": host_copy(graphed.opt.state_dict())}
-    gen = graphed.generator.get_state()
-    graphed, got = dp_run(graphed, step, batch, 1)
-    want = dp_restart(cfg, batch, prev, gen)
-    rep["replay_vs_eager"] = dp_hold(
-        "(c) one replay of that graph against train_step from a copy of its state",
-        {**got["steps"][0], "metrics": got["metrics"][0]},
-        {**want["steps"][0], "metrics": want["metrics"][0]}, prev, cfg.train)
-    align = float((got["alignments"][0] - want["alignments"][0]).abs().max())
-    rep["replay_vs_eager"].update(alignments=align, metrics=(got["metrics"][0],
-                                                             want["metrics"][0]))
-    require(align <= GRAPH_ALIGN_ATOL, f"(c) the replay's alignments within {GRAPH_ALIGN_ATOL} "
-            f"of train_step's ({align:.3e})")
-    del prev, got, want
+    graphed, rep["replay_vs_eager"] = replay_vs_eager("(c)", step, graphed, cfg, batch)
 
     ms = {"G": [], "E": []}
     runtime.LAUNCHES.clear()
@@ -3299,7 +3296,7 @@ def phase_train_graph(report, compute_dtype="float32"):
     require(len(step.graphs) == 2 and len(entries) == 2 and all(np.isfinite(losses)),
             f"(e) T_out {t2} got a graph of its own, then T_out {t_out}'s replayed ({losses})")
     rep["second_shape"] = graph_report(step.graphs[next(
-        k for k in step.graphs if k[3][0][1] == t2)], t2 // cfg.model.r)
+        k for k in step.graphs if k[4][0][1] == t2)], t2 // cfg.model.r)
     rep["seconds"] = time.perf_counter() - t_phase
     log(f"  (e) T_out {t2}: {rep['second_shape']['nodes']} nodes, capture "
         f"{rep['second_shape']['capture_s']:.3f} s, pool "
@@ -3309,6 +3306,29 @@ def phase_train_graph(report, compute_dtype="float32"):
                                                         "attn_energy_bwd": gr["k2_nodes"]},
             "ms_in_graph": {"attn_energy_fwd": in_graph["fwd"],
                             "attn_energy_bwd": in_graph["bwd"]}}
+
+
+def replay_vs_eager(tag, step, state, cfg, batch):
+    """One replay of ``step``'s graph for ``batch`` against an eager
+    ``train_step`` from a copy of ``state`` (weights, batch statistics,
+    Adam's moments and count, the dropout generator), held by dp_hold, and
+    the alignments within GRAPH_ALIGN_ATOL -> (the state after the replay,
+    the errors)."""
+    m_ = state.model
+    prev = {"params": {k: host_copy(p_.detach()) for k, p_ in m_.named_parameters()},
+            "stats": {k: host_copy(b_) for k, b_ in m_.named_buffers()},
+            "opt": host_copy(state.opt.state_dict())}
+    gen = state.generator.get_state()
+    state, got = dp_run(state, step, batch, 1)
+    want = dp_restart(cfg, batch, prev, gen)
+    rec = dp_hold(f"{tag} one replay of that graph against train_step from a copy of its state",
+                  {**got["steps"][0], "metrics": got["metrics"][0]},
+                  {**want["steps"][0], "metrics": want["metrics"][0]}, prev, cfg.train)
+    align = float((got["alignments"][0] - want["alignments"][0]).abs().max())
+    rec.update(alignments=align, metrics=(got["metrics"][0], want["metrics"][0]))
+    require(align <= GRAPH_ALIGN_ATOL, f"{tag} the replay's alignments within "
+            f"{GRAPH_ALIGN_ATOL} of train_step's ({align:.3e})")
+    return state, rec
 
 
 def whole_step_share(flops, ms, kind):
@@ -3725,8 +3745,12 @@ def dp_ranks(rank, world):
     from tacotron_tpu_torch.train import create_train_state, make_train_step
     from tacotron_tpu_torch.weights import split_state
 
+    import torch.distributed as dist
+
+    from tacotron_tpu_torch.train.step import GraphedTrainStep
+
     dp_deterministic()
-    out = {"rank": rank}
+    out = {"rank": rank, "backend": dist.get_backend()}
     for name, cfg in (("dp", dp_train_config()), ("tp", dp_tp_config())):
         mesh = make_mesh(cfg.mesh)
         if name == "dp":
@@ -3736,10 +3760,11 @@ def dp_ranks(rank, world):
         else:
             arrays, n_steps = dp_tp_batch(mesh.device), 1
         state = create_train_state(cfg, seed=0, mesh=mesh)
+        step = make_train_step(cfg, mesh)
         runtime.LAUNCHES.clear()
         with first_energy_call() as seen:
-            state, res = dp_run(state, make_train_step(cfg, mesh), arrays, n_steps,
-                                keep=rank == 0)
+            state, res = dp_run(state, step, arrays, n_steps, keep=rank == 0)
+        res["graphed"] = isinstance(step, GraphedTrainStep)
         res["launches"] = dict(runtime.LAUNCHES)
         res["mesh"] = (mesh.data_size, mesh.model_size)
         res["shards"] = {k: tuple(p.shape) for k, p in state.model.named_parameters()
@@ -3757,7 +3782,7 @@ def dp_ranks(rank, world):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = synth(PROMPTS[:DP["prompts"]], seed=0, peak_normalize=False)
-    out["synth"] = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+    out["synth"] = {"wall_ms": (time.perf_counter() - t0) * 1e3, "graphed": res["graphed"],
                     "launches": dict(runtime.LAUNCHES), "mesh": (mesh.data_size, mesh.model_size),
                     "rows": (mesh.data_index * DP["prompts"] // mesh.data_size,
                              (mesh.data_index + 1) * DP["prompts"] // mesh.data_size),
@@ -3828,6 +3853,8 @@ def phase_dp_cli(report, card):
         summaries = [[ln for ln in lines_of(o) if "total_loss" in ln] for o in outs]
         require(all("torch.distributed backend gloo" in o for o in outs),
                 f"cli.train {name}: both processes on gloo (two ranks on one card)")
+        require(all("training step: eager (a gloo mesh" in o for o in outs),
+                f"cli.train {name}: both processes say their step is eager (a gloo mesh)")
         require(all(lines_of(o)[-1] == {"done": True, "step": n_steps} for o in outs),
                 f"cli.train {name}: both done at step {n_steps}")
         require(summaries[0] and [s["total_loss"] for s in summaries[0]] ==
@@ -3864,6 +3891,8 @@ def phase_dp_cli(report, card):
         for ln in o.strip().splitlines():
             log(f"  cli.synthesize process {i}: {ln}")
     require(codes == [0, 0], f"cli.synthesize --data-parallel: both processes exit 0 ({codes})")
+    require(all("synthesis call: eager (a gloo mesh" in o for o in outs),
+            "cli.synthesize --data-parallel: both processes say their call is eager (a gloo mesh)")
     res = lines_of(outs[0])[-1]
     require(res["n"] == 3 and not lines_of(outs[1]) and sorted(os.listdir(out_dir)) ==
             [f"utt_{i:03d}.wav" for i in range(3)],
@@ -3872,65 +3901,331 @@ def phase_dp_cli(report, card):
     report["dp"]["cli"] = rep
 
 
-def phase_dp(report):
-    """[dp] the parallel layer on the one card: (1) the data-parallel step
-    over a 1-rank NCCL group against the plain step, bit for bit; (2) two
-    gloo ranks of 16 rows each against one process on the 32, with dropout,
-    3 steps at full width; (3) the tensor-parallel step on (data 1, model 2)
-    at tiny widths against one process; (4) mesh synthesis on the two ranks
-    against one process; (5) the CLIs on two processes (``phase_dp_cli``).
-    Rank 1's results are held bit-equal to rank 0's, and K1/K2 and K4 are
-    held against their plain versions on each rank's own inputs. Kernels
-    are built already; the ranks only load them."""
+# [dp] (1) and (1b): the mesh paths over a 1-rank NCCL group, graphed.
+# "order": the batch shapes of the steps held bit for bit under deterministic
+# algorithms (A T_out 400, B "t_out_2"): each shape's eager first step, its
+# capture (and replay) and three replays in all; "turns": the timed calls
+# under torch's default algorithms, G a replay of the mesh graph and E an
+# eager call of the same mesh path, as [train-graph] and [synth-graph] time
+# theirs; "synth_turns" adds P, a replay of the no-mesh Synthesizer's graph
+DP_GRAPH = {"order": "AABBA", "t_out_2": 200, "turns": "GEGGE", "synth_turns": "GPEGPGE"}
+
+
+def dp_nccl_train(rep, mesh, report):
+    """(1): ``make_train_step(cfg, mesh)`` over the 1-rank NCCL group at
+    [train]'s recipe (f32). (a) Under deterministic algorithms, over
+    DP_GRAPH["order"] from one seeded state each: the mesh's graphed step,
+    the one-process graphed step and the eager mesh step, every step's
+    losses, grad norm and alignments and the states after the run bit-equal;
+    K1/K2 alone on the mesh step's first energy call against their plain
+    versions. (b) Under the default algorithms: a new mesh step's eager
+    first step and capture, its graph's nodes (beside [train-graph]'s
+    one-process graph of the same recipe and shape, when ``report`` has
+    it), one replay held against an eager train_step by dp_hold, then
+    replays and eager mesh steps in turns (DP_GRAPH["turns"]), the counts
+    set to 0 just before and read after each replay, one replay profiled.
+    -> K1/K2's launches over the timed replays and their graph nodes."""
+    from tacotron_tpu_torch import runtime
+    from tacotron_tpu_torch.train import create_train_state, make_train_step, train_step
+    from tacotron_tpu_torch.train.step import GraphedTrainStep
+
+    cfg = dp_train_config()
+    dev = mesh.device
+    n_dec = TRAIN_T_OUT // cfg.model.r
+    batches = {"A": train_batch(cfg, dev), "B": train_batch(cfg, dev, t_out=DP_GRAPH["t_out_2"])}
+    steps = {"mesh": make_train_step(cfg, mesh), "one": make_train_step(cfg),
+             "eager": functools.partial(train_step, cfg=cfg, mesh=mesh)}
+    require(isinstance(steps["mesh"], GraphedTrainStep) and mesh.capturable,
+            "(1) make_train_step(cfg, mesh) over a 1-rank NCCL group is a GraphedTrainStep")
+    states = {"mesh": create_train_state(cfg, seed=0, mesh=mesh),
+              "one": create_train_state(cfg, seed=0),
+              "eager": create_train_state(cfg, seed=0, mesh=mesh)}
+    calls = []
+    for i, k in enumerate(DP_GRAPH["order"]):
+        fn = steps["mesh"]
+        entry = fn.graphs.get(fn.shape_key(dev, *batches[k]), "new")
+        kind = "eager" if isinstance(entry, str) else "capture" if entry is None else "replay"
+        out = {}
+        for run, step in steps.items():
+            spy = first_energy_call() if i == 0 and run == "mesh" else contextlib.nullcontext()
+            with spy as seen:
+                states[run], m, a = step(states[run], *batches[k])
+            if seen is not None:
+                energy_inputs = seen
+            out[run] = (m, a)
+        equal = {run: all(torch.equal(out[run][0][n], v) for n, v in out["mesh"][0].items())
+                 and torch.equal(out[run][1], out["mesh"][1]) for run in ("one", "eager")}
+        calls.append({"shape": k, "kind": kind, "loss": float(out["mesh"][0]["total_loss"]),
+                      "equal": equal})
+    tensors = {run: step_tensors(st) for run, st in states.items()}
+    differ = {run: [k for k, t in tensors["mesh"].items() if not torch.equal(t, tensors[run][k])]
+              for run in ("one", "eager")}
+    rep["compare"] = {"calls": calls, "tensors": len(tensors["mesh"]), "differ": differ}
+    log(f"  (1) deterministic algorithms, {DP_GRAPH['order']}: {calls}; of "
+        f"{len(tensors['mesh'])} tensors after the run, differ from the one-process graphed step "
+        f"{differ['one'][:4]}, from the eager mesh step {differ['eager'][:4]}")
+    require([c["kind"] for c in calls] == ["eager", "capture", "eager", "capture", "replay"],
+            "(1) each shape's first step eager, its second captured, then a replay")
+    require(all(all(c["equal"].values()) for c in calls) and not any(differ.values()),
+            "(1) the mesh's graphed steps bit-equal to the one-process graphed step and to the "
+            "eager mesh step: losses, grad norm, alignments every step; weights, gradients, "
+            "Adam's state, batch statistics and the generator after the run")
+    del states, tensors, steps
+    rep["energy"] = e = dp_energy_check(energy_inputs)
+    log(f"  (1) K1/K2 alone on the mesh step's first energy call, keys {e['shape']}, K2 cluster "
+        f"{e['cluster']}: " + ", ".join(f"{k} {err:.3e} (peak {peak:.3f})"
+                                        for k, (err, peak) in e["errs"].items()))
+    for k, (err, peak) in e["errs"].items():
+        require(err <= ENERGY_TOL * peak, f"(1) {k} on the mesh step's inputs within "
+                f"{ENERGY_TOL} of its peak")
+    require(e["dv_repeats"], "(1) dv bit-identical across two runs")
+
+    # (b) torch's default algorithms: the graph that users run
+    torch.backends.cudnn.deterministic = False
+    torch.use_deterministic_algorithms(False)
+    try:
+        batch = batches["A"]
+        step = make_train_step(cfg, mesh)
+        state = create_train_state(cfg, seed=0, mesh=mesh)
+        first = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            state, m, _ = step(state, *batch)
+            float(m["total_loss"])
+            first.append((time.perf_counter() - t0) * 1e3)
+        entry = step.graphs[next(iter(step.graphs))]
+        rep["graph"] = gr = graph_report(entry, n_dec)
+        rep["first_steps_ms"] = first
+        one = report.get("train_graph", {}).get("graph")
+        log(f"  (1) timed: default algorithms: the eager first step {first[0]:.1f} ms, the second "
+            f"(capture, instantiate, replay) {first[1]:.1f} ms; the mesh graph {gr['nodes']} nodes "
+            f"({gr['kernel_nodes']} kernels, K1 {gr['k1_nodes']}, K2 {gr['k2_nodes']}, NCCL "
+            f"kernels {gr['nccl_nodes']}, {gr['other_nodes']}); capture {gr['capture_s']:.3f} s, "
+            f"instantiate {gr['instantiate_s']:.3f} s, pool {gr['pool_bytes'] / 2**30:.3f} GiB"
+            + ("" if one is None else f"; [train-graph]'s one-process graph {one['nodes']} nodes "
+               f"({one['kernel_nodes']} kernels, {one['other_nodes']})"))
+        state, rep["replay_vs_eager"] = replay_vs_eager("(1) timed", step, state, cfg, batch)
+
+        eager_fn = functools.partial(train_step, cfg=cfg, mesh=mesh)
+        eager = create_train_state(cfg, seed=0, mesh=mesh)
+        ms = {"G": [], "E": []}
+        runtime.LAUNCHES.clear()
+        launches = collections.Counter()
+        for kind in DP_GRAPH["turns"]:
+            counts = collections.Counter(runtime.LAUNCHES)
+            t0 = time.perf_counter()
+            if kind == "G":
+                state, m, _ = step(state, *batch)
+            else:
+                eager, m, _ = eager_fn(eager, *batch)
+            loss = float(m["total_loss"])
+            ms[kind].append((time.perf_counter() - t0) * 1e3)
+            require(np.isfinite(loss), f"(1) timed: {kind} loss finite")
+            if kind == "G":
+                launches.update(runtime.LAUNCHES)
+                launches.subtract(counts)
+        launches = dict(+launches)
+        n_g = len(ms["G"])
+        require({k: v / n_g for k, v in launches.items()} == {"attn_energy_fwd": 2 * n_dec,
+                                                              "attn_energy_bwd": n_dec},
+                f"(1) timed: each of {n_g} replays counted {2 * n_dec} K1 and {n_dec} K2 launches")
+        med, med_e = float(np.median(ms["G"])), float(np.median(ms["E"]))
+        rep.update(replay_ms=ms["G"], eager_ms=ms["E"], replay_ms_median=med,
+                   eager_ms_median=med_e, launches=launches,
+                   train_frames_per_s=TRAIN_B * TRAIN_T_OUT / (med / 1e3))
+        rep["profile"] = prof = profile_step(lambda: step(state, *batch), med)
+        one_ms = report.get("train_graph", {}).get("replay_ms_median")
+        log(f"  (1) timed: in turns {DP_GRAPH['turns']}: the mesh graph's replays "
+            f"{[round(x, 3) for x in ms['G']]} ms (median {med:.3f}), eager mesh steps "
+            f"{[round(x, 3) for x in ms['E']]} (median {med_e:.3f}); device busy "
+            f"{100 * prof['busy_share_of_median_step']:.1f}% of a replay"
+            + ("" if one_ms is None else f"; [train-graph]'s one-process replay median "
+               f"{one_ms:.3f} ms in this run") + f"; {report['card']}")
+        del state, eager, step
+    finally:
+        dp_deterministic()
+    return launches, {"attn_energy_fwd": gr["k1_nodes"], "attn_energy_bwd": gr["k2_nodes"]}
+
+
+def dp_nccl_synth(rep, mesh, card):
+    """(1b): ``Synthesizer(mesh=...)`` over the 1-rank NCCL group at
+    synth_gl1000 B 8 (GL 1000, the step-by-step decode: a mesh refuses the
+    fused one), torch's default algorithms: the mesh Synthesizer's first
+    call eager, its second capturing the model and Griffin-Lim graphs, held
+    within GRAPH_SYNTH_ATOL of the no-mesh graphed call of the same seed;
+    K4's nodes in each graph; the Griffin-Lim graph's waveforms bit-equal
+    to K4 and the iSTFT run eagerly on the replay's own spectrogram, and K4
+    held against its plain version there (check_k4_at); the mesh replays,
+    the no-mesh replays and eager mesh calls in turns
+    (DP_GRAPH["synth_turns"]), the counts set to 0 just before and read
+    after each mesh replay; one mesh replay profiled. -> K4's launches over
+    the timed mesh replays and its graph nodes."""
+    from tacotron_tpu_torch import runtime
+    from tacotron_tpu_torch.config import get_config
+    from tacotron_tpu_torch.data.vocab import Vocab
+    from tacotron_tpu_torch.dsp.audio import gl_spectrum, spectrogram_magnitude, spectrum_to_wav
+    from tacotron_tpu_torch.infer import Synthesizer
+    from tacotron_tpu_torch.weights import split_state
+
+    dev = mesh.device
+    vocab = Vocab.build(PROMPTS)
+    cfg = get_config("synth_gl1000")
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, vocab_size=len(vocab)))
+    acfg, gl_iters = cfg.audio, cfg.audio.griffin_lim_iters
+    texts = PROMPTS[:DP["prompts"]]
+    p, bs = split_state(full_model(cfg, dev))
+    torch.backends.cudnn.deterministic = False
+    torch.use_deterministic_algorithms(False)
+    try:
+        one = Synthesizer(cfg, p, bs, vocab)
+        ref = [one(texts, seed=1, peak_normalize=False) for _ in range(2)][1]
+        synth = Synthesizer(cfg, p, bs, vocab, mesh=mesh)
+        first, outs = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            outs.append(synth(texts, seed=1, peak_normalize=False))
+            first.append((time.perf_counter() - t0) * 1e3)
+        got = outs[1]
+        require([o["graphed"] for o in outs] == [False, True] and ref["graphed"],
+                "(1b) the mesh Synthesizer's first call eager, its second graphed, as the "
+                "no-mesh one's")
+        err = {k: float(np.abs(got[k] - ref[k]).max())
+               for k in ("mel", "linear", "alignments", "wavs")}
+        rep["vs_one_process"] = {"max_abs_err": err, "atol": GRAPH_SYNTH_ATOL,
+                                 "end_frames_equal": bool(np.array_equal(got["end_frames"],
+                                                                         ref["end_frames"]))}
+        log(f"  (1b) mesh synthesis, synth_gl1000, {len(texts)} prompts, replayed, against the "
+            f"no-mesh graphed call of its seed: max abs err {err}; first calls "
+            f"{[round(x, 1) for x in first]} ms (eager; capture, instantiate, replay)")
+        require(max(err[k] for k in ("mel", "linear", "alignments")) <= GRAPH_SYNTH_ATOL
+                and rep["vs_one_process"]["end_frames_equal"],
+                f"(1b) mel, linear and alignments within {GRAPH_SYNTH_ATOL} of the no-mesh "
+                f"graphed call, end frames equal")
+        rep["graphs"] = graphs = synth_graph_report(synth)
+        require(sorted(graphs) == ["gl", "model"] and graphs["gl"]["k4_nodes"] == 3 * gl_iters
+                and graphs["model"]["k4_nodes"] == 0,
+                f"(1b) a model graph and a Griffin-Lim graph, K4's {3 * gl_iters} nodes in the "
+                f"latter ({ {k: v['k4_nodes'] for k, v in graphs.items()} })")
+        lin = torch.from_numpy(got["linear"]).to(dev)
+        with torch.no_grad():
+            mag = spectrogram_magnitude(lin, acfg)
+            wav = spectrum_to_wav(*gl_spectrum(mag, acfg, gl_iters), acfg).cpu().numpy()
+        rep["gl_graph_vs_eager_k4"] = same = bool(np.array_equal(wav, got["wavs"]))
+        require(same, "(1b) the Griffin-Lim graph's waveforms bit-equal to K4 and the iSTFT run "
+                "eagerly on the replay's spectrogram")
+        rep["griffin_lim_on_the_replay"] = check_k4_at(
+            f"(1b) griffin_lim bf16 on the mesh replay's spectrogram (B {mag.shape[0]}, F "
+            f"{mag.shape[1]})", mag, acfg, gl_iters)
+        del lin, mag, ref
+
+        ms = {"G": [], "P": [], "E": []}
+        runtime.LAUNCHES.clear()
+        launches = collections.Counter()
+        for kind in DP_GRAPH["synth_turns"]:
+            counts = collections.Counter(runtime.LAUNCHES)
+            t0 = time.perf_counter()
+            res = (one if kind == "P" else synth)(texts, seed=1, peak_normalize=False,
+                                                  stage_ms=kind == "E")
+            ms[kind].append((time.perf_counter() - t0) * 1e3)
+            require(res["graphed"] == (kind != "E"), f"(1b) {kind} call graphed {res['graphed']}")
+            if kind == "G":
+                launches.update(runtime.LAUNCHES)
+                launches.subtract(counts)
+        launches = dict(+launches)
+        n_g = len(ms["G"])
+        require({k: v / n_g for k, v in launches.items()} == {"griffin_lim": 3 * gl_iters},
+                f"(1b) each of {n_g} replays counted {3 * gl_iters} K4 launches ({launches})")
+        med, med_p, med_e = (float(np.median(ms[k])) for k in "GPE")
+        rows = device_kernels(lambda: synth(texts, seed=1, peak_normalize=False))
+        busy = sum(v[0] for v in rows.values())
+        rep.update(replay_ms=ms["G"], eager_ms=ms["E"], replay_ms_median=med,
+                   eager_ms_median=med_e, launches=launches, one_process_replay_ms=ms["P"],
+                   one_process_replay_ms_median=med_p,
+                   audio_seconds_per_s=res["audio_seconds"] / (med / 1e3),
+                   eager_audio_seconds_per_s=res["audio_seconds"] / (med_e / 1e3),
+                   device_busy_ms=busy, busy_share_of_median_replay=busy / med)
+        log(f"  (1b) in turns {DP_GRAPH['synth_turns']}: mesh replays "
+            f"{[round(x, 2) for x in ms['G']]} ms (median {med:.2f}), no-mesh replays "
+            f"{[round(x, 2) for x in ms['P']]} (median {med_p:.2f}), eager mesh calls "
+            f"{[round(x, 2) for x in ms['E']]} (median {med_e:.2f}); mesh audio-s/s "
+            f"{rep['audio_seconds_per_s']:.2f} graphed, "
+            f"{rep['eager_audio_seconds_per_s']:.2f} eager; device busy {100 * busy / med:.1f}% "
+            f"of the median replay; {card}")
+        del synth, one
+    finally:
+        dp_deterministic()
+    return launches, {"griffin_lim": graphs["gl"]["k4_nodes"]}
+
+
+def phase_dp_nccl(report):
+    """[dp] (1) and (1b) on a 1-rank NCCL group in this process (NCCL
+    refuses two ranks on one card, so one rank is the NCCL mesh one card
+    holds; it runs every collective of both paths): ``dp_nccl_train`` and
+    ``dp_nccl_synth``. The caller sets dp_deterministic(). -> the mesh
+    graphs' launches and graph nodes of K1/K2 and K4."""
     import tempfile
 
     import torch.distributed as dist
 
+    from tacotron_tpu_torch.parallel import make_mesh
+
+    rep = report["dp"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
+                                world_size=1, rank=0)
+        try:
+            mesh = make_mesh(dp_train_config().mesh)
+            require(dist.get_backend(mesh.data_group) == "nccl",
+                    "the 1-rank mesh's data group is NCCL")
+            train_launches, train_nodes = dp_nccl_train(rep.setdefault("world1", {}), mesh,
+                                                        report)
+            synth_launches, synth_nodes = dp_nccl_synth(rep.setdefault("world1_synth", {}), mesh,
+                                                        rep["card"])
+        finally:
+            dist.destroy_process_group()
+    rep["world1_s"] = time.perf_counter() - t0
+    log(f"  (1), (1b) over NCCL: {rep['world1_s']:.1f} s")
+    return ({**train_launches, "griffin_lim_bf16": synth_launches["griffin_lim"]},
+            {**train_nodes, "griffin_lim_bf16": synth_nodes["griffin_lim"]})
+
+
+def phase_dp(report):
+    """[dp] the parallel layer on the one card: (1) the data-parallel step
+    over a 1-rank NCCL group, graphed, against the one-process graphed step
+    and the eager mesh step, bit for bit, then timed; (1b) mesh synthesis
+    over that group through its two graphs against the no-mesh graphed
+    call (``phase_dp_nccl``); on gloo, eager by the rule
+    (``parallel.collectives.capturable``): (2) two gloo ranks of 16 rows
+    each against one process on the 32, with dropout, 3 steps at full
+    width; (3) the tensor-parallel step on (data 1, model 2) at tiny widths
+    against one process; (4) mesh synthesis on the two ranks against one
+    process; (5) the CLIs on two processes (``phase_dp_cli``). Rank 1's
+    results are held bit-equal to rank 0's, and K1/K2 and K4 are held
+    against their plain versions on each path's own inputs. Kernels are
+    built already; the ranks only load them. -> ({kernel: launches per
+    gloo rank}, {kernel: launches over the NCCL mesh graphs' timed
+    replays}, {kernel: their graph nodes})."""
     from tacotron_tpu_torch.config import get_config
     from tacotron_tpu_torch.data.vocab import Vocab
     from tacotron_tpu_torch.dsp.audio import gl_spectrum, spectrogram_magnitude, spectrum_to_wav
     from tacotron_tpu_torch.dsp.fused_gl import gl_spectrum_reference, griffin_lim_spectrum
     from tacotron_tpu_torch.infer import Synthesizer
-    from tacotron_tpu_torch.parallel import make_mesh
     from tacotron_tpu_torch.train import create_train_state, make_train_step
     from tacotron_tpu_torch.weights import split_state
 
     dev = torch.device("cuda")
     card = smi()
     rep = report["dp"] = {"card": card}
-    log(f"[dp] the parallel layer on one card ({card}): 1-rank NCCL, 2 gloo ranks")
+    log(f"[dp] the parallel layer on one card ({card}): 1-rank NCCL (graphed), 2 gloo ranks "
+        f"(eager)")
     flags = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
              torch.is_deterministic_algorithms_warn_only_enabled())
     dp_deterministic()
     try:
         cfg = dp_train_config()
         batch = train_batch(cfg, dev)
-        # (1) world 1 over NCCL: the same bits as no mesh
-        _, plain = dp_run(create_train_state(cfg, seed=0), make_train_step(cfg), batch, 1)
-        with tempfile.TemporaryDirectory() as tmp:
-            dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
-                                    world_size=1, rank=0)
-            try:
-                mesh = make_mesh(cfg.mesh)
-                _, one = dp_run(create_train_state(cfg, seed=0, mesh=mesh),
-                                make_train_step(cfg, mesh), batch, 1)
-            finally:
-                dist.destroy_process_group()
-        diff = {k: float((one["steps"][0][s][k] - plain["steps"][0][s][k]).abs().max())
-                for s, d in plain["digests"][0].items() for k in d
-                if one["digests"][0][s][k] != d[k]}
-        same = one["metrics"] == plain["metrics"] and not diff
-        if not same:
-            _, again = dp_run(create_train_state(cfg, seed=0), make_train_step(cfg), batch, 1)
-            repeats = again["metrics"] == plain["metrics"] and \
-                again["digests"] == plain["digests"]
-            log(f"  1-rank NCCL step differs from the plain step: metrics {one['metrics']} vs "
-                f"{plain['metrics']}; tensors {diff}; the plain step repeats bit for bit: "
-                f"{repeats} (if not, the step itself is not deterministic here)")
-        require(same, f"(1) make_train_step(cfg, mesh) over a 1-rank NCCL group: loss, grad "
-                f"norm, every gradient, updated parameter and batch statistic bit-equal to the "
-                f"plain step (B {TRAIN_B}, full_1chip, f32)")
-        rep["world1"] = {"metrics": one["metrics"], "ms": one["ms"], "plain_ms": plain["ms"]}
+        nccl_launches, nccl_graph_nodes = phase_dp_nccl(report)
 
         # (2)-(4) on two ranks; the one-process references here
         t0 = time.perf_counter()
@@ -3939,6 +4234,10 @@ def phase_dp(report):
             pg_timeout_s=300, threads=4, extra_path=[ROOT])
         rep["ranks_s"] = time.perf_counter() - t0
         r0 = ranks[0]
+        require(all(not r[name]["graphed"] for r in ranks for name in ("dp", "tp", "synth"))
+                and all(r["backend"] == "gloo" for r in ranks),
+                "(2)-(4) two ranks on one card: gloo, so make_train_step(cfg, mesh) is the eager "
+                "step and the mesh Synthesizer's calls are eager (parallel.collectives.capturable)")
         for name, what in (("dp", "(2) every step's gradients, updated parameters and batch "
                                   "statistics"),
                            ("tp", "(3) the step's gradients, updated parameters (full) and batch "
@@ -4067,9 +4366,10 @@ def phase_dp(report):
         torch.backends.cudnn.deterministic = flags[0]
         torch.use_deterministic_algorithms(flags[1], warn_only=flags[2])
     phase_dp_cli(report, card)
-    return {"attn_energy_fwd": [r["dp"]["launches"].get("attn_energy_fwd", 0) for r in ranks],
-            "attn_energy_bwd": [r["dp"]["launches"].get("attn_energy_bwd", 0) for r in ranks],
-            "griffin_lim_bf16": [r["synth"]["launches"].get("griffin_lim", 0) for r in ranks]}
+    return ({"attn_energy_fwd": [r["dp"]["launches"].get("attn_energy_fwd", 0) for r in ranks],
+             "attn_energy_bwd": [r["dp"]["launches"].get("attn_energy_bwd", 0) for r in ranks],
+             "griffin_lim_bf16": [r["synth"]["launches"].get("griffin_lim", 0) for r in ranks]},
+            nccl_launches, nccl_graph_nodes)
 
 
 # [tooling]: the live capture's run, the TF1-converted synthesis's Griffin-Lim
@@ -4669,7 +4969,7 @@ def main(argv=None) -> int:
         phase_main_bf16(report, cfg, vocab, mel_main)
         phase_cli(report, cfg, vocab)
         cli_launches = phase_train_cli(report)
-        dp_launches = phase_dp(report)
+        dp_launches, dp_graph_launches, dp_graph_nodes = phase_dp(report)
         tooling_launches = phase_tooling(report, cfg, vocab)
         evidence_launches = phase_evidence(report)
         for k in kernels:
@@ -4687,6 +4987,12 @@ def main(argv=None) -> int:
                 k["dp_launches"] = dp_launches[k["name"]]
                 require(all(n > 0 for n in k["dp_launches"]), f"{k['name']} launched on every "
                         f"rank of [dp] ({k['dp_launches']})")
+            if k["name"] in dp_graph_launches:
+                k["dp_nccl_graph_launches"] = dp_graph_launches[k["name"]]
+                k["dp_nccl_graph_nodes"] = dp_graph_nodes[k["name"]]
+                require(k["dp_nccl_graph_launches"] > 0 and k["dp_nccl_graph_nodes"] > 0,
+                        f"{k['name']} launched from the NCCL mesh graphs of [dp] "
+                        f"({k['dp_nccl_graph_launches']}, {k['dp_nccl_graph_nodes']} nodes)")
             if k["name"] in tooling_launches:
                 k["tooling_launches"] = tooling_launches[k["name"]]
                 require(k["tooling_launches"] > 0, f"{k['name']} launched on [tooling]'s path "

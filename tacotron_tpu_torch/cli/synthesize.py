@@ -183,6 +183,15 @@ def main(argv=None):
         dt = time.time() - t0
     if args.trace_dir:
         print(f"trace written: {args.trace_dir}")
+    if out["graphed"]:
+        how = "replayed its graphs"
+    elif device.type != "cuda":
+        how = "eager (the CPU)"
+    elif mesh is not None and not mesh.capturable:
+        how = "eager (a gloo mesh: its collectives go through host copies)"
+    else:
+        how = "eager (a shape's first call; its second captures the graphs)"
+    print(f"synthesis call: {how}", flush=True)
     if not primary:
         return
 

@@ -135,6 +135,7 @@ def main(argv=None):
     from tacotron_tpu_torch.parallel import make_mesh
     from tacotron_tpu_torch.train import (checkpoint, create_train_state, make_train_step,
                                           train_step)
+    from tacotron_tpu_torch.train.step import GraphedTrainStep
     from tacotron_tpu_torch.utils import SummaryWriter, profiling
 
     profiling.enable_compilation_cache()
@@ -215,6 +216,15 @@ def main(argv=None):
     # give, cfg.data.num_buckets at most); anomaly mode is not capturable
     step_fn = (functools.partial(train_step, cfg=cfg, mesh=mesh) if args.debug_nans
                else make_train_step(cfg, mesh))
+    if device.type != "cuda":
+        how = "eager (the CPU)"
+    elif args.debug_nans:
+        how = "eager (--debug-nans: anomaly mode cannot be captured)"
+    elif isinstance(step_fn, GraphedTrainStep):
+        how = "a CUDA graph per batch shape"
+    else:
+        how = "eager (a gloo mesh: its collectives go through host copies)"
+    print(f"training step: {how}", flush=True)
     writer = SummaryWriter(os.path.join(args.run_dir, "tb"), enabled=multihost.is_primary())
     trace_dir = os.path.join(args.run_dir, "trace")
 

@@ -108,6 +108,13 @@ def stft_mm(y, n_fft: int, hop_length: int, win_length: int, lowp: bool = False)
     return out[..., :n_bins], out[..., n_bins:]
 
 
+def stft_mm_magnitude(y, n_fft: int, hop_length: int, win_length: int):
+    """|STFT| through the matmul STFT, sqrt(re^2 + im^2 + 1e-12), f32:
+    (..., T) -> (..., frames, n_fft//2 + 1)."""
+    re, im = stft_mm(y, n_fft, hop_length, win_length)
+    return torch.sqrt(re * re + im * im + 1e-12)
+
+
 def inv_window_sumsquare(win_length, n_fft, hop_length, n_frames, device):
     """1 / max(window sum-square, 1e-11) over the padded signal, f32."""
     def make():

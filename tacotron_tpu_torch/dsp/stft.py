@@ -30,6 +30,11 @@ def padded_window(win_length: int, n_fft: int) -> np.ndarray:
     return w
 
 
+def num_frames(n_samples: int, hop_length: int) -> int:
+    """The frame count of a centre-padded signal of ``n_samples``."""
+    return n_samples // hop_length + 1
+
+
 def frame_signal(y, n_fft: int, hop_length: int, center: bool = True):
     """(..., T) -> (..., frames, n_fft) overlapping frames; ``center``
     reflect-pads by n_fft//2 first."""

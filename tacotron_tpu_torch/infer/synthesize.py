@@ -36,9 +36,17 @@ the step-by-step decode, the post-net and Griffin-Lim (the kernel on the
 card) on its slice, with the dropout masks of the global batch; the
 outputs are all-gathered, so every process returns the whole batch, and
 the pad rows are cut off. As in JAX, the fused decode and early exit /
-trimming (host-driven) are refused on a mesh. Mesh synthesis runs eagerly:
-gloo's collectives go through host copies (``parallel/collectives.py``),
-which no graph can capture.
+trimming (host-driven) are refused on a mesh. On a mesh whose collectives
+can be captured (NCCL groups, or none: ``parallel.collectives.capturable``)
+a call runs as JAX's mesh synthesis runs its two jits: a model graph (the
+step-by-step decode and the post-net on this process's rows) and a
+Griffin-Lim graph (the kernel, the final iSTFT and inverse pre-emphasis on
+those rows), captured per shape. The pad and the slice of the prompts come
+before them, and the gather, the cut of the pad rows and the end frames
+after them, eagerly, as JAX's gather to the host follows its jits. With no
+trimming, Griffin-Lim's length is fixed by the shape. A mesh over gloo runs
+eagerly: gloo's collectives go through host copies
+(``parallel/collectives.py``), which no graph can capture.
 """
 
 from __future__ import annotations
@@ -72,6 +80,9 @@ GRAPH_SHAPES = 8
 # ms call of a length seen before (H100 80GB HBM3, 700 W;
 # tools/gl_graph_memory.py, PERF.md sections 5 and 6); a cap on the graphs
 # kept would save it only for lengths that recur before the cap drops them.
+# A mesh refuses trimming, so its Griffin-Lim length is fixed by the shape
+# and a mesh shape keeps its Griffin-Lim graph beside its model graph: two
+# pools a shape, GRAPH_SHAPES shapes at most.
 
 
 class _StageClock:
@@ -100,11 +111,11 @@ _NO_CLOCK = _StageClock(torch.device("cpu"), False)
 
 @dataclasses.dataclass
 class ShapeGraphs:
-    """One shape's graphs. ``model``: each model graph's
-    ``runtime.CapturedGraph`` by name ("synth" on the fixed-length path;
-    "preamble", "chunk" with early exit, "postnet" on the split path), empty
+    """One shape's graphs. ``model``: each graph's ``runtime.CapturedGraph``
+    by name ("synth" on the fixed-length path; "preamble", "chunk" with
+    early exit, "postnet" on the split path; "model", "gl" on a mesh), empty
     until the shape's second call. ``inputs``: the static (text, lengths)
-    the graphs read."""
+    the graphs read (on a mesh, this process's rows)."""
 
     model: dict = dataclasses.field(default_factory=dict)
     inputs: tuple = ()
@@ -138,10 +149,12 @@ class Synthesizer:
     generator with ``seed``, so a replay draws the dropout masks (and K3's
     seed) an eager call with that seed draws. With deterministic algorithms
     (``torch.use_deterministic_algorithms``) a replay is bit-equal to the
-    eager call. The eager path runs on the CPU, under ``stage_ms=True``
-    (which synchronises at every stage by design) and on a ``mesh``; the
-    returned ``"graphed"`` says whether the call replayed the shape's model
-    graphs. A failed capture raises.
+    eager call. A ``mesh`` whose collectives can be captured (NCCL, or no
+    process group) runs its model and Griffin-Lim graphs per shape the same
+    way, then gathers eagerly. The eager path runs on the CPU, under
+    ``stage_ms=True`` (which synchronises at every stage by design) and on
+    a mesh over gloo; the returned ``"graphed"`` says whether the call
+    replayed the shape's graphs. A failed capture raises.
 
     Graphs point at the model's tensors: a ``load_state_dict`` into
     ``self.model`` copies in place and keeps them; when the tensors'
@@ -217,15 +230,13 @@ class Synthesizer:
         n_steps = cfg.model.max_decode_steps if n_steps is None else n_steps
         gl_iters = cfg.audio.griffin_lim_iters if gl_iters is None else gl_iters
         clock = _StageClock(self.device, stage_ms)
-        if self.device.type == "cuda" and self.mesh is None and not stage_ms:
+        if (self.device.type == "cuda" and not stage_ms
+                and (self.mesh is None or self.mesh.capturable)):
             res, graphed = self._on_stream(texts, seed, n_steps, gl_iters)
         else:
             text, lengths = self.encode_texts(texts)
             self._gen.manual_seed(seed)
-            if self.mesh is not None:
-                res = self._mesh_call(text, lengths, n_steps, gl_iters, clock)
-            else:
-                res = self._eager(text, lengths, n_steps, gl_iters, clock)
+            res = self._eager(text, lengths, n_steps, gl_iters, clock)
             graphed = False
         mel, linear, align, ends, wav, wav_norm = res
         wav = wav_norm if peak_normalize else wav
@@ -313,6 +324,11 @@ class Synthesizer:
         """One call, eagerly -> (mel, linear, alignments, ends, wav, wav
         peak-normalised)."""
         gen = self._gen
+        if self.mesh is not None:
+            text, lengths, n_real = self._mesh_rows(text, lengths)
+            mel, align, linear = self._mesh_model(text, lengths, gen, n_steps, clock)
+            return self._mesh_gather(n_real, mel, align, linear,
+                                     self._gl(linear, gl_iters, clock)[0])
         if self.cfg.infer.early_exit:
             loop = self._while_decode(text, lengths, gen, n_steps)
             clock.mark("encoder")
@@ -329,9 +345,10 @@ class Synthesizer:
             t_gl = self._t_gl(ends, t_gl)
         return (mel, linear, align, ends, *self._gl(linear[:, :t_gl], gl_iters, clock))
 
-    def _mesh_call(self, text, lengths, n_steps, gl_iters, clock):
-        # pad to a multiple of the data size with length-1 rows (a real
-        # mask; the rows are cut off below) and keep this rank's slice
+    def _mesh_rows(self, text, lengths):
+        """The batch padded to a multiple of the data size with length-1 rows
+        (a real mask; the rows are cut off after the gather) -> (this
+        process's rows of text and lengths, the real row count)."""
         mesh = self.mesh
         n_real, nd = text.shape[0], mesh.data_size
         pad = -n_real % nd
@@ -339,14 +356,22 @@ class Synthesizer:
         lengths = torch.cat([lengths, lengths.new_ones(pad)])
         per = text.shape[0] // nd
         lo = mesh.data_index * per
-        text, lengths = text[lo:lo + per], lengths[lo:lo + per]
-        mel, align = self._model_pass(text, lengths, mesh.batch_shard(self._gen), n_steps, clock)
+        return text[lo:lo + per], lengths[lo:lo + per], n_real
+
+    def _mesh_model(self, text, lengths, gen, n_steps, clock=_NO_CLOCK):
+        """The model pass on this process's rows, with the dropout masks of
+        the global batch -> (mel, alignments, linear)."""
+        mel, align = self._model_pass(text, lengths, self.mesh.batch_shard(gen), n_steps, clock)
         linear = self.model.postnet(mel)
         clock.mark("postnet")
-        wav, _ = self._gl(linear, gl_iters, clock)
-        if mesh.data_group is not None:
-            mel, linear, align, wav = (all_gather_cat(x, mesh.data_group)
-                                       for x in (mel, linear, align, wav))
+        return mel, align, linear
+
+    def _mesh_gather(self, n_real, mel, align, linear, wav):
+        """Every process's rows gathered, the pad rows cut off, the end
+        frames -> (mel, linear, alignments, ends, wav, wav peak-normalised)."""
+        group = self.mesh.data_group
+        if group is not None:
+            mel, linear, align, wav = (all_gather_cat(x, group) for x in (mel, linear, align, wav))
         mel, linear, align, wav = (x[:n_real] for x in (mel, linear, align, wav))
         icfg = self.cfg.infer
         ends = end_frames_device(mel, threshold=icfg.silence_threshold,
@@ -396,11 +421,15 @@ class Synthesizer:
                 res = self._eager(text, lengths, n_steps, gl_iters)
                 graphed = False
             else:
+                if self.mesh is not None:
+                    text, lengths, n_real = self._mesh_rows(text, lengths)
                 if not entry.model:
                     self._capture(entry, text, lengths, n_steps, gl_iters)
                 for dst, src in zip(entry.inputs, (text, lengths)):
                     dst.copy_(src)
                 res, graphed = self._replay(entry, n_steps, gl_iters)
+                if self.mesh is not None:
+                    res = self._mesh_gather(n_real, *res)
         cur.wait_stream(self._stream)
         return res, graphed
 
@@ -414,7 +443,10 @@ class Synthesizer:
             graphs[name] = runtime.capture_graph(fn, stream, gen)
             return graphs[name].outputs
 
-        if not self.split:
+        if self.mesh is not None:
+            _, _, linear = capture("model", lambda: self._mesh_model(*inputs, gen, n_steps))
+            capture("gl", lambda: self._gl(linear, gl_iters)[0])
+        elif not self.split:
             def synth():
                 mel, align = self._model_pass(*inputs, gen, n_steps)
                 linear, ends = self._post(mel)
@@ -436,7 +468,13 @@ class Synthesizer:
         entry.inputs, entry.model = inputs, graphs
 
     def _replay(self, entry: ShapeGraphs, n_steps, gl_iters):
+        """-> (the outputs, True); on a mesh (mel, alignments, linear, wav)
+        of this process's rows, which ``_mesh_gather`` completes."""
         g = entry.model
+        if self.mesh is not None:
+            runtime.replay_graph(g["model"])
+            runtime.replay_graph(g["gl"])
+            return (*g["model"].outputs, g["gl"].outputs), True
         if not self.split:
             runtime.replay_graph(g["synth"])
             return g["synth"].outputs, True

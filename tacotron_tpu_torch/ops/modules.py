@@ -108,7 +108,10 @@ def dropout_keep(shape, rate: float, generator, device):
     ``shape``, from a ``torch.Generator`` (or None) or a ``BatchShard``.
     Inside a CUDA graph the generator must be registered with the graph
     (``CUDAGraph.register_generator_state``, as ``train.step`` does): each
-    replay then draws the masks an eager call would and advances it alike."""
+    replay then draws the masks an eager call would and advances it alike.
+    A ``BatchShard`` draws the global batch's rows in the graph as in the
+    eager step, so a replayed mesh step advances the generator by what one
+    process's step on the global batch does."""
     if isinstance(generator, BatchShard):
         n = shape[0]
         u = torch.rand((n * generator.count, *shape[1:]), generator=generator.generator,

@@ -14,12 +14,28 @@ slice of the gradient backward) after it, and ``reduce_from_group`` (sum
 forward; identity backward) after a row-sharded embedding.
 ``all_reduce_sum`` is a sum with the sum of the gradients backward, the
 global batch statistics' reduction.
+
+``capturable`` is the rule by which the graphed training step and the
+graphed synthesis decide whether a mesh's work may go into a CUDA graph.
+NCCL runs each collective on the device, on its own stream joined to the
+caller's by events, so a capture on the caller's stream records it;
+gloo's copies to and from the host cannot be captured. A group's first
+collective creates its NCCL communicator, which must not happen inside a
+capture: the graphed paths run every shape's first call eagerly, and that
+call issues every collective that their graphs hold.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+
+def capturable(*groups) -> bool:
+    """Whether collectives over every one of ``groups`` can be captured in
+    a CUDA graph: each is None (no process group: nothing to reduce) or an
+    NCCL group. gloo's cannot: they go through host copies."""
+    return all(g is None or dist.get_backend(g) == "nccl" for g in groups)
 
 
 def _via_host(t: torch.Tensor, group) -> bool:

@@ -23,6 +23,7 @@ import torch
 import torch.distributed as dist
 
 from tacotron_tpu_torch.config import MeshConfig
+from tacotron_tpu_torch.parallel.collectives import capturable
 from tacotron_tpu_torch.parallel.multihost import process_count, process_index, rank_device
 
 
@@ -47,6 +48,12 @@ class Mesh:
     @property
     def size(self) -> int:
         return self.data_size * self.model_size
+
+    @property
+    def capturable(self) -> bool:
+        """Whether this mesh's collectives can go into a CUDA graph
+        (``collectives.capturable``): NCCL groups, or none."""
+        return capturable(self.data_group, self.model_group)
 
     def batch_shard(self, generator: torch.Generator):
         """``generator`` as dropout draws it on this mesh (an

@@ -145,7 +145,13 @@ def capture_graph(fn, stream, generator=None) -> CapturedGraph:
     registered with it so that each replay draws what an eager call at the
     generator's state would, and advances it alike. The capture's wrapper
     calls launch nothing: their counts are taken back out of ``LAUNCHES``
-    and kept for ``replay_graph``. A failed capture raises."""
+    and kept for ``replay_graph``. NCCL collectives that ``fn`` issues are
+    captured too: their stream joins the capture through the events that
+    order it with the capture stream. Each group's communicator must exist
+    before (NCCL makes it at the group's first collective, which cannot be
+    captured), so the callers run each shape's first call eagerly; the
+    thread-local mode lets NCCL's watchdog thread query its events while
+    the capture is open. A failed capture raises."""
     before = collections.Counter(LAUNCHES)
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     if generator is not None:

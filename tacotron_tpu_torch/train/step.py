@@ -9,10 +9,14 @@ returns it with the update count advanced. ``cfg.model.compute_dtype``
 parameters, their gradients and the Adam moments stay f32, as in JAX.
 
 JAX compiles its step once per bucket shape (``jax.jit`` with the state
-donated). The port's counterpart is ``GraphedTrainStep``, which
-``make_train_step`` returns in one process: on a CUDA device each shape's
-first step runs eagerly, later steps of that shape replay one captured
-CUDA graph; a state on the CPU runs the eager step.
+donated; on a mesh with ``in_shardings``/``out_shardings``, the gradient
+all-reduce inside the program). The port's counterpart is
+``GraphedTrainStep``, which ``make_train_step`` returns in one process and
+on a mesh whose collectives can be captured (NCCL groups,
+``parallel.collectives.capturable``): on a CUDA device each shape's first
+step runs eagerly, later steps of that shape replay one captured CUDA
+graph, the mesh's collectives inside it; a state on the CPU runs the eager
+step.
 ``train_step`` stays the eager function, as JAX's ``train_step`` stays the
 pure function that ``jax.jit`` wraps, and is the plain version that the
 graph is held against.
@@ -25,7 +29,9 @@ dropout masks drawn for the global batch, batch statistics over it
 summed over the data group (one flat all-reduce after the backward), and
 with tensor parallelism (``parallel/sharding.py``) the clipping norm taken
 over every parameter once: the split ones' squares summed over the model
-group.
+group. A mesh over gloo (the CPU, or several ranks on one card, which NCCL
+refuses) runs the eager step: its collectives go through host copies,
+which no graph can capture.
 """
 
 from __future__ import annotations
@@ -131,16 +137,17 @@ def make_train_step(cfg: Config, mesh=None):
     text, text_len, mel_gt, linear_gt, frame_len) -> (state, metrics,
     alignments)``, it is:
 
-    * in one process (``mesh`` None, or a mesh of one process without a
-      process group, as ``cli.train`` makes it): a ``GraphedTrainStep``,
-      which runs one CUDA graph per batch shape for a state on the card and
-      the eager ``train_step`` for a state on the CPU (there is no graph
-      there);
-    * on a mesh with a process group (data or tensor parallelism):
-      ``train_step`` bound to ``cfg`` and ``mesh``, eager. gloo's
-      collectives go through host copies, which no graph can capture.
+    * in one process, and on a mesh whose collectives can be captured
+      (``mesh.capturable``: NCCL groups, or none, as ``cli.train`` makes
+      it for one process): a ``GraphedTrainStep``, which runs one CUDA
+      graph per batch shape for a state on the card, the mesh's collectives
+      inside it, and the eager ``train_step`` for a state on the CPU (there
+      is no graph there);
+    * on a mesh over gloo: ``train_step`` bound to ``cfg`` and ``mesh``,
+      eager. gloo's collectives go through host copies, which no graph can
+      capture.
     """
-    if mesh is None or (mesh.data_group is None and mesh.model_group is None):
+    if mesh is None or mesh.capturable:
         return GraphedTrainStep(cfg, mesh)
     return functools.partial(train_step, cfg=cfg, mesh=mesh)
 
@@ -241,17 +248,25 @@ class CapturedStep:
 
 class GraphedTrainStep:
     """``train_step`` as one CUDA graph per batch shape (``shape_key``), the
-    counterpart of JAX's step jitted per bucket shape, on one CUDA device.
-    A state on the CPU runs ``train_step`` itself: no graph, no shape.
+    counterpart of JAX's step jitted per bucket shape, on one CUDA device,
+    and on each rank of a mesh whose collectives can be captured (NCCL):
+    the gradient all-reduce, the global batch statistics and, with tensor
+    parallelism, the split layers' collectives and the clipping norm's are
+    captured with the rest, as JAX's sharded step holds them. A state on
+    the CPU runs ``train_step`` itself: no graph, no shape. A state on the
+    card with a mesh over gloo raises (``make_train_step`` gives such a
+    mesh the eager step).
 
     The first step of a shape runs eagerly on the step's own stream: it is
     a real step, and it fills every lazy cache (Adam's state, K1/K2's
     library, residency table and K2's counter for that stream, cuBLAS's and
-    cuDNN's workspaces). The next step of that shape captures the graph
-    (``torch.cuda.graph``, thread-local capture mode, a private memory pool
-    per shape, the dropout generator registered so that each replay draws
-    the masks an eager step would) and replays it; later steps copy their
-    batch into the graph's static inputs and replay. The LR is filled in
+    cuDNN's workspaces) and issues every collective of the step, so that
+    each NCCL communicator exists before a capture records its work. The
+    next step of that shape captures the graph (``torch.cuda.graph``,
+    thread-local capture mode, a private memory pool per shape, the dropout
+    generator registered so that each replay draws the masks an eager step
+    would) and replays it; later steps copy their batch into the graph's
+    static inputs and replay. The LR is filled in
     before each replay (``set_learning_rate``) and the host ``step``
     advances as ``train_step``'s does. ``metrics`` and ``alignments`` come
     back as clones, so a caller may keep them past the next step.
@@ -281,20 +296,20 @@ class GraphedTrainStep:
         self._bound = None            # _state_tensors of the state the graphs point at
 
     def shape_key(self, device, text, text_len, mel_gt, linear_gt, frame_len) -> tuple:
-        """What one captured graph is valid for: the device and the shapes
-        and dtypes of the batch (``frame_len`` None apart from any tensor).
-        ``cfg`` is fixed per step and the state's model is checked against
-        it, so it is no part of the key. Raises on a new shape past
-        ``max_shapes``."""
+        """What one captured graph is valid for: the device, the shapes and
+        dtypes of the batch (``frame_len`` None apart from any tensor) and
+        the mesh (by identity: its groups are in the graph). ``cfg`` is
+        fixed per step and the state's model is checked against it, so it
+        is no part of the key. Raises on a new shape past ``max_shapes``."""
         def sig(x):
             return None if x is None else (tuple(x.shape), x.dtype)
 
-        key = (torch.device(device),
+        key = (torch.device(device), self.mesh,
                *(sig(x) for x in (text, text_len, mel_gt, linear_gt, frame_len)))
         if key not in self.graphs and len(self.graphs) >= self.max_shapes:
             raise ValueError(f"a graphed step serves at most cfg.data.num_buckets = "
                              f"{self.max_shapes} batch shapes; this is another one: "
-                             f"{key[1:]}")
+                             f"{key[2:]}")
         return key
 
     def __call__(self, state: TrainState, text, text_len, mel_gt, linear_gt, frame_len):
@@ -302,6 +317,10 @@ class GraphedTrainStep:
         batch = (text, text_len, mel_gt, linear_gt, frame_len)
         if dev.type != "cuda":
             return train_step(state, *batch, cfg=self.cfg, mesh=self.mesh)
+        if self.mesh is not None and not self.mesh.capturable:
+            raise ValueError("a mesh over gloo cannot be captured (its collectives go "
+                             "through host copies): make_train_step(cfg, mesh) gives it "
+                             "the eager train_step")
         if _state_tensors(state) != self._bound:
             self.graphs.clear()
         key = self.shape_key(dev, *batch)

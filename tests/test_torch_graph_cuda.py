@@ -34,10 +34,20 @@ path over six Griffin-Lim lengths, each seen again: each call within
 GRAPH_SYNTH_ATOL of an eager call at the same seed and length, the shape
 holding its model graphs and no other, and the memory the allocator
 holds for graph pools the model graphs' pools, the same after every call.
+
+The mesh paths over a 1-rank NCCL group in this process (the one group
+that one card can hold): ``make_train_step(cfg, mesh)`` is graphed, and
+over ORDER its steps are bit-equal to the one-process graphed step and
+to the eager mesh step, in f32 and bf16, each graph holding the K1/K2
+nodes of the one-process graph of its shape; ``Synthesizer(mesh=...)``
+replays a model graph and a Griffin-Lim graph (K4's 3 nodes per
+iteration) per shape, each call bit-equal to an eager call without a
+mesh.
 """
 
 import collections
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -382,3 +392,119 @@ def test_split_path_keeps_no_gl_graph_over_many_lengths(dev, synth_state):
         assert held[-1] <= sum(g.pool_bytes for g in graphs.values()), (i, t, held[-1])
         del entry, graphs
     assert held[2:] == [held[1]] * (len(held) - 2), held
+
+
+# ------------------------------------------------------- a mesh over NCCL
+
+@pytest.fixture(scope="module")
+def nccl_mesh(dev, tmp_path_factory):
+    """A mesh over a 1-rank NCCL group in this process: NCCL refuses two
+    processes on one card, so one rank is all that one card can hold, and
+    it runs every collective of the mesh paths (a 1-rank reduction is a
+    copy)."""
+    import torch.distributed as dist
+
+    from tacotron_tpu_torch.parallel import make_mesh
+
+    rdv = tmp_path_factory.mktemp("nccl") / "rendezvous"
+    dist.init_process_group("nccl", init_method=f"file://{rdv}", world_size=1, rank=0)
+    mesh = make_mesh(get_config("tiny_cpu").mesh)
+    assert dist.get_backend(mesh.data_group) == "nccl" and mesh.capturable
+    yield mesh
+    dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+def mesh_interleaved(nccl_mesh, request):
+    """Over ORDER from one seeded state each: the one-process graphed step,
+    ``make_train_step(cfg, mesh)`` and the eager mesh step -> (cfg, per
+    call {run: (metrics, alignments)} and the mesh step's launches, the
+    three states, the one-process step, the mesh step)."""
+    cfg = _cfg(request.param)
+    dev = nccl_mesh.device
+    batches = {k: _batch(cfg, dev, *s, seed=i) for i, (k, s) in enumerate(SHAPES.items())}
+    one, graphed = make_train_step(cfg), make_train_step(cfg, nccl_mesh)
+    steps = {"one": one, "mesh": graphed,
+             "eager": functools.partial(train_step, cfg=cfg, mesh=nccl_mesh)}
+    states = {"one": create_train_state(cfg, seed=0),
+              **{k: create_train_state(cfg, seed=0, mesh=nccl_mesh) for k in ("mesh", "eager")}}
+    calls = []
+    for k in ORDER:
+        call = {}
+        for run, fn in steps.items():
+            before = collections.Counter(runtime.LAUNCHES)
+            states[run], m, a = fn(states[run], *batches[k])
+            if run == "mesh":
+                launches = collections.Counter(runtime.LAUNCHES)
+                launches.subtract(before)
+            call[run] = (m, a)
+        calls.append((k, call, +launches))
+    torch.cuda.synchronize()
+    return cfg, calls, states, one, graphed
+
+
+def test_nccl_mesh_step_is_graphed_and_bit_equal(mesh_interleaved):
+    """The mesh step over NCCL is a GraphedTrainStep; its steps (eager,
+    capture + replay, replay per shape) are bit-equal to the one-process
+    graphed step and to the eager mesh step, and so are the states."""
+    cfg, calls, states, one, graphed = mesh_interleaved
+    assert isinstance(graphed, GraphedTrainStep) and graphed.mesh is not None
+    for i, (k, call, _) in enumerate(calls):
+        for run in ("mesh", "eager"):
+            m, a = call[run]
+            assert sorted(m) == sorted(call["one"][0])
+            for name, v in call["one"][0].items():
+                assert torch.equal(m[name], v), (i, k, run, name)
+            assert torch.equal(a, call["one"][1]), (i, k, run)
+    want = _state_of(states["one"])
+    for run in ("mesh", "eager"):
+        _assert_same(_state_of(states[run]), want)
+    assert all(v is not None for v in graphed.graphs.values()) and len(graphed.graphs) == 2
+
+
+def test_nccl_mesh_graph_holds_k1_k2_and_counts_them(mesh_interleaved):
+    """Each shape's mesh graph holds the K1/K2 nodes of the one-process
+    graph of that shape, and each replay counts them."""
+    cfg, calls, _, one, graphed = mesh_interleaved
+    r = cfg.model.r
+    for k, _, launches in calls:
+        s = SHAPES[k][2] // r
+        assert launches == {"attn_energy_fwd": 2 * s, "attn_energy_bwd": s}, (k, launches)
+    for key, entry in graphed.graphs.items():
+        s = entry.inputs[2].shape[1] // r
+        nodes = graph_nodes(entry.graph)
+        ref = graph_nodes(one.graphs[(key[0], None, *key[2:])].graph)
+        for kern in ("energy_fwd", "energy_bwd"):
+            got = sum(n for name, n in nodes.items() if kern in name)
+            assert got == sum(n for name, n in ref.items() if kern in name) == (
+                s if kern == "energy_bwd" else 2 * s), (kern, got)
+        assert entry.launches == {"attn_energy_fwd": 2 * s, "attn_energy_bwd": s}
+
+
+def test_nccl_mesh_synthesis_replays_model_and_gl_graphs(synth_state, nccl_mesh):
+    """``Synthesizer(mesh=...)`` over NCCL: eager, capture + replay, replay,
+    replay, each bit-equal to an eager call without a mesh at its seed;
+    two graphs per shape, the model's (no K4) and Griffin-Lim's (K4's 3
+    nodes per iteration); the gather after them."""
+    (p, bs), vocab = synth_state
+    cfg = _synth_cfg()
+    synth = Synthesizer(cfg, p, bs, vocab, mesh=nccl_mesh)
+    eager = Synthesizer(cfg, p, bs, vocab)
+    per_call = {"griffin_lim": 3 * SYNTH_GL}
+    for i, seed in enumerate(SEEDS):
+        before = collections.Counter(runtime.LAUNCHES)
+        got = synth(PROMPTS, seed=seed)
+        launches = collections.Counter(runtime.LAUNCHES)
+        launches.subtract(before)
+        want = eager(PROMPTS, seed=seed, stage_ms=True)
+        assert got["graphed"] is (i > 0) and +launches == per_call, (i, launches)
+        for k, v in _outputs(want).items():
+            assert np.array_equal(got[k], v), (i, k)
+    (entry,) = synth.graphs.values()
+    graphs = dict(entry.captured())
+    assert sorted(graphs) == ["gl", "model"]
+    for name, g in graphs.items():
+        nodes = graph_nodes(g.graph)
+        k4 = sum(n for k, n in nodes.items() if "gl_wgmma" in k or "gl_ola_frame" in k)
+        assert k4 == (3 * SYNTH_GL if name == "gl" else 0), (name, nodes)
+        assert dict(g.launches) == (per_call if name == "gl" else {}), name

@@ -3,7 +3,8 @@ it; the bf16 mode is in tests/test_torch_gl_lowp.py.
 
 The port's plain f32 Griffin-Lim (reached through the kernel wrapper with
 ``lowp=False``, which takes it for CPU tensors) vs the JAX Pallas kernel interpreted in f32
-(``lowp=False``); ``istft_mm`` and ``inv_preemphasis`` vs JAX. The kernels'
+(``lowp=False``); ``istft_mm``, ``stft_mm_magnitude``, ``num_frames`` and
+``inv_preemphasis`` vs JAX. The kernels'
 tensor-core layout, both modes: the padded K-major bases against
 ``live_bases``; a mirror of the overlap-add-and-frame launch against the
 reflect framing of ``frame_signal`` (bit-identical, every slot written
@@ -32,14 +33,16 @@ import jax.numpy as jnp
 from tacotron_tpu.dsp.audio import inv_preemphasis as jax_inv_preemphasis
 from tacotron_tpu.dsp.dft import istft_mm as jax_istft_mm
 from tacotron_tpu.dsp.dft import stft_mm as jax_stft_mm
+from tacotron_tpu.dsp.dft import stft_mm_magnitude as jax_stft_mm_magnitude
+from tacotron_tpu.dsp.stft import num_frames as jax_num_frames
 from tacotron_tpu.dsp.pallas_gl import griffin_lim_pallas
 from tacotron_tpu_torch.dsp.audio import inv_preemphasis
-from tacotron_tpu_torch.dsp.dft import gl_spectrum_mm, istft_mm
+from tacotron_tpu_torch.dsp.dft import gl_spectrum_mm, istft_mm, stft_mm_magnitude
 from tacotron_tpu_torch.dsp.dft import inv_window_sumsquare, zero_phase
 from tacotron_tpu_torch.dsp.fused_gl import (PAD, gl_spectrum_reference, gl_step_reference,
                                              griffin_lim, griffin_lim_spectrum, live_bases,
                                              padded, padded_bases, tf32_split_matmul)
-from tacotron_tpu_torch.dsp.stft import frame_signal, overlap_add
+from tacotron_tpu_torch.dsp.stft import frame_signal, num_frames, overlap_add
 
 KW = dict(n_fft=256, hop_length=48, win_length=190)
 
@@ -74,6 +77,25 @@ def test_istft_mm_matches_jax():
     want = np.asarray(jax_istft_mm(jnp.asarray(re), jnp.asarray(im), **KW))
     got = istft_mm(torch.from_numpy(re), torch.from_numpy(im), **KW).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def test_stft_mm_magnitude_matches_jax():
+    """f32 products on both sides, only the order of the sums differs: 1e-5
+    of the peak, as ``stft_mm`` is held in bf16 (tests/test_torch_gl_lowp.py)."""
+    y = np.random.default_rng(2).standard_normal((2, 3000)).astype(np.float32)
+    want = np.asarray(jax_stft_mm_magnitude(jnp.asarray(y), **KW))
+    got = stft_mm_magnitude(torch.from_numpy(y), **KW).numpy()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    _close_to_peak(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("n", [1, 47, 48, 3000, 20_000])
+def test_num_frames_matches_jax(n):
+    assert num_frames(n, KW["hop_length"]) == jax_num_frames(n, KW["hop_length"])
+    # the frame count of the centre-padded transform itself
+    y = torch.zeros(1, max(n, KW["n_fft"] // 2 + 1))
+    assert frame_signal(y, KW["n_fft"], KW["hop_length"]).shape[-2] == num_frames(
+        y.shape[-1], KW["hop_length"])
 
 
 @pytest.mark.parametrize("n", [1, 255, 256, 20_000])

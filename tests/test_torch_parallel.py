@@ -241,6 +241,7 @@ def test_train_cli_on_two_processes(tmp_path):
     outs, codes = _procs(_cli("train", tmp_path / "rdv1", 2, *train, "--steps", "6"), tmp_path)
     assert codes == [0, 0], outs
     assert all("torch.distributed backend gloo" in o for o in outs)
+    assert all("training step: eager (the CPU)" in o for o in outs)
     finals = [_json_lines(o)[-1] for o in outs]
     assert finals[0] == finals[1] == {"done": True, "step": 6}
     losses = [[ln["total_loss"] for ln in _json_lines(o) if "total_loss" in ln] for o in outs]
@@ -271,6 +272,7 @@ def test_train_cli_on_two_processes(tmp_path):
                               "--text", "abc", "--text", "the fox", "--text", "a dog",
                               "--steps", "4", "--gl-iters", "2", "--data-parallel"), tmp_path)
     assert codes == [0, 0], outs
+    assert all("synthesis call: eager (the CPU)" in o for o in outs)
     assert _json_lines(outs[0])[-1]["n"] == 3 and not _json_lines(outs[1])
     assert sorted(os.listdir(out_dir)) == [f"utt_{i:03d}.wav" for i in range(3)]
 
