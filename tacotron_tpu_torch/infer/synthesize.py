@@ -53,7 +53,6 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -67,8 +66,13 @@ from tacotron_tpu_torch.models.tacotron import Tacotron, length_mask
 from tacotron_tpu_torch.ops.decode_loop import decode_loop, pack_decoder_weights
 from tacotron_tpu_torch.parallel.collectives import all_gather_cat
 from tacotron_tpu_torch.runtime import resolve_device
+from tacotron_tpu_torch.utils import profiling
 
 STAGES = ("encoder", "decode", "postnet", "griffin_lim", "istft_inv_preemphasis")
+# what a call's record (utils.profiling) times: the stages, then the outputs'
+# copies to the host; beside them ``chunk_gap``, the device's idle between
+# the early-exit decode's chunks (the exit-flag reads)
+RECORD_STAGES = (*STAGES, "to_host")
 # shapes whose graphs a Synthesizer keeps; a new shape past them drops the
 # least recently used one's
 GRAPH_SHAPES = 8
@@ -83,30 +87,6 @@ GRAPH_SHAPES = 8
 # A mesh refuses trimming, so its Griffin-Lim length is fixed by the shape
 # and a mesh shape keeps its Griffin-Lim graph beside its model graph: two
 # pools a shape, GRAPH_SHAPES shapes at most.
-
-
-class _StageClock:
-    """Milliseconds per stage; synchronises the device at each mark so a
-    stage's time is its own. Off unless asked for."""
-
-    def __init__(self, device: torch.device, enabled: bool):
-        self.device, self.enabled = device, enabled
-        self.ms: dict[str, float] = {}
-        self._t = self._now() if enabled else 0.0
-
-    def _now(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
-
-    def mark(self, stage: str):
-        if self.enabled:
-            now = self._now()
-            self.ms[stage] = (now - self._t) * 1e3
-            self._t = now
-
-
-_NO_CLOCK = _StageClock(torch.device("cpu"), False)
 
 
 @dataclasses.dataclass
@@ -152,9 +132,16 @@ class Synthesizer:
     eager call. A ``mesh`` whose collectives can be captured (NCCL, or no
     process group) runs its model and Griffin-Lim graphs per shape the same
     way, then gathers eagerly. The eager path runs on the CPU, under
-    ``stage_ms=True`` (which synchronises at every stage by design) and on
-    a mesh over gloo; the returned ``"graphed"`` says whether the call
+    ``stage_ms=True`` (the eager reference the graphs are held against) and
+    on a mesh over gloo; the returned ``"graphed"`` says whether the call
     replayed the shape's graphs. A failed capture raises.
+
+    Each call is one record of the stage clock (``utils.profiling``) when
+    it is on: device ms of ``RECORD_STAGES`` and ``chunk_gap_ms``, host
+    spans, and the counters ``chunks`` (early-exit chunks run), ``t_gl``
+    (Griffin-Lim's frames), ``d2h_bytes`` (bytes read to the host) and
+    ``graphed``. Each graph holds its stage marks as event nodes (none in
+    the chunk graph, whose replays are marked from the host).
 
     Graphs point at the model's tensors: a ``load_state_dict`` into
     ``self.model`` copies in place and keeps them; when the tensors'
@@ -225,29 +212,37 @@ class Synthesizer:
         wavs (B, T_samples), end_frames (first detected-silence frame),
         wav_lengths (samples), audio_seconds (padded total),
         trimmed_audio_seconds, as numpy, and ``graphed``; with ``stage_ms``
-        also the milliseconds of each of ``STAGES``."""
+        (an eager call) also the device milliseconds of each of ``STAGES``
+        (``decode`` with the gaps between its chunks)."""
         cfg = self.cfg
         n_steps = cfg.model.max_decode_steps if n_steps is None else n_steps
         gl_iters = cfg.audio.griffin_lim_iters if gl_iters is None else gl_iters
-        clock = _StageClock(self.device, stage_ms)
-        if (self.device.type == "cuda" and not stage_ms
-                and (self.mesh is None or self.mesh.capturable)):
-            res, graphed = self._on_stream(texts, seed, n_steps, gl_iters)
-        else:
-            text, lengths = self.encode_texts(texts)
-            self._gen.manual_seed(seed)
-            res = self._eager(text, lengths, n_steps, gl_iters, clock)
-            graphed = False
-        mel, linear, align, ends, wav, wav_norm = res
-        wav = wav_norm if peak_normalize else wav
-        clock.mark("istft_inv_preemphasis")
-        wav = wav.cpu().numpy()
-        ends = ends.cpu().numpy() if isinstance(ends, torch.Tensor) else ends
+        with profiling.clock("synthesize", self.device, RECORD_STAGES, force=stage_ms) as clock:
+            if (self.device.type == "cuda" and not stage_ms
+                    and (self.mesh is None or self.mesh.capturable)):
+                res, graphed = self._on_stream(texts, seed, n_steps, gl_iters)
+            else:
+                with profiling.span("inputs"):
+                    text, lengths = self.encode_texts(texts)
+                self._gen.manual_seed(seed)
+                with profiling.span("eager"):
+                    res = self._eager(text, lengths, n_steps, gl_iters)
+                graphed = False
+            mel, linear, align, ends, wav, wav_norm = res
+            with profiling.span("to_host"):
+                wav = _to_host(wav_norm if peak_normalize else wav)
+                ends = _to_host(ends) if isinstance(ends, torch.Tensor) else ends
+                mel, linear, align = _to_host(mel), _to_host(linear), _to_host(align)
+                profiling.mark("to_host")
+            if clock is not None:
+                clock.counters["graphed"] = graphed
+                if not self.split:          # Griffin-Lim ran over every frame
+                    clock.counters["t_gl"] = linear.shape[1]
         wav_lengths = np.minimum(ends * cfg.audio.hop_length, wav.shape[1])
         out = {
-            "mel": mel.cpu().numpy(),
-            "linear": linear.cpu().numpy(),
-            "alignments": align.cpu().numpy(),
+            "mel": mel,
+            "linear": linear,
+            "alignments": align,
             "wavs": wav,
             "end_frames": ends,
             "wav_lengths": wav_lengths,
@@ -256,21 +251,25 @@ class Synthesizer:
             "graphed": graphed,
         }
         if stage_ms:
-            out["stage_ms"] = dict(clock.ms)
+            rec = clock.record()
+            out["stage_ms"] = {k: rec["stage_ms"][k] for k in STAGES}
+            out["stage_ms"]["decode"] += rec.get("chunk_gap_ms", 0.0)
         return out
 
     # ------------------------------------------------- the passes, eager or captured
 
     def _encode(self, text, lengths, gen):
+        """The encoder, keys and mask; marks the start of a call's device work."""
         m = self.model
+        profiling.mark(None)
         memory = m.encoder(text, lengths, gen)
         return memory, m.memory_proj(memory), length_mask(text.shape[1], lengths)
 
-    def _model_pass(self, text, lengths, gen, n_steps, clock=_NO_CLOCK):
+    def _model_pass(self, text, lengths, gen, n_steps):
         """Encoder and the fixed-length decode -> (mel, alignments)."""
         m, mcfg = self.model, self.cfg.model
         memory, keys, mask = self._encode(text, lengths, gen)
-        clock.mark("encoder")
+        profiling.mark("encoder")
         if self.fused:
             # drawn on the device, as JAX draws it inside its jit; K3 reads it there
             seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=gen, device=self.device)
@@ -281,7 +280,7 @@ class Synthesizer:
             mel = frames.reshape(text.shape[0], n_steps * mcfg.r, mcfg.n_mels)
         else:
             mel, align = m.decoder(memory, keys, mask, n_steps, gen)
-        clock.mark("decode")
+        profiling.mark("decode")
         return mel, align
 
     def _while_decode(self, text, lengths, gen, n_steps) -> WhileDecode:
@@ -289,61 +288,95 @@ class Synthesizer:
         early-exit decode (JAX's ``decode_while``)."""
         mcfg, icfg = self.cfg.model, self.cfg.infer
         memory, keys, mask = self._encode(text, lengths, gen)
-        return WhileDecode(
+        loop = WhileDecode(
             memory, keys, mask, pack_decoder_weights(self.model.decoder.cell), gen,
             n_steps=n_steps, r=mcfg.r, n_mels=mcfg.n_mels, dropout_rate=mcfg.prenet_dropout,
             silence_threshold=icfg.silence_threshold,
             # the stop unit is a decoder step = r frames
             min_silence_steps=max(1, -(-icfg.min_silence_frames // mcfg.r)))
+        profiling.mark("encoder")
+        return loop
+
+    def _decode_chunks(self, run_chunk, n_steps: int, chunk: int) -> None:
+        """The early-exit loop (``run_until_done``), each chunk between two
+        host marks when the clock is on: the time before a chunk is
+        ``chunk_gap`` (the previous exit-flag read), the chunk ``decode``."""
+        def marked():
+            profiling.mark("chunk_gap")
+            done = run_chunk()
+            profiling.mark("decode")
+            return done
+
+        with profiling.span("chunk_loop"):
+            n = run_until_done(marked if profiling.recording() else run_chunk, n_steps, chunk)
+            profiling.count("chunks", n)
+
+    def _exit_post(self, loop: WhileDecode):
+        """The early-exit decode's outputs through the post-net -> (mel,
+        alignments, linear, end frames); the time since the last chunk is
+        ``chunk_gap``."""
+        profiling.mark("chunk_gap")
+        mel, align = loop.outputs()
+        return (mel, align, *self._post(mel))
 
     def _post(self, mel):
         """-> (linear, end frames (B,) on the device)."""
         icfg = self.cfg.infer
-        return self.model.postnet(mel), end_frames_device(
+        out = self.model.postnet(mel), end_frames_device(
             mel, threshold=icfg.silence_threshold, min_run=icfg.min_silence_frames)
+        profiling.mark("postnet")
+        return out
 
-    def _gl(self, linear, gl_iters, clock=_NO_CLOCK):
+    def _ends_to_host(self, ends) -> np.ndarray:
+        """The (B,) end frames read to the host: the split path's one read
+        before Griffin-Lim."""
+        ends = _to_host(ends)
+        profiling.mark("to_host")
+        return ends
+
+    def _gl(self, linear, gl_iters):
         """Griffin-Lim, the final iSTFT and inverse pre-emphasis -> (wav,
         wav peak-normalised)."""
         acfg = self.cfg.audio
         re, im = gl_spectrum(spectrogram_magnitude(linear, acfg), acfg, gl_iters)
-        clock.mark("griffin_lim")
+        profiling.mark("griffin_lim")
         wav = spectrum_to_wav(re, im, acfg)
-        return wav, _normalized(wav)
+        out = wav, _normalized(wav)
+        profiling.mark("istft_inv_preemphasis")
+        return out
 
     def _t_gl(self, ends: np.ndarray, frames: int) -> int:
-        """Griffin-Lim's length: with ``trim_before_gl`` the batch's largest
-        end frame rounded up to the quantum, else every frame."""
+        """The split path's Griffin-Lim length (counted as ``t_gl``): with
+        ``trim_before_gl`` the batch's largest end frame rounded up to the
+        quantum, else every frame."""
         icfg = self.cfg.infer
-        if not icfg.trim_before_gl:
-            return frames
-        q = icfg.gl_length_quantum
-        return min(int(-(-max(int(ends.max()), q) // q) * q), frames)
+        t_gl = frames
+        if icfg.trim_before_gl:
+            q = icfg.gl_length_quantum
+            t_gl = min(int(-(-max(int(ends.max()), q) // q) * q), frames)
+        profiling.count("t_gl", t_gl)
+        return t_gl
 
-    def _eager(self, text, lengths, n_steps, gl_iters, clock=_NO_CLOCK):
+    def _eager(self, text, lengths, n_steps, gl_iters):
         """One call, eagerly -> (mel, linear, alignments, ends, wav, wav
         peak-normalised)."""
         gen = self._gen
         if self.mesh is not None:
             text, lengths, n_real = self._mesh_rows(text, lengths)
-            mel, align, linear = self._mesh_model(text, lengths, gen, n_steps, clock)
-            return self._mesh_gather(n_real, mel, align, linear,
-                                     self._gl(linear, gl_iters, clock)[0])
+            mel, align, linear = self._mesh_model(text, lengths, gen, n_steps)
+            return self._mesh_gather(n_real, mel, align, linear, self._gl(linear, gl_iters)[0])
         if self.cfg.infer.early_exit:
             loop = self._while_decode(text, lengths, gen, n_steps)
-            clock.mark("encoder")
-            run_until_done(loop.run_chunk, n_steps, loop.chunk)
-            mel, align = loop.outputs()
-            clock.mark("decode")
+            self._decode_chunks(loop.run_chunk, n_steps, loop.chunk)
+            mel, align, linear, ends = self._exit_post(loop)
         else:
-            mel, align = self._model_pass(text, lengths, gen, n_steps, clock)
-        linear, ends = self._post(mel)
-        clock.mark("postnet")
+            mel, align = self._model_pass(text, lengths, gen, n_steps)
+            linear, ends = self._post(mel)
         t_gl = linear.shape[1]
         if self.split:
-            ends = ends.cpu().numpy()
+            ends = self._ends_to_host(ends)
             t_gl = self._t_gl(ends, t_gl)
-        return (mel, linear, align, ends, *self._gl(linear[:, :t_gl], gl_iters, clock))
+        return (mel, linear, align, ends, *self._gl(linear[:, :t_gl], gl_iters))
 
     def _mesh_rows(self, text, lengths):
         """The batch padded to a multiple of the data size with length-1 rows
@@ -358,12 +391,12 @@ class Synthesizer:
         lo = mesh.data_index * per
         return text[lo:lo + per], lengths[lo:lo + per], n_real
 
-    def _mesh_model(self, text, lengths, gen, n_steps, clock=_NO_CLOCK):
+    def _mesh_model(self, text, lengths, gen, n_steps):
         """The model pass on this process's rows, with the dropout masks of
         the global batch -> (mel, alignments, linear)."""
-        mel, align = self._model_pass(text, lengths, self.mesh.batch_shard(gen), n_steps, clock)
+        mel, align = self._model_pass(text, lengths, self.mesh.batch_shard(gen), n_steps)
         linear = self.model.postnet(mel)
-        clock.mark("postnet")
+        profiling.mark("postnet")
         return mel, align, linear
 
     def _mesh_gather(self, n_real, mel, align, linear, wav):
@@ -413,20 +446,24 @@ class Synthesizer:
         cur = torch.cuda.current_stream(dev)
         self._stream.wait_stream(cur)
         with torch.cuda.stream(self._stream):
-            text, lengths = self.encode_texts(texts)
+            with profiling.span("inputs"):
+                text, lengths = self.encode_texts(texts)
             key = self.shape_key(dev, *text.shape, n_steps, gl_iters)
             self._gen.manual_seed(seed)
             entry = self._entry(key)
             if entry is None:
-                res = self._eager(text, lengths, n_steps, gl_iters)
+                with profiling.span("eager"):
+                    res = self._eager(text, lengths, n_steps, gl_iters)
                 graphed = False
             else:
                 if self.mesh is not None:
                     text, lengths, n_real = self._mesh_rows(text, lengths)
                 if not entry.model:
-                    self._capture(entry, text, lengths, n_steps, gl_iters)
-                for dst, src in zip(entry.inputs, (text, lengths)):
-                    dst.copy_(src)
+                    with profiling.span("capture"):
+                        self._capture(entry, text, lengths, n_steps, gl_iters)
+                with profiling.span("inputs"):
+                    for dst, src in zip(entry.inputs, (text, lengths)):
+                        dst.copy_(src)
                 res, graphed = self._replay(entry, n_steps, gl_iters)
                 if self.mesh is not None:
                     res = self._mesh_gather(n_real, *res)
@@ -443,9 +480,16 @@ class Synthesizer:
             graphs[name] = runtime.capture_graph(fn, stream, gen)
             return graphs[name].outputs
 
+        def started(fn):
+            """``fn`` after a mark that starts its graph's first stage."""
+            def run():
+                profiling.mark(None)
+                return fn()
+            return run
+
         if self.mesh is not None:
             _, _, linear = capture("model", lambda: self._mesh_model(*inputs, gen, n_steps))
-            capture("gl", lambda: self._gl(linear, gl_iters)[0])
+            capture("gl", started(lambda: self._gl(linear, gl_iters)[0]))
         elif not self.split:
             def synth():
                 mel, align = self._model_pass(*inputs, gen, n_steps)
@@ -456,15 +500,10 @@ class Synthesizer:
         elif self.cfg.infer.early_exit:
             loop = capture("preamble", lambda: self._while_decode(*inputs, gen, n_steps))
             capture("chunk", loop.run_chunk)
-
-            def post():
-                mel, align = loop.outputs()
-                return (mel, align, *self._post(mel))
-
-            capture("postnet", post)
+            capture("postnet", lambda: self._exit_post(loop))
         else:
             mel, align = capture("preamble", lambda: self._model_pass(*inputs, gen, n_steps))
-            capture("postnet", lambda: (mel, align, *self._post(mel)))
+            capture("postnet", started(lambda: (mel, align, *self._post(mel))))
         entry.inputs, entry.model = inputs, graphs
 
     def _replay(self, entry: ShapeGraphs, n_steps, gl_iters):
@@ -472,13 +511,16 @@ class Synthesizer:
         of this process's rows, which ``_mesh_gather`` completes."""
         g = entry.model
         if self.mesh is not None:
-            runtime.replay_graph(g["model"])
-            runtime.replay_graph(g["gl"])
+            for name in ("model", "gl"):
+                with profiling.span(name):
+                    runtime.replay_graph(g[name])
             return (*g["model"].outputs, g["gl"].outputs), True
         if not self.split:
-            runtime.replay_graph(g["synth"])
+            with profiling.span("synth"):
+                runtime.replay_graph(g["synth"])
             return g["synth"].outputs, True
-        runtime.replay_graph(g["preamble"])
+        with profiling.span("preamble"):
+            runtime.replay_graph(g["preamble"])
         if "chunk" in g:
             chunk = g["chunk"]
 
@@ -486,12 +528,21 @@ class Synthesizer:
                 runtime.replay_graph(chunk)
                 return chunk.outputs
 
-            run_until_done(run_chunk, n_steps, g["preamble"].outputs.chunk)
-        runtime.replay_graph(g["postnet"])
-        mel, align, linear, ends = g["postnet"].outputs
-        ends = ends.cpu().numpy()           # the one host read before Griffin-Lim
+            self._decode_chunks(run_chunk, n_steps, g["preamble"].outputs.chunk)
+        with profiling.span("postnet"):
+            runtime.replay_graph(g["postnet"])
+            mel, align, linear, ends = g["postnet"].outputs
+            ends = self._ends_to_host(ends)
         t_gl = self._t_gl(ends, linear.shape[1])
-        return (mel, linear, align, ends, *self._gl(linear[:, :t_gl], gl_iters)), True
+        with profiling.span("griffin_lim"):
+            wav = self._gl(linear[:, :t_gl], gl_iters)
+        return (mel, linear, align, ends, *wav), True
+
+
+def _to_host(x: torch.Tensor) -> np.ndarray:
+    """``x`` read to the host; its bytes count as ``d2h_bytes``."""
+    profiling.count("d2h_bytes", x.element_size() * x.numel())
+    return x.cpu().numpy()
 
 
 def _normalized(wav):

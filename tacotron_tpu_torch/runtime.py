@@ -136,6 +136,7 @@ class CapturedGraph:
     capture_s: float                  # host seconds to record the graph
     instantiate_s: float              # host seconds to instantiate it
     pool_bytes: int                   # the private memory pool's growth during capture
+    marks: list                       # the stage clock's event nodes (utils.profiling.mark)
 
 
 def capture_graph(fn, stream, generator=None) -> CapturedGraph:
@@ -151,13 +152,17 @@ def capture_graph(fn, stream, generator=None) -> CapturedGraph:
     before (NCCL makes it at the group's first collective, which cannot be
     captured), so the callers run each shape's first call eagerly; the
     thread-local mode lets NCCL's watchdog thread query its events while
-    the capture is open. A failed capture raises."""
+    the capture is open. The stage clock's marks made in ``fn``
+    (``utils.profiling.mark``) become event-record nodes, kept in
+    ``marks``. A failed capture raises."""
+    from tacotron_tpu_torch.utils import profiling
     before = collections.Counter(LAUNCHES)
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     if generator is not None:
         graph.register_generator_state(generator)
     t0 = time.perf_counter()
-    with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+    with profiling.capturing() as marks, torch.cuda.graph(
+            graph, stream=stream, capture_error_mode="thread_local"):
         reserved = torch.cuda.memory_reserved(stream.device)
         outputs = fn()
     t1 = time.perf_counter()
@@ -167,12 +172,18 @@ def capture_graph(fn, stream, generator=None) -> CapturedGraph:
     launches.subtract(before)
     launches = +launches
     LAUNCHES.subtract(launches)     # recorded, not launched
-    return CapturedGraph(graph, outputs, launches, t1 - t0, time.perf_counter() - t1, pool)
+    return CapturedGraph(graph, outputs, launches, t1 - t0, time.perf_counter() - t1, pool,
+                         marks)
 
 
 def replay_graph(entry) -> None:
     """Replay ``entry.graph`` (a ``CapturedGraph``, or a record holding one's
-    ``graph`` and ``launches``) on the current stream, and count the
-    launches it makes. The replay rewrites the capture's outputs in place."""
+    ``graph``, ``launches`` and ``marks``) on the current stream, and count
+    the launches it makes. The replay rewrites the capture's outputs in
+    place, and its marks: the stage clock's record that holds the last
+    replay's reads them first, and the open record takes the new ones."""
+    from tacotron_tpu_torch.utils import profiling
+    profiling.before_replay(entry.marks)
     entry.graph.replay()
     LAUNCHES.update(entry.launches)
+    profiling.replayed(entry.marks)

@@ -39,7 +39,6 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -53,6 +52,7 @@ from tacotron_tpu_torch.parallel.sharding import shard_model
 from tacotron_tpu_torch.runtime import resolve_device
 from tacotron_tpu_torch.train.loss import tacotron_loss
 from tacotron_tpu_torch.train.schedule import clip_and_step, make_optimizer, set_learning_rate
+from tacotron_tpu_torch.utils import profiling
 from tacotron_tpu_torch.weights import init_params
 
 STAGES = ("forward", "backward", "optimizer")
@@ -79,35 +79,6 @@ def create_train_state(cfg: Config, seed: int = 0, device=None, mesh=None) -> Tr
     dropout_seed = int(np.random.SeedSequence([seed, 1]).generate_state(1)[0])
     gen = torch.Generator(device=dev).manual_seed(dropout_seed)
     return TrainState(model, opt, 0, gen)
-
-
-class _StageClock:
-    """Milliseconds per stage, by CUDA events on the GPU (read after the
-    step ends) and by the host clock on the CPU. Off unless asked for."""
-
-    def __init__(self, device: torch.device, enabled: bool):
-        self.cuda = device.type == "cuda"
-        self.enabled = enabled
-        self.marks = []
-        self.mark("start")
-
-    def mark(self, name: str):
-        if not self.enabled:
-            return
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append((name, ev))
-        else:
-            self.marks.append((name, time.perf_counter()))
-
-    def ms(self) -> dict[str, float]:
-        if self.cuda:
-            self.marks[-1][1].synchronize()
-        out = {}
-        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
-            out[name] = a.elapsed_time(b) if self.cuda else (b - a) * 1e3
-        return out
 
 
 def _sharded_norm(model, grads_by_name) -> torch.Tensor:
@@ -171,21 +142,28 @@ def train_step(state: TrainState, text, text_len, mel_gt, linear_gt, frame_len,
     ``metrics`` holds ``mel_loss``, ``linear_loss``, ``total_loss`` and
     ``grad_norm`` (of the unclipped gradients) as 0-d tensors on the device,
     and with ``stage_ms`` a ``stage_ms`` dict of forward / backward /
-    optimizer milliseconds. With ``mesh`` the batch is this rank's shard
-    and the metrics are the global batch's; every rank must call it.
+    optimizer milliseconds (device time by CUDA events, read after the step
+    ends; the host clock on the CPU). With ``mesh`` the batch is this
+    rank's shard and the metrics are the global batch's; every rank must
+    call it. The step is one record of the stage clock
+    (``utils.profiling``) when it is on.
     """
-    _check_state(state, cfg, mesh)
-    set_learning_rate(state.opt, cfg.train, state.step)
-    metrics, alignments = _forward_backward_update(
-        state, text, text_len, mel_gt, linear_gt, frame_len, cfg, mesh, stage_ms)
+    dev = _check_state(state, cfg, mesh)
+    with profiling.clock("train_step", dev, STAGES, force=stage_ms) as clock:
+        set_learning_rate(state.opt, cfg.train, state.step)
+        with profiling.span("eager"):
+            metrics, alignments = _forward_backward_update(
+                state, text, text_len, mel_gt, linear_gt, frame_len, cfg, mesh)
+    if stage_ms:
+        metrics["stage_ms"] = clock.record()["stage_ms"]
     return state._replace(step=state.step + 1), metrics, alignments
 
 
 def _forward_backward_update(state, text, text_len, mel_gt, linear_gt, frame_len,
-                             cfg: Config, mesh, stage_ms: bool = False):
+                             cfg: Config, mesh):
     """``train_step`` at the LR already set: what a CUDA graph captures (no
-    host synchronisation, no host-side state but ``p.grad``). -> (metrics,
-    alignments)."""
+    host synchronisation, no host-side state but ``p.grad``), with the
+    stage clock's marks of ``STAGES``. -> (metrics, alignments)."""
     model, opt = state.model, state.opt
     dev = next(model.parameters()).device
     text, text_len = text.to(dev), text_len.to(dev)
@@ -193,7 +171,7 @@ def _forward_backward_update(state, text, text_len, mel_gt, linear_gt, frame_len
     linear_gt = linear_gt.to(dev, torch.float32)
     if frame_len is not None:
         frame_len = frame_len.to(dev)
-    clock = _StageClock(dev, stage_ms)
+    profiling.mark(None)
 
     model.train()
     data_group = None if mesh is None else mesh.data_group
@@ -203,7 +181,7 @@ def _forward_backward_update(state, text, text_len, mel_gt, linear_gt, frame_len
                                    mask_padding=cfg.train.mask_padding,
                                    linear_weight=cfg.train.loss_linear_weight,
                                    data_group=data_group)
-    clock.mark("forward")
+    profiling.mark("forward")
     opt.zero_grad(set_to_none=True)
     total.backward()
     norm = None
@@ -211,12 +189,10 @@ def _forward_backward_update(state, text, text_len, mel_gt, linear_gt, frame_len
         _reduce_gradients(list(model.parameters()), data_group)
         if model.tp_shards:
             norm = _sharded_norm(model, [(k, p.grad) for k, p in model.named_parameters()])
-    clock.mark("backward")
+    profiling.mark("backward")
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["grad_norm"] = clip_and_step(opt, cfg.train, norm)
-    clock.mark("optimizer")
-    if stage_ms:
-        metrics["stage_ms"] = clock.ms()
+    profiling.mark("optimizer")
     return metrics, out.alignments.detach()
 
 
@@ -244,6 +220,7 @@ class CapturedStep:
     capture_s: float                  # host seconds to record the graph
     instantiate_s: float              # host seconds to instantiate it
     pool_bytes: int                   # the private memory pool's growth during capture
+    marks: list                       # the stage clock's event nodes (utils.profiling.mark)
 
 
 class GraphedTrainStep:
@@ -286,6 +263,13 @@ class GraphedTrainStep:
     (``runtime.capture_graph``, ``runtime.replay_graph``).
     ``graphs`` maps each shape seen to its ``CapturedStep`` (None after the
     shape's eager first step).
+
+    Each step on the card is one record of the stage clock
+    (``utils.profiling``) when it is on: the graph holds the marks of
+    ``STAGES`` as event nodes, and host marks before and after a replay
+    bound it. A replay re-records the graph's events, so a record is read
+    before the next replay of its shape: with the clock on, the host waits
+    there for the step before (the cost of the clock when on).
     """
 
     def __init__(self, cfg: Config, mesh=None):
@@ -328,15 +312,17 @@ class GraphedTrainStep:
             self._stream = torch.cuda.Stream(device=dev)
         cur = torch.cuda.current_stream(dev)
         self._stream.wait_stream(cur)      # the batch's copies, made on the caller's stream
-        with torch.cuda.stream(self._stream):
+        with torch.cuda.stream(self._stream), profiling.clock("train_step", dev, STAGES):
             if key not in self.graphs:
                 set_learning_rate(state.opt, self.cfg.train, state.step)
-                metrics, alignments = _forward_backward_update(state, *batch, self.cfg,
-                                                               self.mesh)
+                with profiling.span("eager"):
+                    metrics, alignments = _forward_backward_update(state, *batch, self.cfg,
+                                                                   self.mesh)
                 self.graphs[key] = None
             else:
                 if self.graphs[key] is None:
-                    self.graphs[key] = self._capture(state, batch)
+                    with profiling.span("capture"):
+                        self.graphs[key] = self._capture(state, batch)
                 metrics, alignments = self._replay(state, self.graphs[key], batch)
         cur.wait_stream(self._stream)
         self._bound = _state_tensors(state)
@@ -352,16 +338,21 @@ class GraphedTrainStep:
         metrics, alignments = c.outputs
         return CapturedStep(c.graph, inputs, metrics, alignments,
                             [p.grad for p in state.model.parameters()], c.launches,
-                            c.capture_s, c.instantiate_s, c.pool_bytes)
+                            c.capture_s, c.instantiate_s, c.pool_bytes, c.marks)
 
     def _replay(self, state: TrainState, entry: CapturedStep, batch):
-        _copy_into(entry.inputs, batch)
-        set_learning_rate(state.opt, self.cfg.train, state.step)
-        runtime.replay_graph(entry)
-        for p, g in zip(state.model.parameters(), entry.grads):
-            p.grad = g
-        return ({k: v.clone() for k, v in entry.metrics.items()},
-                entry.alignments.clone())
+        with profiling.span("inputs"):
+            _copy_into(entry.inputs, batch)
+            set_learning_rate(state.opt, self.cfg.train, state.step)
+        with profiling.span("replay"):
+            profiling.mark(None)
+            runtime.replay_graph(entry)
+            profiling.mark(None)
+        with profiling.span("outputs"):
+            for p, g in zip(state.model.parameters(), entry.grads):
+                p.grad = g
+            return ({k: v.clone() for k, v in entry.metrics.items()},
+                    entry.alignments.clone())
 
 
 def _copy_into(static, batch) -> None:

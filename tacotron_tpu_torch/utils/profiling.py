@@ -24,6 +24,40 @@ The port of the JAX package's ``utils/profiling.py``, function for function:
 * ``graph_nodes(graph)``: what a captured CUDA graph holds, node by node
   (the port's own: JAX has no graphs). A capture records every launch, so
   this count cannot miss a kernel as the profiler can miss a ~1 us one.
+* The stage clock (the port's own): ``clock`` opens one record per
+  synthesis call or training step; ``mark``, ``span`` and ``count`` add to
+  the open one; ``records()`` reads the kept ones; ``tracing()`` turns it on
+  without a profiler. ``trace`` / ``stop_trace`` write a window's records
+  beside its Chrome trace.
+
+The stage clock. A ``mark(label)`` is a timing CUDA event on the current
+stream (the host clock on the CPU); the device time between two
+consecutive marks of a record belongs to the later mark's label (``None``:
+to no stage), summed per label. Inside a CUDA graph capture a mark is an
+external event (``torch.cuda.Event(external=True)``), which the capture
+makes an event-record node that every replay records anew: such marks are
+captured whether or not the clock is on (a handful per graph, the cost
+always paid), kept with the graph (``runtime.capture_graph``) and added to
+the open record after each replay (``runtime.replay_graph``). A record is
+read once its last mark has completed, never by a synchronise of its own
+during the call: a synthesis call's record after the call's own host
+reads, a training step's before the next replay of its graph (which
+re-records the graph's events) or at ``records()``. A ``span(name)`` is a
+host interval (``time.perf_counter_ns``) with its parent; a record's spans
+share its ``id``. While ``torch.profiler`` records, each span is also a
+``tt.<name>`` range in the profile, on the clock of CUPTI's device records.
+The range is an operator's range (``_RecordFunctionFast``), not a user
+annotation: the profiler copies a user annotation onto the device timeline
+as if it were device work, which would fill every idle gap of the range.
+
+The clock is on while a profiler records or inside ``tracing()``; off, no
+record is opened, no event is recorded outside a capture and no span is
+kept. ``records()`` holds the last ``RECORDS_KEPT`` records, each a dict:
+``id``, ``name`` (``synthesize``, ``train_step``), ``profiled`` (a profiler
+was recording), ``device``, ``spans`` ([{name, start_ns, end_ns, parent}],
+the root first), ``stage_ms`` (the stages the caller declared), the other
+labels' ms as ``<label>_ms`` (``chunk_gap_ms``), ``device_ms`` (first mark
+to last) and ``counters``.
 """
 
 from __future__ import annotations
@@ -59,21 +93,30 @@ def enable_compilation_cache(path: str | os.PathLike | None = None) -> None:
 def start_trace(log_dir: str) -> profile:
     """Start capturing the host and, where there is a card, the device; the
     trace is written into ``log_dir`` by ``stop_trace`` (a Chrome trace,
-    ``*.pt.trace.json``, viewable in TensorBoard's profiler or Perfetto)."""
+    ``*.pt.trace.json``, viewable in TensorBoard's profiler or Perfetto),
+    with the stage clock's records of the window beside it
+    (``*.tt_records.json``)."""
     os.makedirs(log_dir, exist_ok=True)
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir))
     prof.start()
+    prof.tt_window = (log_dir, _IDS[0])
     return prof
 
 
 def stop_trace(prof: profile) -> None:
-    """Wait for the device's queued work, then stop and write the trace."""
+    """Wait for the device's queued work, then stop and write the trace and
+    the window's records: ``{"records": [...]}`` in
+    ``<pid>.<ns>.tt_records.json``."""
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     prof.stop()
+    log_dir, first = prof.tt_window
+    path = os.path.join(log_dir, f"{os.getpid()}.{time.time_ns()}.tt_records.json")
+    with open(path, "w") as f:
+        json.dump({"records": [r for r in records() if r["id"] >= first]}, f)
 
 
 @contextlib.contextmanager
@@ -302,3 +345,232 @@ def graph_nodes(graph: torch.cuda.CUDAGraph) -> collections.Counter:
                   "cuKernelGetName")
         out[name.value.decode()] += 1
     return out
+
+
+
+# ------------------------------------------------------------ the stage clock
+RECORDS_KEPT = 1024
+_RECORDS: collections.deque = collections.deque(maxlen=RECORDS_KEPT)
+_IDS = [0]                            # the id the next record gets
+_LOCAL = threading.local()            # .clock: the open record; .capture: a capture's marks
+_SWITCH = [0]                         # depth of tracing() blocks
+_NULL = contextlib.nullcontext()
+# timing events read and free to record again, by device index: a record's
+# host marks take theirs from here, so that a call creates and destroys none
+_FREE_EVENTS: dict = collections.defaultdict(list)
+FREE_EVENTS_KEPT = 4096
+# torch.cuda.Stream objects by raw stream: torch.cuda.current_stream() costs
+# a host mark several microseconds, the raw lookup a fraction of one
+_STREAMS: dict = {}
+
+
+def enabled() -> bool:
+    """The stage clock is on: a profiler records, or inside ``tracing()``."""
+    return _SWITCH[0] > 0 or torch._C._autograd._profiler_enabled()
+
+
+@contextlib.contextmanager
+def tracing():
+    """The stage clock on for the block, with no profiler (so no CUPTI
+    cost on the launches): each call or step keeps a record."""
+    _SWITCH[0] += 1
+    try:
+        yield
+    finally:
+        _SWITCH[0] -= 1
+
+
+def records() -> list[dict]:
+    """The kept records, oldest first; a record not read yet is read now
+    (waiting for its last mark)."""
+    return [r.record() for r in list(_RECORDS)]
+
+
+class GraphMarks(list):
+    """A captured graph's marks, [(label, external event)]; every replay
+    records the events anew. ``reader``: the record holding the last
+    replay's marks until it has read them."""
+
+    reader = None
+
+
+@contextlib.contextmanager
+def capturing():
+    """Marks made in the block go into the yielded ``GraphMarks`` as
+    external events (``runtime.capture_graph`` wraps a capture in it)."""
+    marks = GraphMarks()
+    prev, _LOCAL.capture = getattr(_LOCAL, "capture", None), marks
+    try:
+        yield marks
+    finally:
+        _LOCAL.capture = prev
+
+
+def before_replay(marks: GraphMarks) -> None:
+    """A replay is about to re-record ``marks``: the record holding the last
+    replay's reads them first."""
+    if marks.reader is not None:
+        marks.reader.record()
+
+
+def replayed(marks: GraphMarks) -> None:
+    """The graph that holds ``marks`` was replayed: the open record takes
+    its marks."""
+    clock = getattr(_LOCAL, "clock", None)
+    if clock is not None and marks:
+        clock._marks.extend(marks)
+        clock._graphs.append(marks)
+        marks.reader = clock
+
+
+def mark(label: str | None) -> None:
+    """A device mark on the current stream: the time since the previous
+    mark belongs to ``label``. Inside a capture an event node of the graph,
+    whether or not the clock is on; else a mark of the open record, if any."""
+    marks = getattr(_LOCAL, "capture", None)
+    if marks is not None:
+        ev = torch.cuda.Event(enable_timing=True, external=True)
+        ev.record()
+        marks.append((label, ev))
+        return
+    clock = getattr(_LOCAL, "clock", None)
+    if clock is not None:
+        clock.mark(label)
+
+
+def recording() -> bool:
+    """A record is open on this thread (the host marks would be kept)."""
+    return getattr(_LOCAL, "clock", None) is not None
+
+
+def span(name: str):
+    """A host span of the open record, ``tt.<name>`` in a profile; nothing
+    when no record is open."""
+    clock = getattr(_LOCAL, "clock", None)
+    return _NULL if clock is None else _Span(clock, name)
+
+
+def count(name: str, n) -> None:
+    """Add ``n`` to the open record's counter ``name``."""
+    clock = getattr(_LOCAL, "clock", None)
+    if clock is not None:
+        clock.counters[name] = clock.counters.get(name, 0) + n
+
+
+def clock(name: str, device, stages: tuple, force: bool = False):
+    """The record of one call or step, as a context manager that yields it
+    (None when the clock is off and ``force`` is not set): its root span is
+    ``name``; ``stages`` are the labels it reports as ``stage_ms``. It is
+    kept for ``records()`` when the clock is on; ``force`` (a caller's
+    ``stage_ms=True``) times it all the same and keeps it only then."""
+    keep = enabled()
+    if not (keep or force):
+        return _NULL
+    return StageClock(name, device, stages, keep)
+
+
+class StageClock:
+    """One record (``clock``)."""
+
+    def __init__(self, name, device, stages, keep):
+        self.id = _IDS[0]
+        _IDS[0] += 1
+        self.name, self.stages, self.keep = name, tuple(stages), keep
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        self._index = self._free = None
+        if self.cuda:
+            self._index = (torch.cuda.current_device() if self.device.index is None
+                           else self.device.index)
+            self._free = _FREE_EVENTS[self._index]
+        self.profiled = torch._C._autograd._profiler_enabled()
+        self.counters: dict = {}
+        self._marks: list = []           # (label, event or host ns)
+        self._own: list = []             # the host marks' events, free again once read
+        self._graphs: list = []          # GraphMarks this record holds
+        self._spans: list = []           # [name, start_ns, end_ns, parent]
+        self._open: list = []            # indices of the open spans
+        self._record = None
+
+    def __enter__(self):
+        self._prev, _LOCAL.clock = getattr(_LOCAL, "clock", None), self
+        self._root = _Span(self, self.name)
+        self._root.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._root.__exit__(*exc)
+        _LOCAL.clock = self._prev
+        if self.keep:
+            _RECORDS.append(self)
+        return False
+
+    def mark(self, label):
+        if self.cuda:
+            free = self._free
+            ev = free.pop() if free else torch.cuda.Event(enable_timing=True)
+            raw = torch._C._cuda_getCurrentRawStream(self._index)
+            stream = _STREAMS.get(raw)
+            if stream is None:
+                stream = _STREAMS[raw] = torch.cuda.current_stream(self._index)
+            ev.record(stream)
+            self._marks.append((label, ev))
+            self._own.append(ev)
+        else:
+            self._marks.append((label, time.perf_counter_ns()))
+
+    def _elapsed_ms(self, a, b) -> float:
+        return a.elapsed_time(b) if self.cuda else (b - a) * 1e-6
+
+    def record(self) -> dict:
+        """The record as a dict; read at the first call, which waits for
+        the last mark (the graphs' events are then free to be re-recorded)."""
+        if self._record is None:
+            marks = self._marks
+            if self.cuda and marks:
+                marks[-1][1].synchronize()
+            ms: dict = {}
+            for (_, a), (label, b) in zip(marks, marks[1:]):
+                if label is not None:
+                    ms[label] = ms.get(label, 0.0) + self._elapsed_ms(a, b)
+            rec = {"id": self.id, "name": self.name, "profiled": self.profiled,
+                   "device": str(self.device),
+                   "spans": [{"name": n, "start_ns": a, "end_ns": b, "parent": p}
+                             for n, a, b, p in self._spans],
+                   "stage_ms": {s: ms.pop(s) for s in self.stages if s in ms},
+                   **{f"{k}_ms": v for k, v in ms.items()},
+                   "device_ms": self._elapsed_ms(marks[0][1], marks[-1][1]) if marks else 0.0,
+                   "counters": dict(self.counters)}
+            for g in self._graphs:
+                if g.reader is self:
+                    g.reader = None
+            if self.cuda:
+                self._free.extend(self._own[:FREE_EVENTS_KEPT - len(self._free)])
+            self._marks = self._graphs = self._own = None
+            self._record = rec
+        return self._record
+
+
+class _Span:
+    __slots__ = ("clock", "name", "index", "range")
+
+    def __init__(self, clock: StageClock, name: str):
+        self.clock, self.name, self.range = clock, name, None
+
+    def __enter__(self):
+        c = self.clock
+        self.index = len(c._spans)
+        c._spans.append([self.name, time.perf_counter_ns(), None, c._open[-1] if c._open else None])
+        c._open.append(self.index)
+        if c.profiled:
+            self.range = torch._C._profiler._RecordFunctionFast("tt." + self.name)
+            self.range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        c = self.clock
+        c._spans[self.index][2] = time.perf_counter_ns()
+        c._open.pop()
+        return False

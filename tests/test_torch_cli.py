@@ -107,6 +107,10 @@ def test_cli_preset_and_trace(run, capsys):
     assert line["traced"] is True and line["n"] == len(TEXTS)
     assert f"trace written: {trace}" in lines
     assert glob.glob(os.path.join(trace, "*.pt.trace.json"))
+    # the stage clock's record of the traced pass, beside the Chrome trace
+    (records,) = glob.glob(os.path.join(trace, "*.tt_records.json"))
+    (rec,) = json.loads(open(records).read())["records"]
+    assert rec["name"] == "synthesize" and rec["profiled"] and "chunk_gap_ms" in rec
     wavs = _read(out)
     assert len(wavs) == len(TEXTS) and all(0 < len(w) <= 4 * 5 * 128 for _, w in wavs)
 

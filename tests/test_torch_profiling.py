@@ -232,9 +232,14 @@ def test_profile_port_captures_a_step(data_dir, tmp_path, monkeypatch, one_threa
     lines = _train_with_client(monkeypatch, data_dir, run, 2, client)
     code, reply = replies["capture"]
     assert code == 200 and reply["trace_dir"] == str(run / "trace") and reply["steps"] == [1, 1]
-    assert reply["files"] and all(f.endswith(".pt.trace.json") for f in reply["files"])
+    # the Chrome trace and, beside it, the stage clock's records of the window
+    traces = [f for f in reply["files"] if f.endswith(".pt.trace.json")]
+    recs = [f for f in reply["files"] if f.endswith(".tt_records.json")]
+    assert len(traces) == len(recs) == 1 and len(reply["files"]) == 2
     assert sorted(os.path.basename(f) for f in glob.glob(str(run / "trace" / "*.pt.trace.json"))) \
-        == reply["files"]
+        == traces
+    (rec,) = json.loads((run / "trace" / recs[0]).read_text())["records"]
+    assert rec["name"] == "train_step" and rec["profiled"]
     assert "trace written: " + str(run / "trace") in lines
     assert replies["overlap"][0] == 409 and "already open" in replies["overlap"][1]["error"]
     assert replies["zero"][0] == 400 and "steps" in replies["zero"][1]["error"]
@@ -247,4 +252,5 @@ def test_profile_port_window_past_the_last_step(data_dir, tmp_path, monkeypatch,
     _train_with_client(monkeypatch, data_dir, tmp_path / "run", 2,
                        lambda port, server: replies.update(c=_get(port, "/capture?steps=10")))
     code, reply = replies["c"]
-    assert code == 200 and reply["steps"] == [1, 2] and len(reply["files"]) == 1
+    assert code == 200 and reply["steps"] == [1, 2] and len(reply["files"]) == 2
+    assert sum(f.endswith(".pt.trace.json") for f in reply["files"]) == 1
