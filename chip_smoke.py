@@ -58,7 +58,9 @@ Phases, in order; any failure raises and exits non-zero:
    in f32, bit-equal to K4 f32, and the f32 kernels' steps against an f64
    step on [main]'s and a speech-like magnitude; and the probes' entry
    point;
-7. K3's, K4's, K5's and the probes' time at their paths' shapes beside
+7. K3's, K4's, K5's, the step decode's (its 63 launches at [fast]'s shapes,
+   held within STEP_DECODE_TOL of ``WhileDecode.run_chunk_plain`` on the same
+   masks) and the probes' time at their paths' shapes beside
    the plain version, a library yardstick and the bound (P1 at 48 and 227
    KiB; P2 with its floor, an empty kernel on the same cluster, threads and
    shared memory); K3 at every cluster size (1, 2, 4, 8, 16) with the card's count of
@@ -370,6 +372,9 @@ SYNTH_GRAPH = {"compare": (1, 2, 1), "turns": "GEGGEGGE"}
 # [fast-graph] (e): decode_while's chunk sizes timed (the decode alone, graphed)
 CHUNK_SWEEP = (4, 8, 16, 32, 64)
 GRAPH_SYNTH_ATOL = 1e-5
+# [timing]: the step decode's kernel against its plain counterpart on the same
+# masks, 500 steps at [fast]'s shapes, f32 (summation order only)
+STEP_DECODE_TOL = 1e-5
 # [train-graph] (b): one capturable Adam update (f32, bias corrections on the
 # device) against optax's formula in f64 on the same moments and clipped
 # gradients: every updated weight within this share of the update's LR
@@ -1145,12 +1150,17 @@ def synth_graph_report(synth) -> dict:
             "other_nodes": {k: n for k, n in nodes.items() if k.startswith("<")},
             "k3_nodes": sum(n for k, n in nodes.items() if "decode_loop_kernel" in k),
             "k4_nodes": sum(n for k, n in nodes.items() if "gl_wgmma" in k or "gl_ola_frame" in k),
+            "step_decode_nodes": sum(n for k, n in nodes.items() if "decode_chunk_kernel" in k),
+            "kernels": {k: n for k, n in nodes.items() if not k.startswith("<")},
             "launches_per_replay": dict(g.launches), "capture_s": g.capture_s,
             "instantiate_s": g.instantiate_s, "pool_bytes": g.pool_bytes}
         log(f"    graph {name}: {out[name]['nodes']} nodes ({out[name]['kernel_nodes']} kernels, "
             f"{out[name]['other_nodes']}), K3 {out[name]['k3_nodes']}, K4 "
-            f"{out[name]['k4_nodes']}; capture {g.capture_s:.3f} s, instantiate "
-            f"{g.instantiate_s:.3f} s, pool {g.pool_bytes / 2**20:.1f} MiB")
+            f"{out[name]['k4_nodes']}, the step decode {out[name]['step_decode_nodes']}; capture "
+            f"{g.capture_s:.3f} s, instantiate {g.instantiate_s:.3f} s, pool "
+            f"{g.pool_bytes / 2**20:.1f} MiB")
+        if name == "chunk":
+            log(f"    graph chunk's kernel nodes: {out[name]['kernels']}")
     return out
 
 
@@ -1262,8 +1272,11 @@ def synth_graph_phase(report, key, tag, cfg, p, bs, vocab, fused, seeds=SYNTH_GR
         f"{rep['eager_audio_seconds_per_s']:.2f} eager; trimmed audio-s/s "
         f"{rep['trimmed_audio_seconds_per_s']:.2f} graphed; steps done {rep['steps_done']}; "
         f"launches per replay {rep['launches_per_replay']}; {report['card']}")
+    # the split path's step decode: one launch a chunk of the steps run
+    (entry,) = synth.graphs.values()
+    chunks = -(-rep["steps_done"] // entry.model["preamble"].outputs.chunk) if synth.split else 0
     want_launches = {"griffin_lim": 3 * gl_iters,
-                     **({"decode_loop": 1} if fused else {})}
+                     **({"decode_loop": 1} if fused else {"decode_chunk": chunks})}
     require(rep["launches_per_replay"] == want_launches,
             f"(c) {tag}: each of {n_g} replays counted {want_launches}")
     rows = sorted(device_kernels(lambda: synth(PROMPTS, seed=1, **kw)).items(),
@@ -1284,7 +1297,8 @@ def synth_graph_phase(report, key, tag, cfg, p, bs, vocab, fused, seeds=SYNTH_GR
     rep["seconds"] = time.perf_counter() - t_phase
     log(f"  {tag} {rep['seconds']:.1f} s")
     nodes = {"decode_loop": sum(x["k3_nodes"] for x in rep["graphs"].values()),
-             "griffin_lim": sum(x["k4_nodes"] for x in rep["graphs"].values())}
+             "griffin_lim": sum(x["k4_nodes"] for x in rep["graphs"].values()),
+             "decode_chunk": sum(x["step_decode_nodes"] for x in rep["graphs"].values())}
     return rep, launches, nodes, synth
 
 
@@ -1362,7 +1376,8 @@ def phase_synth_graph(report, cfg, vocab):
     p, bs = split_state(full_model(cfg, torch.device("cuda")))
     rep, launches, nodes, synth = synth_graph_phase(report, "synth_graph", "[synth-graph]", cfg,
                                                     p, bs, vocab, fused=True)
-    require(nodes == {"decode_loop": 1, "griffin_lim": 3 * cfg.audio.griffin_lim_iters},
+    require(nodes == {"decode_loop": 1, "griffin_lim": 3 * cfg.audio.griffin_lim_iters,
+                      "decode_chunk": 0},
             f"[synth-graph]: the graph holds K3's one node and K4's 3 per iteration ({nodes})")
     rep["roofline"] = synth_roofline(cfg, synth.encode_texts(PROMPTS)[0].shape[1],
                                      cfg.model.max_decode_steps * cfg.model.r,
@@ -1391,6 +1406,10 @@ def phase_fast_graph(report, vocab, cfg):
     launches over the timed replays and its graph nodes (none)."""
     from tacotron_tpu_torch.weights import split_state
 
+    from tacotron_tpu_torch import runtime
+    from tacotron_tpu_torch.infer import early_exit
+    from tacotron_tpu_torch.utils.profiling import graph_nodes
+
     thr = report["fast"]["derived_threshold"]["silence_threshold"]
     p, bs = split_state(full_model(cfg, torch.device("cuda")))
     launches, nodes = collections.Counter(), collections.Counter()
@@ -1417,6 +1436,23 @@ def phase_fast_graph(report, vocab, cfg):
                 and not any(g["k4_nodes"] for g in rep["graphs"].values()),
                 f"{tag}: preamble, chunk and post-net graphs, none holding K4 (Griffin-Lim "
                 f"eager at t_gl {fast['t_gl']}, its launches counted in (c))")
+        # the chunk graph: the step decode's one launch and the nodes of the
+        # chunk's dropout draws, as a capture of the draws alone holds them
+        (entry,) = synth.graphs.values()
+        loop, chunk = entry.model["preamble"].outputs, rep["graphs"]["chunk"]
+        with torch.cuda.stream(synth._stream):
+            draws = graph_nodes(runtime.capture_graph(loop.draw_masks, synth._stream,
+                                                      synth._gen).graph)
+        n_draws = sum(n for k, n in draws.items() if "distribution" in k)
+        rep["chunk_graph_draw_nodes"] = dict(draws)
+        log(f"    the chunk's dropout draws captured alone: {dict(draws)}")
+        require(chunk["step_decode_nodes"] == 1 and n_draws == 2 * early_exit.DECODE_CHUNK
+                and chunk["nodes"] == sum(draws.values()) + 1
+                and chunk["kernels"] == {**{k: n for k, n in draws.items() if not k.startswith("<")},
+                                         **{k: 1 for k in chunk["kernels"]
+                                            if "decode_chunk_kernel" in k}},
+                f"{tag}: the chunk graph is the step decode's one launch and the nodes of the "
+                f"chunk's {n_draws} dropout draws ({chunk['nodes']} nodes)")
         del synth
     return {"launches": dict(launches), "graph_nodes": dict(nodes)}
 
@@ -2581,6 +2617,84 @@ def kernel_ms(fn, names, reps=1):
     ``names`` while ``fn`` runs (torch.profiler), and their launches per rep."""
     rows = [v for k, v in device_kernels(fn, reps).items() if any(n in k for n in names)]
     return sum(ms for ms, _ in rows), sum(n for _, n in rows)
+
+
+def step_decode_timing(report, fast_cfg, fast_res, vocab):
+    """The step decode's kernel (``ops/decode_chunk.py``) at [fast]'s shapes:
+    the 8 prompts' encoder outputs of synth_fast with seed-0 weights, B 8,
+    500 steps in 63 chunks of 8 with prenet dropout 0.5 and a threshold that
+    never trips, as ``WhileDecode`` runs them on the card (mask draws, one
+    launch a chunk). The kernel's device time by torch.profiler, the whole
+    loop's (draws included) by CUDA events, its plain counterpart's
+    (``run_chunk_plain`` on the card, eager), the kernel held to it on the
+    same masks (STEP_DECODE_TOL), and the bound (weights, memory, keys once
+    in f32; ``decode_bound``). -> the kernel table's row."""
+    from tacotron_tpu_torch.infer.early_exit import WhileDecode, run_until_done
+    from tacotron_tpu_torch.infer.synthesize import Synthesizer
+    from tacotron_tpu_torch.models.tacotron import length_mask
+    from tacotron_tpu_torch.ops.decode_chunk import resident
+    from tacotron_tpu_torch.ops.decode_loop import pack_decoder_weights
+    from tacotron_tpu_torch.weights import split_state
+
+    dev = torch.device("cuda")
+    mcfg = fast_cfg.model
+    n = mcfg.max_decode_steps
+    log(f"[timing] the step decode's kernel at [fast]'s shapes ({n} steps, chunks of 8)")
+    synth = Synthesizer(fast_cfg, *split_state(full_model(fast_cfg, dev)), vocab)
+    text, lengths = synth.encode_texts(PROMPTS)
+    with torch.no_grad():
+        memory = synth.model.encoder(text, lengths, torch.Generator(device=dev).manual_seed(0))
+        keys = synth.model.memory_proj(memory)
+    mask, w = length_mask(text.shape[1], lengths), pack_decoder_weights(synth.model.decoder.cell)
+
+    def loop():
+        return WhileDecode(memory, keys, mask, w, torch.Generator(device=dev).manual_seed(5),
+                           n_steps=n, r=mcfg.r, n_mels=mcfg.n_mels,
+                           dropout_rate=mcfg.prenet_dropout, silence_threshold=-1.0)
+
+    def run(lp, plain=False):
+        step = lp.run_chunk_plain if plain else lp.run_chunk
+        return run_until_done(step, n, lp.chunk)
+
+    with torch.no_grad():
+        kernel, plain = loop(), loop()
+        chunks = run(kernel)
+        run(plain, plain=True)
+        err = {"frames": max_err(kernel.frames, plain.frames),
+               "alignments": max_err(kernel.aligns, plain.aligns)}
+        kern = device_kernels(lambda: run(loop()))
+        k_ms = sum(ms for k, (ms, _) in kern.items() if "decode_chunk_kernel" in k)
+        draws_ms = sum(ms for k, (ms, _) in kern.items() if "decode_chunk_kernel" not in k)
+        loops = [loop() for _ in range(3)]
+        loop_ms = cuda_ms(lambda: run(loops.pop()), reps=3)
+        p_ms = cuda_ms(lambda: run(loop(), plain=True))
+    require(chunks == -(-n // kernel.chunk) and int(kernel.t) == n,
+            f"the step decode ran {chunks} chunks, all {n} steps")
+    require(max(err.values()) <= STEP_DECODE_TOL,
+            f"the step decode's kernel within {STEP_DECODE_TOL} of its plain counterpart at "
+            f"[fast]'s shapes over {n} steps: {err}")
+    cluster = kernel._launch.cluster(kernel.chunk)
+    res = resident(kernel._launch.dims, kernel.chunk, dev)
+    dbound = decode_bound(w, memory, keys, n, lowp=False)
+    row = {"name": "decode_chunk", "route": "cuda",
+           "source": "tacotron_tpu_torch/csrc/decode_chunk.cu",
+           "replaces": "the early-exit decode's chunk of while_decoder_step (JAX decode_while's "
+                       "XLA loop body); no TPU kernel",
+           "launches": fast_res["launches"].get("decode_chunk", 0), "path": "[fast]",
+           "max_abs_err": max(err.values()), "max_abs_err_of": err,
+           "ms": k_ms, "loop_ms": loop_ms, "draws_ms": draws_ms, "plain_ms": p_ms,
+           "bound_ms": dbound[0], "bound_by": dbound[1], "library_ms": None,
+           "shape": f"B {memory.shape[0]} T_in {memory.shape[1]} steps {n} f32, chunks of "
+                    f"{kernel.chunk}",
+           "cluster": cluster, "resident_clusters": res, "us_per_step": k_ms / n * 1e3,
+           "launches_per_call": chunks}
+    log(f"  decode_chunk: {k_ms:.3f} ms of device time over {chunks} launches, "
+        f"{k_ms / n * 1e3:.2f} us per step at cluster {cluster} ({res}); the loop with its "
+        f"{2 * n}+ mask draws ({draws_ms:.3f} ms) {loop_ms:.3f} ms; plain {p_ms:.3f} ms; bound "
+        f"{dbound[0]:.4f} ms by {dbound[1]}; against its plain counterpart {err}")
+    report["checks"]["step_decode_fast_shapes"] = {**err, "tol": STEP_DECODE_TOL}
+    del synth
+    return row
 
 
 def phase_timing_serving(report, fast_cfg, fast_res, mag_fast, mag_main, main_launches, stream):
@@ -4133,8 +4247,12 @@ def dp_nccl_synth(rep, mesh, card):
                 launches.subtract(counts)
         launches = dict(+launches)
         n_g = len(ms["G"])
-        require({k: v / n_g for k, v in launches.items()} == {"griffin_lim": 3 * gl_iters},
-                f"(1b) each of {n_g} replays counted {3 * gl_iters} K4 launches ({launches})")
+        from tacotron_tpu_torch.ops.decode_chunk import CHUNK_MAX
+        step_launches = -(-cfg.model.max_decode_steps // CHUNK_MAX)
+        require({k: v / n_g for k, v in launches.items()}
+                == {"griffin_lim": 3 * gl_iters, "decode_chunk": step_launches},
+                f"(1b) each of {n_g} replays counted {3 * gl_iters} K4 launches and "
+                f"{step_launches} of the step decode's kernel ({launches})")
         med, med_p, med_e = (float(np.median(ms[k])) for k in "GPE")
         rows = device_kernels(lambda: synth(texts, seed=1, peak_normalize=False))
         busy = sum(v[0] for v in rows.values())
@@ -4695,8 +4813,12 @@ def tooling_capture(report, root):
     code, reply = replies["capture"]
     log(f"  (c) capture reply {code}: {reply}; the request while the window was open: "
         f"{replies['while_open']}")
+    # the reply names the Chrome trace and, since the stage clock, its records beside it
+    traces = [f for f in reply.get("files", []) if f.endswith(".pt.trace.json")]
     require(code == 200 and reply["trace_dir"] == os.path.join(run, "trace")
-            and len(reply["files"]) == 1, "the capture's reply names its trace")
+            and len(traces) == 1 and len(reply["files"]) == 2
+            and sum(f.endswith(".tt_records.json") for f in reply["files"]) == 1,
+            "the capture's reply names its trace and the stage clock's records")
     first, last = reply["steps"]
     require(last - first + 1 == c["capture_steps"] and first > c["capture_after"],
             f"the capture spans {c['capture_steps']} steps after step {c['capture_after']} "
@@ -4709,12 +4831,12 @@ def tooling_capture(report, root):
     want = {"attn_energy_fwd": sum(n_dec), "attn_energy_bwd": sum(n_dec)}
     require(launches == want, f"the run's launches {launches} = its decoder steps {n_dec}")
     t0 = time.perf_counter()
-    with open(os.path.join(reply["trace_dir"], reply["files"][0])) as f:
+    with open(os.path.join(reply["trace_dir"], traces[0])) as f:
         events = json.load(f)["traceEvents"]
     kern = [e for e in events if e.get("cat") == "kernel"]
     found = {k: [e for e in kern if k in e["name"]] for k in ("energy_fwd", "energy_bwd")}
     in_window = sum(n_dec[first - 1:last])
-    log(f"  (c) the trace: {os.path.getsize(os.path.join(reply['trace_dir'], reply['files'][0]))} "
+    log(f"  (c) the trace: {os.path.getsize(os.path.join(reply['trace_dir'], traces[0]))} "
         f"bytes, {len(events)} events ({time.perf_counter() - t0:.2f} s to read), {len(kern)} "
         f"device kernels; energy_fwd {len(found['energy_fwd'])}, energy_bwd "
         f"{len(found['energy_bwd'])}, {sum(e['dur'] for e in found['energy_fwd']):.1f} / "
@@ -4869,9 +4991,14 @@ def phase_evidence(report):
             f"from the step-{total} checkpoint")
     mag, kw = seen[0]
     nodes = gl_graph_nodes(lambda: fused_gl._gl_cuda(mag, **kw))
-    require(launches == {"griffin_lim": 3 * c["gl_iters"]} and nodes["k4"] == 3 * c["gl_iters"]
-            and nodes["pack"] == 0, f"K4 bf16: LAUNCHES {launches} = {nodes['k4']} kernel nodes "
-            f"of its call captured again = 3 per iteration")
+    # the fixed decode (f32, "xla" energy) runs the step decode's kernel
+    from tacotron_tpu_torch.ops.decode_chunk import CHUNK_MAX
+    step_launches = -(-audio["n_decode_steps"] // CHUNK_MAX)
+    require(launches == {"griffin_lim": 3 * c["gl_iters"], "decode_chunk": step_launches}
+            and nodes["k4"] == 3 * c["gl_iters"] and nodes["pack"] == 0,
+            f"K4 bf16: LAUNCHES {launches} = {nodes['k4']} kernel nodes of its call captured "
+            f"again = 3 per iteration; the step decode's kernel {step_launches} launches of up "
+            f"to {CHUNK_MAX} steps")
     # K4 at the evidence STFT (n_fft 512, 257 bins) on the call's own
     # magnitudes and arguments, against its plain version; a model trained
     # 60 steps gives magnitudes like [train-cli]'s eval, so its steps are
@@ -4952,6 +5079,7 @@ def main(argv=None) -> int:
         stream = phase_stream(report, mag_main, fast_cfg.audio)
         kernels += phase_timing_serving(report, fast_cfg, fast_res, mag_fast, mag_main, launches,
                                         stream)
+        kernels.append(step_decode_timing(report, fast_cfg, fast_res, vocab))
         phase_lowp_convergence(report, fast_cfg.audio, mag_main)
         del mag_main, mag_fast
         graphs = {"synth_graph": phase_synth_graph(report, cfg, vocab),
@@ -4974,7 +5102,8 @@ def main(argv=None) -> int:
         evidence_launches = phase_evidence(report)
         for k in kernels:
             require(k["launches"] > 0, f"{k['name']} launched on its path ({k['launches']})")
-            counted = {"decode_loop": "decode_loop", "griffin_lim_bf16": "griffin_lim"}
+            counted = {"decode_loop": "decode_loop", "griffin_lim_bf16": "griffin_lim",
+                       "decode_chunk": "decode_chunk"}
             for tag, g in graphs.items():
                 if g["launches"].get(counted.get(k["name"])):
                     k[f"{tag}_launches"] = g["launches"][counted[k["name"]]]

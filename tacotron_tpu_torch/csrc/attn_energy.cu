@@ -91,6 +91,8 @@ __device__ unsigned long long g_energy_clock[kMaxClockBlocks][kMarks];
 
 namespace {
 
+using tt::ticket_acq_rel;
+
 constexpr int kCols = 8;                  // columns a lane owns in a chunk
 constexpr int kChunk = 32 * kCols;        // columns a warp spans
 constexpr int kWarps = 8, kThreads = kWarps * 32;              // K1 block
@@ -155,17 +157,6 @@ __device__ __forceinline__ void store_cols(S* __restrict__ row, int c0, int A, i
         if (c + i < A) row[c + i] = tt::to_storage<S>(w[g * V + i]);
     }
   }
-}
-
-// The counter's old value, incremented (wrapping to 0 past `limit`) with
-// release and acquire at device scope: one thread's ticket orders the
-// block's writes before it (after a __syncthreads) and the block's reads
-// after it (before a __syncthreads).
-__device__ __forceinline__ unsigned ticket_acq_rel(unsigned* p, unsigned limit) {
-  unsigned old;
-  asm volatile("atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;"
-               : "=r"(old) : "l"(p), "r"(limit) : "memory");
-  return old;
 }
 
 // tanh(k + q) of two neighbouring columns, the sum and the result each

@@ -70,4 +70,35 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// The items [lo, hi) of n that cluster rank r of c owns: floor(r n / c) to
+// floor((r + 1) n / c), so slices differ by at most one item.
+// ops/decode_loop.py::cluster_slice is the same rule.
+struct Slice {
+  int lo, hi;
+  __device__ Slice(int n, int c, int r) : lo(r * n / c), hi((r + 1) * n / c) {}
+};
+
+// Pushes into every block's copy of a shared buffer. Warp-level: every lane
+// holds the value (after a butterfly warp_sum), and lane p < C stores it
+// into block p's copy (the block's own copy included).
+struct Peers {
+  float* smem;  // this block's dynamic shared memory
+  float* peer;  // lane p < C: block p's, mapped into the cluster's window
+  int C;
+  __device__ __forceinline__ void push(float* buf, int i, float v, int lane) const {
+    if (lane < C) peer[(buf - smem) + i] = v;
+  }
+};
+
+// The counter's old value, incremented (wrapping to 0 past `limit`) with
+// release and acquire at device scope: one thread's ticket orders the
+// block's writes before it (after a __syncthreads) and the block's reads
+// after it (before a __syncthreads).
+__device__ __forceinline__ unsigned ticket_acq_rel(unsigned* p, unsigned limit) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;"
+               : "=r"(old) : "l"(p), "r"(limit) : "memory");
+  return old;
+}
+
 }  // namespace tt

@@ -52,6 +52,9 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using tt::Peers;
+using tt::Slice;
+
 constexpr int kThreads = 512;
 constexpr int kMaxCluster = 16;  // non-portable above 8; one GPC at most
 // The context's partial sums: at most 32 parts of the positions per column
@@ -116,26 +119,6 @@ __device__ __forceinline__ float activate(float x, int act) {
     default: return x;
   }
 }
-
-// The items [lo, hi) of n that cluster rank r of c owns: floor(r n / c) to
-// floor((r + 1) n / c), so slices differ by at most one item.
-// ops/decode_loop.py::cluster_slice is the same rule.
-struct Slice {
-  int lo, hi;
-  __device__ Slice(int n, int c, int r) : lo(r * n / c), hi((r + 1) * n / c) {}
-};
-
-// Pushes into every block's copy of a shared buffer. Warp-level: every lane
-// holds the value (after a butterfly warp_sum), and lane p < C stores it
-// into block p's copy (the block's own copy included).
-struct Peers {
-  float* smem;  // this block's dynamic shared memory
-  float* peer;  // lane p < C: block p's, mapped into the cluster's window
-  int C;
-  __device__ __forceinline__ void push(float* buf, int i, float v, int lane) const {
-    if (lane < C) peer[(buf - smem) + i] = v;
-  }
-};
 
 // act(sum_i x[i] * W[o][i] + b[o]) for the outputs o in [lo, hi); x is
 // already rounded to the storage type. One warp per output; each warp works

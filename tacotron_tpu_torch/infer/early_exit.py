@@ -14,6 +14,12 @@ not those of the fused decode's kernel: the scores as a product of the tanh
 with ``v``, the context as an ``einsum`` over the memory. The two decodes
 then run the same operations, and the early exit with a threshold that
 never trips gives the fixed decode's output bit for bit.
+
+On a CUDA device a chunk of the loop is one launch of the step decode's
+kernel (``ops/decode_chunk.py``) after the chunk's dropout draws, and the
+launch applies the exit rule too; ``WhileDecode.run_chunk_plain`` is its
+plain counterpart. The fixed decode on the device runs the same kernel, so
+the two decodes stay bit-equal there.
 """
 
 from __future__ import annotations
@@ -21,8 +27,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tacotron_tpu_torch.ops.attention import NEG_INF
 from tacotron_tpu_torch.ops.attn_energy import energy_contract, energy_tanh
+from tacotron_tpu_torch.ops.decode_chunk import (DecodeChunk, ExitCarry, decode_inputs,
+                                                 draw_masks, zero_state)
 from tacotron_tpu_torch.ops.decode_loop import DecoderWeights
 from tacotron_tpu_torch.ops.gru import gru_cell_step
 from tacotron_tpu_torch.ops.modules import dense, dropout
@@ -86,9 +93,8 @@ def while_decoder_step(memory, keys, mask, w: DecoderWeights, *, dropout_rate: f
     b, t_in, m_dim = memory.shape
     n_mels = w.p_w0.shape[1]
     r = w.f_w.shape[0] // n_mels
-    mem, keys = memory.float(), keys.float()
+    mem, keys, bias = decode_inputs(memory, keys, mask)
     v = w.at_v.reshape(-1, 1)
-    bias = torch.where(mask, 0.0, NEG_INF)
 
     def step(state):
         h_att, h0, h1, ctx, prev = state
@@ -106,11 +112,7 @@ def while_decoder_step(memory, keys, mask, w: DecoderWeights, *, dropout_rate: f
         frames = dense(h, w.f_w, w.f_b)
         return (h_att, h0, h1, ctx, frames[:, (r - 1) * n_mels:]), frames, alpha
 
-    dev = memory.device
-    h0 = torch.zeros(b, w.d0_wc.shape[0], device=dev)
-    state = (torch.zeros(b, w.ag_wc.shape[0], device=dev), h0, torch.zeros_like(h0),
-             torch.zeros(b, m_dim, device=dev), torch.zeros(b, n_mels, device=dev))
-    return state, step
+    return zero_state(b, m_dim, w, memory.device), step
 
 
 # decoder steps per chunk: the host reads the exit flag once per chunk. Read
@@ -138,6 +140,16 @@ class WhileDecode:
     chunk can be captured into a CUDA graph and replayed
     (``infer.synthesize.Synthesizer``); the carry then lives at fixed
     addresses, and making the ``WhileDecode`` zeroes it.
+
+    On a CUDA device (``kernel``) ``run_chunk`` draws the chunk's dropout
+    masks (``draw_masks``) and launches the step decode's kernel once: it
+    runs the chunk's steps, writes each step's raw frames and alignments
+    into its slot, and applies the rule above to the steps in order,
+    zeroing the inactive steps' slots and writing ``t``, ``silent_run``,
+    ``slot`` and the flag ``done``. ``run_chunk_plain`` is that launch in
+    plain PyTorch, in the kernel's order, its steps drawing the masks that
+    ``draw_masks`` draws: what ``run_chunk`` runs on the CPU, and the
+    kernel's reference on the card.
     """
 
     def __init__(self, memory, keys, mask, w: DecoderWeights, generator=None, *,
@@ -158,27 +170,58 @@ class WhileDecode:
         self.t = torch.zeros((), dtype=torch.int64, device=dev)
         self.frames = memory.new_zeros(b, n_steps + chunk, r * n_mels)
         self.aligns = memory.new_zeros(b, n_steps + chunk, t_in)
+        self._w, self._gen, self.rate = w, generator, dropout_rate
+        self.kernel = dev.type == "cuda"
+        if self.kernel:
+            self.done = torch.zeros((), dtype=torch.bool, device=dev)
+            self._launch = DecodeChunk(
+                *decode_inputs(memory, keys, mask), w, self.state, self.frames, self.aligns,
+                dropout_rate=dropout_rate, exit=ExitCarry(
+                    self.t, self.silent_run, self.slot, self.done, threshold=silence_threshold,
+                    min_steps=min_silence_steps, n_steps=n_steps))
 
     def _done(self, t, run):
         return (t >= self.n_steps) | (run >= self.min_steps).all()
 
+    def draw_masks(self) -> list:
+        """The chunk's dropout draws, as its steps draw them one by one: per
+        step the pre-net's (B, P0) then (B, P1) uniform draw (none at rate 0)."""
+        return draw_masks(self.frames.shape[0], self._w, self.chunk, self.rate, self._gen,
+                          self.frames.device)
+
     def run_chunk(self) -> torch.Tensor:
         """``chunk`` steps from the carry, written back to it -> the device
         flag (0-d bool): the loop has exited or run ``n_steps``."""
-        state, t, slot, run = self.state, self.t, self.slot, self.silent_run
-        for _ in range(self.chunk):
-            active = ~self._done(t, run)
+        if self.kernel:
+            self._launch.launch(self.draw_masks(), self.chunk)
+            return self.done
+        return self.run_chunk_plain()
+
+    def run_chunk_plain(self) -> torch.Tensor:
+        """The kernel's launch in plain PyTorch: the chunk's steps, each
+        drawing its pre-net masks as ``draw_masks`` draws them, every step's
+        raw frames and alignments into its slot, then the exit rule over the
+        chunk's steps in order (the inactive ones' slots zeroed), the carry
+        written back -> the flag "done"."""
+        state, slot0 = self.state, self.slot
+        silent = []
+        for k in range(self.chunk):
             state, frames, align = self._step(state)
-            self.frames.index_copy_(1, slot, torch.where(active, frames, 0.0)[:, None])
-            self.aligns.index_copy_(1, slot, torch.where(active, align, 0.0)[:, None])
-            silent = frames.amax(dim=-1) < self.threshold
-            run = torch.where(active, torch.where(silent, run + 1, 0), run)
+            self.frames.index_copy_(1, slot0 + k, frames[:, None])
+            self.aligns.index_copy_(1, slot0 + k, align[:, None])
+            silent.append(frames.amax(dim=-1) < self.threshold)
+        t, run = self.t, self.silent_run
+        for k in range(self.chunk):
+            active = ~self._done(t, run)
+            for buf in (self.frames, self.aligns):
+                buf.index_copy_(1, slot0 + k, torch.where(active, buf.index_select(1, slot0 + k),
+                                                          0.0))
+            run = torch.where(active, torch.where(silent[k], run + 1, 0), run)
             t = t + active
-            slot = slot + 1
         for dst, src in zip(self.state, state):
             dst.copy_(src)
         self.t.copy_(t)
-        self.slot.copy_(slot)
+        self.slot.copy_(slot0 + self.chunk)
         self.silent_run.copy_(run)
         return self._done(t, run)
 

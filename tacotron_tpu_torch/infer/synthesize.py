@@ -138,7 +138,8 @@ class Synthesizer:
 
     Each call is one record of the stage clock (``utils.profiling``) when
     it is on: device ms of ``RECORD_STAGES`` and ``chunk_gap_ms``, host
-    spans, and the counters ``chunks`` (early-exit chunks run), ``t_gl``
+    spans, and the counters ``chunks`` (early-exit chunks run),
+    ``decode_kernel_chunks`` (those run by the step decode's kernel), ``t_gl``
     (Griffin-Lim's frames), ``d2h_bytes`` (bytes read to the host) and
     ``graphed``. Each graph holds its stage marks as event nodes (none in
     the chunk graph, whose replays are marked from the host).
@@ -297,10 +298,12 @@ class Synthesizer:
         profiling.mark("encoder")
         return loop
 
-    def _decode_chunks(self, run_chunk, n_steps: int, chunk: int) -> None:
+    def _decode_chunks(self, run_chunk, loop: WhileDecode) -> None:
         """The early-exit loop (``run_until_done``), each chunk between two
         host marks when the clock is on: the time before a chunk is
-        ``chunk_gap`` (the previous exit-flag read), the chunk ``decode``."""
+        ``chunk_gap`` (the previous exit-flag read), the chunk ``decode``.
+        Counts ``chunks``, and ``decode_kernel_chunks``: those the step
+        decode's kernel ran (all on the card, none on the CPU)."""
         def marked():
             profiling.mark("chunk_gap")
             done = run_chunk()
@@ -308,8 +311,10 @@ class Synthesizer:
             return done
 
         with profiling.span("chunk_loop"):
-            n = run_until_done(marked if profiling.recording() else run_chunk, n_steps, chunk)
+            n = run_until_done(marked if profiling.recording() else run_chunk, loop.n_steps,
+                               loop.chunk)
             profiling.count("chunks", n)
+            profiling.count("decode_kernel_chunks", n if loop.kernel else 0)
 
     def _exit_post(self, loop: WhileDecode):
         """The early-exit decode's outputs through the post-net -> (mel,
@@ -367,7 +372,7 @@ class Synthesizer:
             return self._mesh_gather(n_real, mel, align, linear, self._gl(linear, gl_iters)[0])
         if self.cfg.infer.early_exit:
             loop = self._while_decode(text, lengths, gen, n_steps)
-            self._decode_chunks(loop.run_chunk, n_steps, loop.chunk)
+            self._decode_chunks(loop.run_chunk, loop)
             mel, align, linear, ends = self._exit_post(loop)
         else:
             mel, align = self._model_pass(text, lengths, gen, n_steps)
@@ -528,7 +533,7 @@ class Synthesizer:
                 runtime.replay_graph(chunk)
                 return chunk.outputs
 
-            self._decode_chunks(run_chunk, n_steps, g["preamble"].outputs.chunk)
+            self._decode_chunks(run_chunk, g["preamble"].outputs)
         with profiling.span("postnet"):
             runtime.replay_graph(g["postnet"])
             mel, align, linear, ends = g["postnet"].outputs

@@ -7,6 +7,10 @@ attention; [attention-GRU output, context] is projected to
 r*n_mels. No stop token: inference runs a fixed number of steps (paper
 §3.2). The attention keys are computed once outside the loop.
 
+On a CUDA device the feed-previous decode in f32 with the ``"xla"`` energy
+runs through the step decode's kernel (``ops/decode_chunk.py``), the one the
+early-exit decode's chunks run (``Decoder._on_kernel`` says when).
+
 Teacher forcing (training) feeds the last ground-truth frame of the
 previous group instead of the last prediction, in one of two forms that
 share the parameters (``ModelConfig.tf_decoder``):
@@ -53,6 +57,8 @@ from torch.utils.checkpoint import checkpoint
 from tacotron_tpu_torch.config import ModelConfig
 from tacotron_tpu_torch.ops.attention import NEG_INF, BahdanauAttention, energy_scores
 from tacotron_tpu_torch.ops.attn_energy import energy_contract, energy_tanh
+from tacotron_tpu_torch.ops.decode_chunk import decode_steps
+from tacotron_tpu_torch.ops.decode_loop import pack_decoder_weights
 from tacotron_tpu_torch.ops.gru import GRUCell, gru_cell_step
 from tacotron_tpu_torch.ops.modules import Dense, Prenet, dense, dropout
 
@@ -234,6 +240,19 @@ class Decoder(nn.Module):
             torch.zeros(b, cfg.n_mels, device=dev),
         )
 
+    def _on_kernel(self, memory, keys) -> bool:
+        """The feed-previous decode runs through the step decode's kernel
+        (``ops/decode_chunk.py``): on a CUDA device, in f32 with the
+        ``"xla"`` energy, two decoder GRUs, and no gradient to keep. The
+        early-exit decode's chunks run the same kernel, so the two decodes
+        stay bit-equal on the card."""
+        cfg = self.cfg
+        return (memory.device.type == "cuda" and cfg.cdtype is None
+                and cfg.attention_energy == "xla" and cfg.decoder_depth == 2
+                and all(p.dtype == torch.float32 for p in self.parameters())
+                and not (torch.is_grad_enabled()
+                         and any(t.requires_grad for t in (memory, keys, *self.parameters()))))
+
     def forward(self, memory, keys, mask, n_steps: int | None = None,
                 generator: torch.Generator | None = None, gt_frames=None):
         """Teacher-forced when ``gt_frames`` (B, T_out, n_mels) is given
@@ -245,6 +264,11 @@ class Decoder(nn.Module):
             return self._teacher_forced(memory, keys, mask, gt_frames, generator)
         cfg = self.cfg
         b = memory.shape[0]
+        if self._on_kernel(memory, keys):
+            frames, aligns = decode_steps(
+                memory, keys, mask, pack_decoder_weights(self.cell), generator,
+                n_steps=n_steps, dropout_rate=self.cell.prenet.active_rate)
+            return frames.reshape(b, n_steps * cfg.r, cfg.n_mels), aligns
         state = self._init_state(b, memory.device)
         frames, aligns = [], []
         for _ in range(n_steps):

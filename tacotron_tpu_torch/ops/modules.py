@@ -103,6 +103,17 @@ class BatchShard(NamedTuple):
     count: int
 
 
+def dropout_uniform(shape, generator, device):
+    """The uniform draw (f32, contiguous) that ``dropout_keep`` compares with
+    1 - rate, for an input of ``shape``, from a ``torch.Generator`` (or None)
+    or a ``BatchShard``."""
+    if isinstance(generator, BatchShard):
+        n = shape[0]
+        return torch.rand((n * generator.count, *shape[1:]), generator=generator.generator,
+                          device=device)[n * generator.index:n * (generator.index + 1)]
+    return torch.rand(shape, generator=generator, device=device)
+
+
 def dropout_keep(shape, rate: float, generator, device):
     """The keep mask (bool) that ``dropout`` draws for an input of
     ``shape``, from a ``torch.Generator`` (or None) or a ``BatchShard``.
@@ -112,13 +123,7 @@ def dropout_keep(shape, rate: float, generator, device):
     A ``BatchShard`` draws the global batch's rows in the graph as in the
     eager step, so a replayed mesh step advances the generator by what one
     process's step on the global batch does."""
-    if isinstance(generator, BatchShard):
-        n = shape[0]
-        u = torch.rand((n * generator.count, *shape[1:]), generator=generator.generator,
-                       device=device)[n * generator.index:n * (generator.index + 1)]
-    else:
-        u = torch.rand(shape, generator=generator, device=device)
-    return u < 1.0 - rate
+    return dropout_uniform(shape, generator, device) < 1.0 - rate
 
 
 def dropout(x, rate: float, generator: torch.Generator | None, keep=None):

@@ -23,9 +23,10 @@ from tacotron_tpu.models import Tacotron as JaxTacotron
 from tacotron_tpu.models.encoder import Encoder as JaxEncoder
 from tacotron_tpu.ops.pallas.decode_loop import pack_decoder_weights as jax_pack
 from tacotron_tpu_torch.config import Config, get_config
-from tacotron_tpu_torch.infer.early_exit import decode_while
+from tacotron_tpu_torch.infer.early_exit import WhileDecode, decode_while
 from tacotron_tpu_torch.models.tacotron import Tacotron
 from tacotron_tpu_torch.ops.decode_loop import decode_loop_reference, pack_decoder_weights
+from tacotron_tpu_torch.ops.modules import dropout as dropout_fn
 from tacotron_tpu_torch.weights import from_flax, init_params
 
 N_STEPS = 8
@@ -185,3 +186,98 @@ def test_full_width_equals_the_decoder_bit_for_bit(dropout):
     assert torch.equal(ex[1][:, :2], align[:, :2])
     assert float(ex[0][:, 2 * cfg.r:].abs().max()) == 0.0
     assert float(ex[1][:, 2:].abs().max()) == 0.0
+
+
+# ------------------------------------------- the step decode kernel's plain counterpart
+
+# (silence threshold, min_silence_steps) over 20 steps in chunks of 8: the
+# exit after step 3 (mid-chunk), after step 8 (a chunk's last step), after
+# step 11 (mid second chunk), and none (the last chunk partly past n_steps)
+CHUNK_EXITS = {"mid_chunk": (1e9, 3), "chunk_last_step": (1e9, 8),
+               "second_chunk": (1e9, 11), "no_exit": (-1.0, 3)}
+CHUNK_STEPS = 20
+
+
+def _tiny_loop(dropout, generator, threshold=-1.0, min_steps=3):
+    """A WhileDecode on tiny_cpu's model from a seed (no JAX), B 3, T_in 9."""
+    cfg = dataclasses.replace(get_config("tiny_cpu").model, prenet_dropout=dropout)
+    model = init_params(Tacotron(cfg, device="cpu"), seed=0).eval()
+    lengths = torch.tensor([9, 6, 4])
+    memory = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (3, 9, cfg.memory_dim)).astype(np.float32))
+    mask = torch.arange(9)[None, :] < lengths[:, None]
+    with torch.no_grad():
+        keys = model.memory_proj(memory)
+    return WhileDecode(memory, keys, mask, pack_decoder_weights(model.decoder.cell), generator,
+                       n_steps=CHUNK_STEPS, r=cfg.r, n_mels=cfg.n_mels, dropout_rate=dropout,
+                       silence_threshold=threshold, min_silence_steps=min_steps)
+
+
+def _stepwise_chunk(loop):
+    """``loop``'s chunk as the steps of ``decode_while`` run it, one by one:
+    each step draws its own masks, and its outputs go into the slot under
+    ``where(active, ., 0)`` before the next step runs -> the flag "done"."""
+    def done(t, run):
+        return (t >= loop.n_steps) | (run >= loop.min_steps).all()
+
+    state, t, slot, run = loop.state, loop.t, loop.slot, loop.silent_run
+    for _ in range(loop.chunk):
+        active = ~done(t, run)
+        state, frames, align = loop._step(state)
+        loop.frames.index_copy_(1, slot, torch.where(active, frames, 0.0)[:, None])
+        loop.aligns.index_copy_(1, slot, torch.where(active, align, 0.0)[:, None])
+        silent = frames.amax(dim=-1) < loop.threshold
+        run = torch.where(active, torch.where(silent, run + 1, 0), run)
+        t = t + active
+        slot = slot + 1
+    for dst, src in zip(loop.state, state):
+        dst.copy_(src)
+    loop.t.copy_(t)
+    loop.slot.copy_(slot)
+    loop.silent_run.copy_(run)
+    return done(t, run)
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.5])
+@pytest.mark.parametrize("case", list(CHUNK_EXITS))
+def test_plain_chunk_over_drawn_masks_equals_run_chunk(case, dropout):
+    """``run_chunk`` on the CPU, which is ``run_chunk_plain`` (the kernel's
+    launch in plain PyTorch: every step's raw outputs into its slot, then
+    the exit rule over the chunk), against the chunk run step by step
+    (``_stepwise_chunk``), from equally seeded generators: the flags chunk
+    by chunk, the outputs, the carry and the generators' states bit for
+    bit."""
+    threshold, min_steps = CHUNK_EXITS[case]
+    gens = [torch.Generator().manual_seed(11) for _ in range(2)]
+    steps, plain = (_tiny_loop(dropout, g, threshold, min_steps) for g in gens)
+    with torch.no_grad():
+        flags = [(bool(_stepwise_chunk(steps)), bool(plain.run_chunk()))
+                 for _ in range(-(-CHUNK_STEPS // steps.chunk))]
+    assert [a for a, _ in flags] == [b for _, b in flags]
+    for a, b in ((steps.frames, plain.frames), (steps.aligns, plain.aligns), (steps.t, plain.t),
+                 (steps.slot, plain.slot), (steps.silent_run, plain.silent_run),
+                 *zip(steps.state, plain.state)):
+        assert torch.equal(a, b), _gap(a.float(), b.float())
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())
+    exit_step = min_steps if threshold > 0 else CHUNK_STEPS
+    assert int(plain.t) == exit_step
+    assert not plain.frames[:, exit_step:].any() and not plain.aligns[:, exit_step:].any()
+    assert plain.frames[:, :exit_step].abs().amax(dim=(0, 2)).gt(0).all()
+
+
+@pytest.mark.parametrize("dropout", [0.5, 0.2])
+def test_chunk_masks_are_the_steps_dropout_draws(dropout):
+    """The 16 masks ``draw_masks`` draws for a chunk of 8 are what the
+    pre-net's 8 steps of ``dropout`` draw from an equally seeded generator
+    (a (B, P0) then a (B, P1) draw a step), and leave it where they do."""
+    loop = _tiny_loop(dropout, torch.Generator().manual_seed(5))
+    masks = loop.draw_masks()
+    assert len(masks) == 2 * loop.chunk == 16
+    gen = torch.Generator().manual_seed(5)
+    p0, p1 = loop._w.p_w0.shape[0], loop._w.p_w1.shape[0]
+    for k in range(loop.chunk):
+        for u, width in zip(masks[2 * k:2 * k + 2], (p0, p1)):
+            kept = dropout_fn(torch.ones(3, width), dropout, gen) != 0
+            assert u.shape == (3, width) and torch.equal(u < 1.0 - dropout, kept)
+    assert torch.equal(loop._gen.get_state(), gen.get_state())
+    assert _tiny_loop(0.0, torch.Generator()).draw_masks() == []

@@ -26,7 +26,10 @@ threshold above every peak, so that the exit and the trim do not depend
 on the dropout masks): four calls of one shape (eager,
 capture, replay, replay; seeds 1, 2, 1, 3) each bit-equal to an eager
 call with its seed, the fixed path's one graph holding K3's one node and
-K4's 3 per iteration, the split path's Griffin-Lim eager (no K4 node in
+K4's 3 per iteration, the step decode's kernel one node in the fixed decode
+and in the chunk graph (whose other nodes are the chunk's 16 dropout draws',
+as a capture of the draws alone holds them),
+the split path's Griffin-Lim eager (no K4 node in
 its graphs, K4's launches on every call); the graphs kept through an
 in-place ``load_state_dict`` (the replay then equal to an eager call on
 the new weights) and dropped when a weight's tensor moves. The split
@@ -254,7 +257,7 @@ def _outputs(out):
 
 @pytest.fixture(scope="module")
 def synth_state(dev):
-    runtime.build(("decode_loop", "griffin_lim"))
+    runtime.build(("decode_chunk", "decode_loop", "griffin_lim"))
     model = init_params(Tacotron(_synth_cfg().model, device=dev), seed=0)
     return split_state(model), Vocab.build(PROMPTS)
 
@@ -300,25 +303,47 @@ def test_graphed_synthesis_is_bit_equal_to_eager(synth_calls):
 
 
 def test_synthesis_graphs_hold_k3_and_k4(synth_calls):
+    """Each path's graphs and launches: K3 in the fused "synth" graph, K4 in
+    the fixed path's; the step decode's kernel once in the fixed decode (40
+    steps, one launch) and once a replay in the early exit's chunk graph,
+    whose other nodes are those of the chunk's 16 dropout draws."""
     name, synth, calls = synth_calls
-    fused = synth.fused
-    per_call = {"griffin_lim": 3 * SYNTH_GL, **({"decode_loop": 1} if fused else {})}
+    fused, exits = synth.fused, synth.cfg.infer.early_exit
+    chunks = (20 if name in ("exit", "exit_trim") else SYNTH_STEPS) // DECODE_CHUNK + (
+        name in ("exit", "exit_trim"))
+    per_call = {"griffin_lim": 3 * SYNTH_GL, "decode_loop" if fused else "decode_chunk":
+                chunks if exits else 1}
     assert all(launches == per_call for *_, launches in calls), name
     (entry,) = synth.graphs.values()
     graphs = dict(entry.captured())
     want = (["synth"] if not synth.split else
-            ["preamble", *(["chunk"] if synth.cfg.infer.early_exit else []), "postnet"])
+            ["preamble", *(["chunk"] if exits else []), "postnet"])
     assert sorted(graphs) == sorted(want)
+    step_decode = {} if fused else {"decode_chunk": 1}
+    launches = {"synth": {**per_call, **({"decode_loop": 1} if fused else step_decode)},
+                "preamble": {} if exits else step_decode, "chunk": step_decode, "postnet": {}}
     for g_name, g in graphs.items():
         nodes = graph_nodes(g.graph)
         k3 = sum(n for k, n in nodes.items() if "decode_loop_kernel" in k)
         k4 = sum(n for k, n in nodes.items() if "gl_wgmma" in k or "gl_ola_frame" in k)
         gl = g_name == "synth"
         assert (k3, k4) == (int(fused and gl), 3 * SYNTH_GL if gl else 0), (name, g_name, nodes)
-        assert dict(g.launches) == (per_call if gl else {}), (name, g_name)
+        assert dict(g.launches) == launches[g_name], (name, g_name)
+        assert sum(n for k, n in nodes.items() if "decode_chunk_kernel" in k) == (
+            g.launches.get("decode_chunk", 0)), (name, g_name, nodes)
         assert g.capture_s > 0 and g.instantiate_s > 0 and g.pool_bytes >= 0
     if "chunk" in graphs:
-        assert graphs["preamble"].outputs.chunk == DECODE_CHUNK
+        loop = graphs["preamble"].outputs
+        assert loop.chunk == DECODE_CHUNK
+        # the chunk graph: the kernel's one launch and the nodes of the
+        # chunk's 16 dropout draws, as a capture of the draws alone holds them
+        with torch.cuda.stream(synth._stream):
+            draws = graph_nodes(runtime.capture_graph(loop.draw_masks, synth._stream,
+                                                      synth._gen).graph)
+        assert sum(n for k, n in draws.items() if "distribution" in k) == 2 * DECODE_CHUNK
+        nodes = graph_nodes(graphs["chunk"].graph)
+        step = [k for k in nodes if "decode_chunk_kernel" in k]
+        assert len(step) == 1 and nodes == draws + collections.Counter({step[0]: 1}), (nodes, draws)
 
 
 def test_synthesis_graphs_follow_the_weights(synth_state):
@@ -490,7 +515,8 @@ def test_nccl_mesh_synthesis_replays_model_and_gl_graphs(synth_state, nccl_mesh)
     cfg = _synth_cfg()
     synth = Synthesizer(cfg, p, bs, vocab, mesh=nccl_mesh)
     eager = Synthesizer(cfg, p, bs, vocab)
-    per_call = {"griffin_lim": 3 * SYNTH_GL}
+    # the model graph's fixed decode (40 steps) is one launch of the step decode's kernel
+    per_call = {"griffin_lim": 3 * SYNTH_GL, "decode_chunk": 1}
     for i, seed in enumerate(SEEDS):
         before = collections.Counter(runtime.LAUNCHES)
         got = synth(PROMPTS, seed=seed)
@@ -507,4 +533,5 @@ def test_nccl_mesh_synthesis_replays_model_and_gl_graphs(synth_state, nccl_mesh)
         nodes = graph_nodes(g.graph)
         k4 = sum(n for k, n in nodes.items() if "gl_wgmma" in k or "gl_ola_frame" in k)
         assert k4 == (3 * SYNTH_GL if name == "gl" else 0), (name, nodes)
-        assert dict(g.launches) == (per_call if name == "gl" else {}), name
+        assert dict(g.launches) == ({"griffin_lim": 3 * SYNTH_GL} if name == "gl"
+                                    else {"decode_chunk": 1}), name

@@ -23,6 +23,11 @@ call, the cluster barrier launched at every
 cluster size, the empty kernel launched at every cluster size of K2 and on
 the ops kernel's cluster (launches counted as the kernel nodes of a CUDA
 graph captured around one call, which cannot miss one);
+the step decode's kernel against its plain counterpart (``WhileDecode.
+run_chunk_plain`` over the same masks) 1e-5 on frames and alignments (f32,
+summation order only), with exact zeros past the exit, the same flags and
+carry, and the same bits at every cluster size; the fixed decode through it
+bit-equal to the early exit that never trips;
 attention energy (K1) and its
 three gradients (K2) 1e-5 of each one's peak (f32, summation order only),
 at K2's every cluster size too, dv the same bits on every call, K2 one
@@ -57,6 +62,8 @@ from tacotron_tpu_torch.models.tacotron import Tacotron, length_mask
 from tacotron_tpu_torch.ops.attn_energy import (BWD_CLUSTERS, _ticket, attention_energy,
                                                 attention_energy_reference, energy_bwd,
                                                 energy_bwd_reference, energy_fwd, fwd_grid)
+from tacotron_tpu_torch.infer.early_exit import WhileDecode, decode_while
+from tacotron_tpu_torch.ops import decode_chunk
 from tacotron_tpu_torch.ops.decode_loop import (CLUSTER_SIZES, _decode_loop_cuda,
                                                 cluster_plan, decode_loop,
                                                 decode_loop_reference, pack_decoder_weights)
@@ -185,6 +192,128 @@ def test_decode_kernel_dropout_does_not_depend_on_the_cluster(request, width):
         assert torch.equal(runs[c][2], runs[1][2])
     assert float((runs[chosen][0] - runs[1][0]).abs().max()) <= 1e-4
     assert torch.equal(default[0], runs[chosen][0])
+
+
+# ------------------------------------------------------- the step decode's kernel
+
+# (silence threshold, min_silence_steps) over 40 steps in chunks of 8: the
+# exit after step 3 (mid-chunk), after step 16 (a chunk's last step), none
+STEP_EXITS = {"mid_chunk": (1e9, 3), "chunk_last_step": (1e9, 16), "no_exit": (-1.0, 3)}
+STEP_DECODE_STEPS = 40
+
+
+@pytest.fixture(scope="module")
+def fast_decoder_inputs(dev):
+    """synth_fast widths (the serving cells'), B 8, T_in 113, rows of 113
+    down to 49 positions."""
+    cfg = dataclasses.replace(get_config("synth_fast").model, vocab_size=40)
+    model = init_params(Tacotron(cfg, device=dev), seed=0).eval()
+    lengths = torch.tensor([113, 97, 106, 80, 113, 49, 101, 90], device=dev)
+    text = torch.randint(1, 40, (8, 113), generator=torch.Generator().manual_seed(1)).to(dev)
+    mask = length_mask(113, lengths)
+    with torch.no_grad():
+        memory = model.encoder(torch.where(mask, text, 0), lengths,
+                               torch.Generator(device=dev).manual_seed(2))
+        keys = model.memory_proj(memory)
+    return memory, keys, mask, pack_decoder_weights(model.decoder.cell)
+
+
+def _while(inputs, dropout, threshold=-1.0, min_steps=3, seed=7):
+    memory, keys, mask, w = inputs
+    n_mels = w.p_w0.shape[1]
+    return WhileDecode(memory, keys, mask, w, torch.Generator(device=memory.device).manual_seed(seed),
+                       n_steps=STEP_DECODE_STEPS, r=w.f_w.shape[0] // n_mels, n_mels=n_mels,
+                       dropout_rate=dropout, silence_threshold=threshold,
+                       min_silence_steps=min_steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(STEP_EXITS))
+@pytest.mark.parametrize("dropout", [0.0, 0.5])
+@pytest.mark.parametrize("width", ["tiny", "fast"])
+def test_step_decode_kernel_matches_its_plain_counterpart(request, width, dropout, case):
+    """``WhileDecode.run_chunk`` on the card (one launch a chunk, the exit
+    rule in it) against ``run_chunk_plain`` over the same masks (equally
+    seeded generators): frames and alignments within 1e-5 (f32, summation
+    order only), exact zeros past the exit in both, the same flags, ``t``,
+    slot and silent runs."""
+    inputs = request.getfixturevalue("decoder_inputs" if width == "tiny"
+                                     else "fast_decoder_inputs")
+    threshold, min_steps = STEP_EXITS[case]
+    kernel, plain = (_while(inputs, dropout, threshold, min_steps) for _ in range(2))
+    assert kernel.kernel
+    before = runtime.LAUNCHES["decode_chunk"]
+    with torch.no_grad():
+        flags = [(bool(kernel.run_chunk()), bool(plain.run_chunk_plain()))
+                 for _ in range(STEP_DECODE_STEPS // kernel.chunk)]
+    assert runtime.LAUNCHES["decode_chunk"] == before + len(flags)
+    assert [a for a, _ in flags] == [b for _, b in flags]
+    exit_step = min_steps if threshold > 0 else STEP_DECODE_STEPS
+    assert int(kernel.t) == int(plain.t) == exit_step
+    assert int(kernel.slot) == int(plain.slot)
+    assert torch.equal(kernel.silent_run, plain.silent_run)
+    assert torch.equal(kernel._gen.get_state(), plain._gen.get_state())
+    assert float((kernel.frames - plain.frames).abs().max()) <= 1e-5
+    assert float((kernel.aligns - plain.aligns).abs().max()) <= 1e-5
+    for loop in (kernel, plain):
+        assert not loop.frames[:, exit_step:].any() and not loop.aligns[:, exit_step:].any()
+        assert loop.frames[:, :exit_step].abs().amax(dim=(0, 2)).gt(0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", ["tiny", "fast"])
+def test_step_decode_kernel_same_bits_at_every_cluster_size(request, width):
+    """The step decode's sums do not depend on the cluster: every cluster
+    size the card can place gives the chosen size's bits (tiny widths:
+    slices of uneven size, empty ones at C 16)."""
+    inputs = request.getfixturevalue("decoder_inputs" if width == "tiny"
+                                     else "fast_decoder_inputs")
+    runs = {}
+    with torch.no_grad():
+        for c in (None, *CLUSTER_SIZES):
+            loop = _while(inputs, 0.5)
+            if c is not None and decode_chunk.resident(loop._launch.dims, loop.chunk,
+                                                       loop.frames.device)[c] < 1:
+                continue
+            loop._launch._cluster = c
+            for _ in range(STEP_DECODE_STEPS // loop.chunk):
+                loop.run_chunk()
+            runs[c] = (loop.frames, loop.aligns, loop._launch.cluster(loop.chunk))
+    chosen = runs[None][2]
+    if width == "fast":
+        assert chosen > 1
+    assert set(runs) >= {None, 1, chosen}
+    for c, (frames, aligns, _) in runs.items():
+        assert torch.equal(frames, runs[None][0]) and torch.equal(aligns, runs[None][1]), c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.5])
+def test_fixed_decode_runs_the_step_decode_kernel(fast_decoder_inputs, dropout):
+    """``Decoder`` in f32 on the card decodes through the same kernel, in
+    launches of up to ``CHUNK_MAX`` steps: bit-equal to the early exit at a
+    threshold that never trips (chunks of 8), dropout masks included; the
+    bf16 decoder and a decode under autograd keep the plain cell."""
+    memory, keys, mask, w = fast_decoder_inputs
+    cfg = dataclasses.replace(get_config("synth_fast").model, vocab_size=40,
+                              prenet_dropout=dropout)
+    model = init_params(Tacotron(cfg, device=memory.device), seed=0).eval()
+    n = STEP_DECODE_STEPS + 30
+    before = runtime.LAUNCHES["decode_chunk"]
+    with torch.no_grad():
+        mel, align = model.decoder(memory, keys, mask, n,
+                                   torch.Generator(device=memory.device).manual_seed(7))
+        assert runtime.LAUNCHES["decode_chunk"] == before + -(-n // decode_chunk.CHUNK_MAX)
+        mel_e, align_e, steps = decode_while(
+            memory, keys, mask, pack_decoder_weights(model.decoder.cell),
+            torch.Generator(device=memory.device).manual_seed(7), n_steps=n, r=cfg.r,
+            n_mels=cfg.n_mels, dropout_rate=dropout, silence_threshold=-1.0)
+    assert steps == n and torch.equal(mel, mel_e) and torch.equal(align, align_e)
+    bf16 = Tacotron(dataclasses.replace(cfg, compute_dtype="bfloat16"), device=memory.device)
+    with torch.no_grad():
+        assert model.decoder._on_kernel(memory, keys)
+        assert not bf16.decoder._on_kernel(memory, keys)
+    assert not model.decoder._on_kernel(memory, keys)     # under autograd
 
 
 GL_KW = dict(n_fft=256, hop_length=48, win_length=190)

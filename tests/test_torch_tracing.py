@@ -116,9 +116,10 @@ def test_each_call_keeps_one_record(path):
         assert c["d2h_bytes"] == host
         assert c["graphed"] is False
         assert c["t_gl"] == out["wavs"].shape[1] // synth.cfg.audio.hop_length + 1
-        assert ("chunks" in c) == ("chunk_gap_ms" in rec) == split
+        assert ("chunks" in c) == ("chunk_gap_ms" in rec) == ("decode_kernel_chunks" in c) == split
         if split:
             assert c["chunks"] == 2          # 12 steps in chunks of 8, never silent
+            assert c["decode_kernel_chunks"] == 0       # the plain steps on the CPU
             assert {s["name"] for s in rec["spans"]} >= {"inputs", "eager", "chunk_loop",
                                                          "to_host"}
 
@@ -188,7 +189,7 @@ def dev():
     flags = torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled()
     torch.backends.cudnn.deterministic = True
     torch.use_deterministic_algorithms(True, warn_only=True)
-    runtime.build(("attn_energy", "decode_loop", "griffin_lim"))
+    runtime.build(("attn_energy", "decode_chunk", "decode_loop", "griffin_lim"))
     yield torch.device("cuda")
     torch.backends.cudnn.deterministic = flags[0]
     torch.use_deterministic_algorithms(flags[1])
@@ -250,6 +251,8 @@ def test_graphed_call_stages_within_its_wall_time(dev, path):
         wall_ms = (time.perf_counter() - t0) * 1e3
     (rec,) = _new_records(before)
     assert traced["graphed"] and rec["counters"]["graphed"] is True
+    # on the card every chunk of the early-exit decode is the kernel's
+    assert rec["counters"].get("decode_kernel_chunks") == rec["counters"].get("chunks")
     assert set(rec["stage_ms"]) == set(RECORD_STAGES)
     assert 0 < sum(rec["stage_ms"].values()) + rec.get("chunk_gap_ms", 0.0) <= wall_ms
     for k in ("mel", "linear", "alignments", "wavs", "end_frames"):
