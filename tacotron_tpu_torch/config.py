@@ -8,6 +8,16 @@ noted; LJSpeech audio parameters follow the common 22.05 kHz convention.
 
 Some fields only steer the JAX implementation (scan unroll factors, bank
 groups); they are kept so configs round-trip, and the port ignores them.
+
+``Config.tacotron2`` is the port's own section (the JAX package has no
+Tacotron 2): None (the default, and what a JAX ``config.json`` gives) is
+Tacotron 1; a ``Tacotron2Config`` makes ``infer.Synthesizer`` serve Tacotron 2
+(Shen et al. 2018, arXiv 1712.05884) with the widths it holds and the
+``ModelConfig`` fields both architectures share (``vocab_size``,
+``embed_dim``, ``prenet_dims``, ``prenet_dropout``, ``attention_dim``,
+``n_mels``, ``r``, ``max_decode_steps``); the CBHG and GRU fields are then
+unread. ``to_json`` leaves the section out when it is None, so the JAX
+package still parses what the port writes.
 """
 
 from __future__ import annotations
@@ -115,6 +125,30 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class Tacotron2Config:
+    """Tacotron 2's own widths (Shen et al. 2018, sections 2.2-2.3; NVIDIA's
+    public implementation, ``hparams.py``)."""
+
+    encoder_convs: int = 3            # 3 x [conv, batch norm, ReLU]
+    encoder_kernel: int = 5
+    encoder_channels: int = 512
+    encoder_lstm_dim: int = 256       # per direction; the memory is 2x wide
+    attention_lstm_dim: int = 1024
+    decoder_lstm_dim: int = 1024
+    location_filters: int = 32        # location features: conv1d([alpha; sum alpha])
+    location_kernel: int = 31
+    postnet_layers: int = 5           # 5 x [conv, batch norm, tanh on all but the last]
+    postnet_channels: int = 512
+    postnet_kernel: int = 5
+    zoneout: float = 0.1              # test-time zoneout on both LSTMs' h and c
+    gate_threshold: float = 0.5       # a row ends at its first step with sigmoid(gate) > this
+
+    @property
+    def memory_dim(self) -> int:
+        return 2 * self.encoder_lstm_dim
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """Optimisation (paper §3.3)."""
 
@@ -174,12 +208,16 @@ class Config:
     data: DataConfig = field(default_factory=DataConfig)
     infer: InferConfig = field(default_factory=InferConfig)
     name: str = "default"
+    tacotron2: Tacotron2Config | None = None
 
     def replace(self, **kw: Any) -> "Config":
         return dataclasses.replace(self, **kw)
 
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+        raw = dataclasses.asdict(self)
+        if self.tacotron2 is None:
+            del raw["tacotron2"]
+        return json.dumps(raw, indent=2, sort_keys=True)
 
     @staticmethod
     def from_json(s: str) -> "Config":
@@ -211,6 +249,9 @@ class Config:
             t = hints[f.name]
             if dataclasses.is_dataclass(t):
                 kw[f.name] = _mk(t, raw.get(f.name, {}), f.name)
+            elif f.name == "tacotron2":
+                if raw.get(f.name) is not None:
+                    kw[f.name] = _mk(Tacotron2Config, raw[f.name], f.name)
             elif f.name in raw:
                 kw[f.name] = raw[f.name]
         return Config(**kw)

@@ -101,6 +101,16 @@ def spectrogram_magnitude(s, cfg: AudioConfig):
     return torch.pow(mag, cfg.griffin_lim_power)
 
 
+def mel_to_linear(mel, cfg: AudioConfig, pinv):
+    """Normalised mel spectrogram (..., frames, n_mels) -> normalised linear
+    spectrogram (..., frames, n_freq): denormalise, dB to amplitude, the
+    filterbank's pseudo-inverse ``pinv`` (n_freq, n_mels; ``mel.mel_pinv``
+    on the mel's device), the amplitude floor of ``amp_to_db``, back to
+    normalised dB."""
+    amp = db_to_amp(denormalize(mel, cfg) + cfg.ref_level_db) @ pinv.T
+    return normalize(amp_to_db(amp) - cfg.ref_level_db, cfg)
+
+
 def gl_spectrum(mag, cfg: AudioConfig, n_iter: int | None = None):
     """Griffin-Lim phase recovery on the configured backend -> (re, im).
 

@@ -2,7 +2,10 @@
 
 The port's own copy of the JAX package's ``dsp/mel.py`` (numpy only): the
 Slaney formula (linear below 1 kHz, log above; area-normalised triangles),
-built once in numpy and applied as one (n_freq, n_mels) product.
+built once in numpy and applied as one (n_freq, n_mels) product, and its
+pseudo-inverse (``mel_pinv``), which takes a mel spectrogram back to a
+linear one where the model predicts only mels (Tacotron 2:
+``dsp.audio.mel_to_linear``).
 """
 
 from __future__ import annotations
@@ -62,3 +65,19 @@ def mel_filterbank(
     enorm = 2.0 / (hz_pts[2 : n_mels + 2] - hz_pts[:n_mels])
     weights *= enorm[:, None]
     return weights.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def mel_pinv(
+    sample_rate: int,
+    n_fft: int,
+    n_mels: int,
+    fmin: float = 0.0,
+    fmax: float | None = None,
+) -> np.ndarray:
+    """(n_fft//2 + 1, n_mels) float32: the Moore-Penrose pseudo-inverse of
+    ``mel_filterbank``, computed in float64. The filterbank has full row
+    rank, so filterbank @ pinv is the identity. Cached like
+    ``mel_filterbank``."""
+    fb = mel_filterbank(sample_rate, n_fft, n_mels, fmin, fmax).astype(np.float64)
+    return np.linalg.pinv(fb).astype(np.float32)

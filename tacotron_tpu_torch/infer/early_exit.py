@@ -20,13 +20,21 @@ kernel (``ops/decode_chunk.py``) after the chunk's dropout draws, and the
 launch applies the exit rule too; ``WhileDecode.run_chunk_plain`` is its
 plain counterpart. The fixed decode on the device runs the same kernel, so
 the two decodes stay bit-equal there.
+
+Given Tacotron 2's step weights (``models/tacotron2.py`` ``StepWeights``),
+``while_decoder_step`` makes Tacotron 2's step and ``WhileDecode`` exits by
+its stop gate instead of silence; its chunk is ``run_chunk_plain`` on every
+device (a CUDA graph of library operations on the card).
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
+from tacotron_tpu_torch.models import tacotron2
 from tacotron_tpu_torch.ops.attn_energy import energy_contract, energy_tanh
 from tacotron_tpu_torch.ops.decode_chunk import (DecodeChunk, ExitCarry, decode_inputs,
                                                  draw_masks, zero_state)
@@ -66,7 +74,8 @@ def end_frames_device(mel: torch.Tensor, threshold: float = 0.05,
     return torch.where(run_all.any(dim=1), idx, torch.full_like(idx, t))
 
 
-def while_decoder_step(memory, keys, mask, w: DecoderWeights, *, dropout_rate: float,
+def while_decoder_step(memory, keys, mask, w: DecoderWeights | tacotron2.StepWeights, *,
+                       dropout_rate: float,
                        generator: torch.Generator | None):
     """(initial state, ``step``) of JAX ``decode_while``'s loop body, in f32.
     ``state, frames, alpha = step(state)`` runs one feed-previous step; the
@@ -89,7 +98,13 @@ def while_decoder_step(memory, keys, mask, w: DecoderWeights, *, dropout_rate: f
     so under bf16 compute it follows JAX's ``decode_while``, not the bf16
     cell. Nothing in the step reads the host or sizes an allocation from
     data, so it can be captured in a CUDA graph.
+
+    Given Tacotron 2's ``StepWeights`` it is ``tacotron2.decoder_step``:
+    the state is then Tacotron 2's, its last entry the step's gate logit.
     """
+    if isinstance(w, tacotron2.StepWeights):
+        return tacotron2.decoder_step(memory, keys, mask, w, dropout_rate=dropout_rate,
+                                      generator=generator)
     b, t_in, m_dim = memory.shape
     n_mels = w.p_w0.shape[1]
     r = w.f_w.shape[0] // n_mels
@@ -150,10 +165,19 @@ class WhileDecode:
     plain PyTorch, in the kernel's order, its steps drawing the masks that
     ``draw_masks`` draws: what ``run_chunk`` runs on the CPU, and the
     kernel's reference on the card.
+
+    Tacotron 2 (``gate``: its ``StepWeights``) ends each row by its stop
+    gate: a row is active from the start until the step, included, whose
+    gate logit is over logit(``w.gate_threshold``); its slots after that are
+    zero, and ``lengths`` (B,) counts its active steps. A step is active
+    for the loop while ``t < n_steps`` and some row is, and ``t`` counts
+    those steps; the loop is done when ``t`` reaches ``n_steps`` or every
+    row has ended (``ended`` (B,) bool). ``run_chunk`` is
+    ``run_chunk_plain`` on every device.
     """
 
-    def __init__(self, memory, keys, mask, w: DecoderWeights, generator=None, *,
-                 n_steps: int, r: int, n_mels: int, dropout_rate: float = 0.0,
+    def __init__(self, memory, keys, mask, w: DecoderWeights | tacotron2.StepWeights,
+                 generator=None, *, n_steps: int, r: int, n_mels: int, dropout_rate: float = 0.0,
                  silence_threshold: float = 0.05, min_silence_steps: int = 3):
         b, t_in, _ = memory.shape
         if w.f_w.shape[0] != r * n_mels:
@@ -171,7 +195,12 @@ class WhileDecode:
         self.frames = memory.new_zeros(b, n_steps + chunk, r * n_mels)
         self.aligns = memory.new_zeros(b, n_steps + chunk, t_in)
         self._w, self._gen, self.rate = w, generator, dropout_rate
-        self.kernel = dev.type == "cuda"
+        self.gate = isinstance(w, tacotron2.StepWeights)
+        if self.gate:
+            self.logit = math.log(w.gate_threshold / (1.0 - w.gate_threshold))
+            self.ended = torch.zeros(b, dtype=torch.bool, device=dev)
+            self.lengths = torch.zeros(b, dtype=torch.int64, device=dev)
+        self.kernel = dev.type == "cuda" and not self.gate
         if self.kernel:
             self.done = torch.zeros((), dtype=torch.bool, device=dev)
             self._launch = DecodeChunk(
@@ -181,7 +210,8 @@ class WhileDecode:
                     min_steps=min_silence_steps, n_steps=n_steps))
 
     def _done(self, t, run):
-        return (t >= self.n_steps) | (run >= self.min_steps).all()
+        """``run``: the silent runs, or with the gate the rows' ``ended``."""
+        return (t >= self.n_steps) | (run.all() if self.gate else (run >= self.min_steps).all())
 
     def draw_masks(self) -> list:
         """The chunk's dropout draws, as its steps draw them one by one: per
@@ -209,7 +239,12 @@ class WhileDecode:
             state, frames, align = self._step(state)
             self.frames.index_copy_(1, slot0 + k, frames[:, None])
             self.aligns.index_copy_(1, slot0 + k, align[:, None])
-            silent.append(frames.amax(dim=-1) < self.threshold)
+            silent.append(state[-1] > self.logit if self.gate
+                          else frames.amax(dim=-1) < self.threshold)
+        for dst, src in zip(self.state, state):
+            dst.copy_(src)
+        if self.gate:
+            return self._gate_rule(slot0, silent)
         t, run = self.t, self.silent_run
         for k in range(self.chunk):
             active = ~self._done(t, run)
@@ -218,12 +253,37 @@ class WhileDecode:
                                                           0.0))
             run = torch.where(active, torch.where(silent[k], run + 1, 0), run)
             t = t + active
-        for dst, src in zip(self.state, state):
-            dst.copy_(src)
         self.t.copy_(t)
         self.slot.copy_(slot0 + self.chunk)
         self.silent_run.copy_(run)
         return self._done(t, run)
+
+    def _gate_rule(self, slot0, opened) -> torch.Tensor:
+        """The stop gate's exit rule over the chunk's steps in order;
+        ``opened[k]``: the rows whose gate opened at step k."""
+        t, ended, lengths = self.t, self.ended, self.lengths
+        for k in range(self.chunk):
+            live = ~self._done(t, ended)
+            active = live & ~ended
+            for buf in (self.frames, self.aligns):
+                buf.index_copy_(1, slot0 + k, torch.where(
+                    active[:, None, None], buf.index_select(1, slot0 + k), 0.0))
+            lengths = lengths + active
+            ended = ended | (active & opened[k])
+            t = t + live
+        self.t.copy_(t)
+        self.slot.copy_(slot0 + self.chunk)
+        self.ended.copy_(ended)
+        self.lengths.copy_(lengths)
+        return self._done(t, ended)
+
+    def gate_ends(self) -> torch.Tensor | None:
+        """With the gate, (B + 2,) int64 on the device: each row's end frame
+        (its active steps times r), then ``t`` and the rows whose gate
+        opened, so one copy takes all three to the host; else None."""
+        if not self.gate:
+            return None
+        return torch.cat([self.lengths * self.r, self.t[None], self.ended.sum()[None]])
 
     def outputs(self):
         """-> (mel (B, n_steps*r, n_mels), alignments (B, n_steps, T_in)) of

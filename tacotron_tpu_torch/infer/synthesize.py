@@ -47,6 +47,14 @@ after them, eagerly, as JAX's gather to the host follows its jits. With no
 trimming, Griffin-Lim's length is fixed by the shape. A mesh over gloo runs
 eagerly: gloo's collectives go through host copies
 (``parallel/collectives.py``), which no graph can capture.
+
+``cfg.tacotron2`` set serves Tacotron 2 (``models/tacotron2.py``) on the
+split path with its stop gate: the preamble graph (encoder, keys, mask, the
+zeroed carry), the chunk graph of ``DECODE_CHUNK`` Tacotron 2 steps in
+library operations, replayed until every row's gate has opened or the cap,
+and the post-net graph (the conv post-net and ``mel_to_linear``); the end
+frames, and with them Griffin-Lim's length, come from the gate. The fused
+decode and a mesh are refused.
 """
 
 from __future__ import annotations
@@ -63,6 +71,7 @@ from tacotron_tpu_torch.data.vocab import Vocab
 from tacotron_tpu_torch.dsp.audio import gl_spectrum, spectrogram_magnitude, spectrum_to_wav
 from tacotron_tpu_torch.infer.early_exit import WhileDecode, end_frames_device, run_until_done
 from tacotron_tpu_torch.models.tacotron import Tacotron, length_mask
+from tacotron_tpu_torch.models.tacotron2 import Tacotron2
 from tacotron_tpu_torch.ops.decode_loop import decode_loop, pack_decoder_weights
 from tacotron_tpu_torch.parallel.collectives import all_gather_cat
 from tacotron_tpu_torch.runtime import resolve_device
@@ -141,8 +150,11 @@ class Synthesizer:
     spans, and the counters ``chunks`` (early-exit chunks run),
     ``decode_kernel_chunks`` (those run by the step decode's kernel), ``t_gl``
     (Griffin-Lim's frames), ``d2h_bytes`` (bytes read to the host) and
-    ``graphed``. Each graph holds its stage marks as event nodes (none in
-    the chunk graph, whose replays are marked from the host).
+    ``graphed``; with Tacotron 2 also ``decode_steps`` (the steps the loop
+    ran before its exit) and ``gate_rows`` (rows whose gate opened before
+    the cap), read in the copy of the end frames. Each graph holds its
+    stage marks as event nodes (none in the chunk graph, whose replays are
+    marked from the host).
 
     Graphs point at the model's tensors: a ``load_state_dict`` into
     ``self.model`` copies in place and keeps them; when the tensors'
@@ -154,6 +166,10 @@ class Synthesizer:
     def __init__(self, cfg: Config, params, batch_stats, vocab: Vocab,
                  fused: bool = False, mesh=None, device=None):
         icfg = cfg.infer
+        self.gate = cfg.tacotron2 is not None
+        if self.gate and (fused or mesh is not None):
+            raise ValueError("Tacotron 2 runs the early-exit decode on one device: "
+                             "drop fused=True and the mesh")
         if fused and (icfg.early_exit or icfg.trim_before_gl):
             # refusing beats silently decoding the full fixed length (the
             # compute saving the flags promise would never happen)
@@ -173,9 +189,12 @@ class Synthesizer:
         self.vocab = vocab
         self.fused = fused
         self.mesh = mesh
-        self.split = icfg.early_exit or icfg.trim_before_gl
+        # Tacotron 2 always decodes until its gate (``WhileDecode``)
+        self.exit_loop = icfg.early_exit or self.gate
+        self.split = self.exit_loop or icfg.trim_before_gl
         self.device = resolve_device(device)
-        self.model = Tacotron(cfg.model, device=self.device)
+        self.model = (Tacotron2(cfg.model, cfg.tacotron2, cfg.audio, device=self.device)
+                      if self.gate else Tacotron(cfg.model, device=self.device))
         self.model.load_state_dict({**params, **batch_stats}, strict=True)
         self.model.eval()
         self.graphs: collections.OrderedDict = collections.OrderedDict()
@@ -289,9 +308,10 @@ class Synthesizer:
         early-exit decode (JAX's ``decode_while``)."""
         mcfg, icfg = self.cfg.model, self.cfg.infer
         memory, keys, mask = self._encode(text, lengths, gen)
+        dec = self.model.decoder
         loop = WhileDecode(
-            memory, keys, mask, pack_decoder_weights(self.model.decoder.cell), gen,
-            n_steps=n_steps, r=mcfg.r, n_mels=mcfg.n_mels, dropout_rate=mcfg.prenet_dropout,
+            memory, keys, mask, dec.step_weights() if self.gate else pack_decoder_weights(dec.cell),
+            gen, n_steps=n_steps, r=mcfg.r, n_mels=mcfg.n_mels, dropout_rate=mcfg.prenet_dropout,
             silence_threshold=icfg.silence_threshold,
             # the stop unit is a decoder step = r frames
             min_silence_steps=max(1, -(-icfg.min_silence_frames // mcfg.r)))
@@ -322,21 +342,28 @@ class Synthesizer:
         ``chunk_gap``."""
         profiling.mark("chunk_gap")
         mel, align = loop.outputs()
-        return (mel, align, *self._post(mel))
+        return (mel, align, *self._post(mel, loop.gate_ends()))
 
-    def _post(self, mel):
-        """-> (linear, end frames (B,) on the device)."""
+    def _post(self, mel, ends=None):
+        """-> (linear, end frames on the device: ``ends`` when given (the
+        gate's, ``WhileDecode.gate_ends``), else (B,) from silence)."""
         icfg = self.cfg.infer
-        out = self.model.postnet(mel), end_frames_device(
+        out = self.model.postnet(mel), ends if ends is not None else end_frames_device(
             mel, threshold=icfg.silence_threshold, min_run=icfg.min_silence_frames)
         profiling.mark("postnet")
         return out
 
     def _ends_to_host(self, ends) -> np.ndarray:
         """The (B,) end frames read to the host: the split path's one read
-        before Griffin-Lim."""
+        before Griffin-Lim. With the gate the same copy brings the loop's
+        steps and the rows whose gate opened (counted as ``decode_steps``
+        and ``gate_rows``)."""
         ends = _to_host(ends)
         profiling.mark("to_host")
+        if self.gate:
+            profiling.count("decode_steps", int(ends[-2]))
+            profiling.count("gate_rows", int(ends[-1]))
+            ends = ends[:-2]
         return ends
 
     def _gl(self, linear, gl_iters):
@@ -370,7 +397,7 @@ class Synthesizer:
             text, lengths, n_real = self._mesh_rows(text, lengths)
             mel, align, linear = self._mesh_model(text, lengths, gen, n_steps)
             return self._mesh_gather(n_real, mel, align, linear, self._gl(linear, gl_iters)[0])
-        if self.cfg.infer.early_exit:
+        if self.exit_loop:
             loop = self._while_decode(text, lengths, gen, n_steps)
             self._decode_chunks(loop.run_chunk, loop)
             mel, align, linear, ends = self._exit_post(loop)
@@ -502,7 +529,7 @@ class Synthesizer:
                 return (mel, linear, align, ends, *self._gl(linear, gl_iters))
 
             capture("synth", synth)
-        elif self.cfg.infer.early_exit:
+        elif self.exit_loop:
             loop = capture("preamble", lambda: self._while_decode(*inputs, gen, n_steps))
             capture("chunk", loop.run_chunk)
             capture("postnet", lambda: self._exit_post(loop))

@@ -15,11 +15,22 @@ fused decode kernel.
 With a bf16 ``compute_dtype`` the query and memory projections are bf16, so
 the energy's tanh runs on bf16 ``keys``/``q``; ``v``, the scores, the
 softmax and the context (over f32 memory) stay f32, as in JAX.
+
+Tacotron 2's location-sensitive attention (Chorowski et al. 2015; Shen et
+al. 2018, section 2.3) adds a location term to the keys:
+
+    score(q, m_j) = v^T tanh(W_q q + W_m m_j + W_l f_j)
+    f = conv1d([alpha_{t-1}; sum of the previous alphas])
+
+``location_term`` computes ``W_l f`` and ``location_scores`` the energy on
+the keys so shifted, through the same helpers; with ``W_l`` zero it is the
+additive energy above.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from tacotron_tpu_torch.ops.attn_energy import attention_energy, attention_energy_reference
@@ -36,6 +47,22 @@ def energy_scores(keys, q, v, form: str = "xla"):
     if form == "xla":
         return attention_energy_reference(keys, q, v)
     raise ValueError(f"attention_energy must be one of {ENERGY_FORMS}, got {form!r}")
+
+
+def location_term(alpha, alpha_cum, conv_w, dense_w):
+    """``W_l f``: the previous alignment and the sum of the alignments
+    before it, each (B, T_in), through a bias-free conv1d of (F, 2, K)
+    weights with (K - 1) / 2 zeros on each side (K odd), then a bias-free
+    Dense F -> A of (A, F) weights -> (B, T_in, A)."""
+    pad = (conv_w.shape[-1] - 1) // 2
+    f = F.conv1d(torch.stack([alpha, alpha_cum], 1), conv_w, padding=pad)
+    return F.linear(f.transpose(1, 2), dense_w)
+
+
+def location_scores(keys, q, v, location):
+    """keys (B, T_in, A), q (B, A), v (A, 1), the location term (B, T_in, A)
+    -> scores (B, T_in) f32: ``energy_scores`` on ``keys + location``."""
+    return energy_scores(keys + location, q, v)
 
 
 class BahdanauAttention(nn.Module):
