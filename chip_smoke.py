@@ -60,7 +60,10 @@ Phases, in order; any failure raises and exits non-zero:
    point;
 7. K3's, K4's, K5's, the step decode's (its 63 launches at [fast]'s shapes,
    held within STEP_DECODE_TOL of ``WhileDecode.run_chunk_plain`` on the same
-   masks) and the probes' time at their paths' shapes beside
+   masks), Tacotron 2's step decode's ([t2]: its launches counted on the
+   serving path, ``Synthesizer`` at the published widths, B 8, T_in 160,
+   1000 steps; held within T2_DECODE_TOL of ``run_chunk_plain`` on the same
+   masks over the whole decode) and the probes' time at their paths' shapes beside
    the plain version, a library yardstick and the bound (P1 at 48 and 227
    KiB; P2 with its floor, an empty kernel on the same cluster, threads and
    shared memory); K3 at every cluster size (1, 2, 4, 8, 16) with the card's count of
@@ -375,6 +378,10 @@ GRAPH_SYNTH_ATOL = 1e-5
 # [timing]: the step decode's kernel against its plain counterpart on the same
 # masks, 500 steps at [fast]'s shapes, f32 (summation order only)
 STEP_DECODE_TOL = 1e-5
+# [t2]: Tacotron 2's step decode kernel against its plain chunk on the same
+# masks over 1000 steps at the serving cell's shapes, f32 (summation order
+# only): frames, alignments and the state
+T2_DECODE_TOL = 1e-5
 # [train-graph] (b): one capturable Adam update (f32, bias corrections on the
 # device) against optax's formula in f64 on the same moments and clipped
 # gradients: every updated weight within this share of the update's LR
@@ -2693,6 +2700,149 @@ def step_decode_timing(report, fast_cfg, fast_res, vocab):
         f"{2 * n}+ mask draws ({draws_ms:.3f} ms) {loop_ms:.3f} ms; plain {p_ms:.3f} ms; bound "
         f"{dbound[0]:.4f} ms by {dbound[1]}; against its plain counterpart {err}")
     report["checks"]["step_decode_fast_shapes"] = {**err, "tol": STEP_DECODE_TOL}
+    del synth
+    return row
+
+
+def t2_config(vocab, n_steps=1000):
+    """``synth_fast`` at Tacotron 2's published widths (the serving cell's
+    ``tacotron2_f32``: r 1, pre-net 2 x 256, attention 128, 1000 steps, mels
+    125 Hz-7.6 kHz, power 1.2)."""
+    from tacotron_tpu_torch.config import Tacotron2Config, get_config
+    base = get_config("synth_fast")
+    return base.replace(
+        model=dataclasses.replace(base.model, vocab_size=len(vocab), embed_dim=512,
+                                  prenet_dims=(256, 256), attention_dim=128, r=1,
+                                  max_decode_steps=n_steps),
+        audio=dataclasses.replace(base.audio, fmin=125.0, fmax=7600.0, griffin_lim_power=1.2),
+        tacotron2=Tacotron2Config())
+
+
+def t2_model(cfg, dev, seed=0):
+    """Tacotron 2 with seeded random weights (``init_params``, every bias 0)
+    and its stop gate shut (bias -10): every row decodes all the steps."""
+    from tacotron_tpu_torch.models.tacotron2 import Tacotron2
+    from tacotron_tpu_torch.weights import init_params
+    model = init_params(Tacotron2(cfg.model, cfg.tacotron2, cfg.audio, device=dev), seed=seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.rsplit(".", 1)[-1].startswith("bias"):
+                p.zero_()
+        model.decoder.gate.bias.fill_(-10.0)
+    return model.eval()
+
+
+def t2_decode_timing(report, vocab):
+    """[t2] Tacotron 2's step decode kernel (S2, ``ops/t2_decode_chunk.py``)
+    on its serving path: ``Synthesizer`` at the published widths
+    (``t2_config``, ``t2_model``) on 8 prompts of 146-160 characters (B 8,
+    T_in 160), 1000 steps a row; after an eager call, a capture and a
+    replay, one replayed call with the launch counts set to 0 just before
+    it, its kernel launches = its stage clock's ``chunks`` and
+    ``decode_kernel_chunks`` (125). Then on that call's encoder outputs,
+    as ``WhileDecode`` runs them (draws, one launch a chunk, pre-net
+    dropout 0.5): the kernel held to ``run_chunk_plain`` on the same masks
+    over the 1000 steps (T2_DECODE_TOL), its device time by torch.profiler,
+    the whole loop's by CUDA events, the plain chunk's (eager), and the
+    byte bound (every step weight, memory and keys read once a step, f32).
+    -> the kernel table's row."""
+    from tacotron_tpu_torch import runtime
+    from tacotron_tpu_torch.infer.early_exit import WhileDecode, run_until_done
+    from tacotron_tpu_torch.infer.synthesize import Synthesizer
+    from tacotron_tpu_torch.models.tacotron import length_mask
+    from tacotron_tpu_torch.utils import profiling
+
+    dev = torch.device("cuda")
+    cfg = t2_config(vocab)
+    n = cfg.model.max_decode_steps
+    texts = [(p + " " + PROMPTS[(i + 1) % len(PROMPTS)])[:160 - 2 * i]
+             for i, p in enumerate(PROMPTS)]
+    log(f"[t2] Tacotron 2 at the published widths: Synthesizer, B {len(texts)}, "
+        f"{min(map(len, texts))}-{max(map(len, texts))} characters, {n} steps (gate shut)")
+    model = t2_model(cfg, dev)
+    params = dict(model.named_parameters())
+    synth = Synthesizer(cfg, params, {k: v for k, v in model.state_dict().items()
+                                      if k not in params}, vocab)
+    for seed in range(3):                       # eager, capture, replay
+        synth(texts, seed=seed)
+    runtime.LAUNCHES.clear()
+    with profiling.tracing():
+        t0 = time.perf_counter()
+        out = synth(texts, seed=3)
+        wall = time.perf_counter() - t0
+        counters = profiling.records()[-1]["counters"]
+    launches = dict(runtime.LAUNCHES)
+    chunks = -(-n // 8)
+    log(f"  replayed call: {wall * 1e3:.2f} ms, {out['audio_seconds'] / wall:.2f} audio-s/s; "
+        f"launches {launches}; counters {counters}")
+    require(out["graphed"] and launches.get("t2_decode_chunk") == counters["chunks"]
+            == counters["decode_kernel_chunks"] == chunks,
+            f"[t2] the replayed call launched the kernel once a chunk, {chunks} chunks "
+            f"({launches.get('t2_decode_chunk')}, {counters['chunks']}, "
+            f"{counters['decode_kernel_chunks']})")
+
+    text, lengths = synth.encode_texts(texts)
+    mask = length_mask(text.shape[1], lengths)
+    with torch.no_grad():
+        memory = model.encoder(text, lengths)
+        keys = model.memory_proj(memory)
+    w = model.decoder.step_weights()
+
+    def loop():
+        return WhileDecode(memory, keys, mask, w, torch.Generator(device=dev).manual_seed(5),
+                           n_steps=n, r=1, n_mels=cfg.model.n_mels,
+                           dropout_rate=cfg.model.prenet_dropout)
+
+    def run(lp, plain=False):
+        return run_until_done(lp.run_chunk_plain if plain else lp.run_chunk, n, lp.chunk)
+
+    with torch.no_grad():
+        kernel, plain = loop(), loop()
+        k_chunks = run(kernel)
+        run(plain, plain=True)
+        err = {"frames": max_err(kernel.frames, plain.frames),
+               "alignments": max_err(kernel.aligns, plain.aligns),
+               "state": max(max_err(a, b) for a, b in zip(kernel.state, plain.state))}
+        carry = all(torch.equal(a, b) for a, b in ((kernel.t, plain.t),
+                                                    (kernel.ended, plain.ended),
+                                                    (kernel.lengths, plain.lengths)))
+        kern = device_kernels(lambda: run(loop()))
+        k_ms = sum(ms for k, (ms, _) in kern.items() if "t2_decode_kernel" in k)
+        draws_ms = sum(ms for k, (ms, _) in kern.items() if "t2_decode_kernel" not in k)
+        loops = [loop() for _ in range(3)]
+        loop_ms = cuda_ms(lambda: run(loops.pop()), reps=3)
+        p_ms = cuda_ms(lambda: run(loop(), plain=True))
+    require(k_chunks == chunks and int(kernel.t) == n and carry,
+            f"[t2] the kernel ran {chunks} chunks, all {n} steps, its carry equal to the plain "
+            f"chunk's")
+    require(max(err.values()) <= T2_DECODE_TOL,
+            f"[t2] the kernel within {T2_DECODE_TOL} of run_chunk_plain at B {memory.shape[0]}, "
+            f"T_in {memory.shape[1]} over {n} steps: {err}")
+    tensors = [x for f in w if isinstance(f, (tuple, torch.Tensor))
+               for x in (f if isinstance(f, tuple) else (f,))]
+    byts = sum(x.numel() * x.element_size() for x in tensors) + 4 * (memory.numel()
+                                                                    + keys.numel())
+    flops = 2 * memory.shape[0] * sum(x.numel() for x in tensors if x.ndim >= 2)
+    step_ms, by = bound(byts, flops, "f32")
+    row = {"name": "t2_decode_chunk", "route": "cuda",
+           "source": "tacotron_tpu_torch/csrc/t2_decode_chunk.cu",
+           "replaces": "Tacotron 2's early-exit decode chunk in library operations "
+                       "(run_chunk_plain); no TPU kernel",
+           "launches": launches["t2_decode_chunk"], "path": "[t2]",
+           "max_abs_err": max(err.values()), "max_abs_err_of": err,
+           "ms": k_ms, "loop_ms": loop_ms, "draws_ms": draws_ms, "plain_ms": p_ms,
+           "bound_ms": step_ms * n, "bound_ms_per_step": step_ms, "bound_by": by,
+           "bound_bytes_per_step": byts, "library_ms": None,
+           "shape": f"B {memory.shape[0]} T_in {memory.shape[1]} steps {n} f32, chunks of "
+                    f"{kernel.chunk}, ring of {kernel._launch.stages} stages",
+           "us_per_step": k_ms / n * 1e3, "roofline_pct": 100 * step_ms * n / k_ms,
+           "launches_per_call": chunks, "call_ms": wall * 1e3}
+    log(f"  t2_decode_chunk: {k_ms:.3f} ms of device time over {chunks} launches, "
+        f"{k_ms / n * 1e3:.2f} us per step against a bound of {step_ms:.4f} ms per step "
+        f"({byts / 1e6:.2f} MB by {by}; {row['roofline_pct']:.2f}%); the loop with its "
+        f"{2 * n} mask draws ({draws_ms:.3f} ms) {loop_ms:.3f} ms; plain {p_ms:.3f} ms; "
+        f"against its plain counterpart {err}")
+    report["checks"]["t2_decode_serving_shapes"] = {**err, "tol": T2_DECODE_TOL}
     del synth
     return row
 
@@ -5080,6 +5230,7 @@ def main(argv=None) -> int:
         kernels += phase_timing_serving(report, fast_cfg, fast_res, mag_fast, mag_main, launches,
                                         stream)
         kernels.append(step_decode_timing(report, fast_cfg, fast_res, vocab))
+        kernels.append(t2_decode_timing(report, vocab))
         phase_lowp_convergence(report, fast_cfg.audio, mag_main)
         del mag_main, mag_fast
         graphs = {"synth_graph": phase_synth_graph(report, cfg, vocab),

@@ -23,8 +23,9 @@ the two decodes stay bit-equal there.
 
 Given Tacotron 2's step weights (``models/tacotron2.py`` ``StepWeights``),
 ``while_decoder_step`` makes Tacotron 2's step and ``WhileDecode`` exits by
-its stop gate instead of silence; its chunk is ``run_chunk_plain`` on every
-device (a CUDA graph of library operations on the card).
+its stop gate instead of silence; on a CUDA device its chunk is the draws
+and one launch of Tacotron 2's own step decode kernel
+(``ops/t2_decode_chunk.py``), which applies the gate's rule too.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from tacotron_tpu_torch.ops.decode_chunk import (DecodeChunk, ExitCarry, decode_
 from tacotron_tpu_torch.ops.decode_loop import DecoderWeights
 from tacotron_tpu_torch.ops.gru import gru_cell_step
 from tacotron_tpu_torch.ops.modules import dense, dropout
+from tacotron_tpu_torch.ops.t2_decode_chunk import GateCarry, T2DecodeChunk
 
 
 def end_frames(mel: np.ndarray, threshold: float = 0.05,
@@ -172,8 +174,11 @@ class WhileDecode:
     zero, and ``lengths`` (B,) counts its active steps. A step is active
     for the loop while ``t < n_steps`` and some row is, and ``t`` counts
     those steps; the loop is done when ``t`` reaches ``n_steps`` or every
-    row has ended (``ended`` (B,) bool). ``run_chunk`` is
-    ``run_chunk_plain`` on every device.
+    row has ended (``ended`` (B,) bool). On a CUDA device ``run_chunk``
+    draws the chunk's masks and launches Tacotron 2's kernel
+    (``ops/t2_decode_chunk.py``), which applies this rule too; a shape
+    outside its limits raises its ``ValueError`` here, as the Tacotron 1
+    kernel's does. ``run_chunk_plain`` runs on the CPU.
     """
 
     def __init__(self, memory, keys, mask, w: DecoderWeights | tacotron2.StepWeights,
@@ -200,14 +205,21 @@ class WhileDecode:
             self.logit = math.log(w.gate_threshold / (1.0 - w.gate_threshold))
             self.ended = torch.zeros(b, dtype=torch.bool, device=dev)
             self.lengths = torch.zeros(b, dtype=torch.int64, device=dev)
-        self.kernel = dev.type == "cuda" and not self.gate
+        self.kernel = dev.type == "cuda"
         if self.kernel:
             self.done = torch.zeros((), dtype=torch.bool, device=dev)
-            self._launch = DecodeChunk(
-                *decode_inputs(memory, keys, mask), w, self.state, self.frames, self.aligns,
-                dropout_rate=dropout_rate, exit=ExitCarry(
-                    self.t, self.silent_run, self.slot, self.done, threshold=silence_threshold,
-                    min_steps=min_silence_steps, n_steps=n_steps))
+            inputs = decode_inputs(memory, keys, mask)
+            if self.gate:
+                self._launch = T2DecodeChunk(
+                    *inputs, w, self.state, self.frames, self.aligns, GateCarry(
+                        self.t, self.ended, self.lengths, self.slot, self.done, self.logit,
+                        n_steps), dropout_rate=dropout_rate)
+            else:
+                self._launch = DecodeChunk(
+                    *inputs, w, self.state, self.frames, self.aligns, dropout_rate=dropout_rate,
+                    exit=ExitCarry(self.t, self.silent_run, self.slot, self.done,
+                                   threshold=silence_threshold, min_steps=min_silence_steps,
+                                   n_steps=n_steps))
 
     def _done(self, t, run):
         """``run``: the silent runs, or with the gate the rows' ``ended``."""

@@ -37,7 +37,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 DEFAULT_BUILD_DIR = PACKAGE_DIR.parent / "build" / "tacotron_tpu_torch"
 # read when a library is looked up or built, not when a module is imported
 BUILD_DIR = DEFAULT_BUILD_DIR
-KERNEL_SOURCES = ("attn_energy", "decode_chunk", "decode_loop", "griffin_lim", "probe")
+KERNEL_SOURCES = ("attn_energy", "decode_chunk", "decode_loop", "griffin_lim", "probe",
+                  "t2_decode_chunk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
